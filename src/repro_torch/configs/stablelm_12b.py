@@ -1,0 +1,16 @@
+"""stablelm-12b [dense] — hf:stabilityai/stablelm-2-12b family."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-12b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=13824,
+    vocab=100352,
+    norm="layernorm",
+    act="swiglu",
+    rope_theta=10_000.0,
+)

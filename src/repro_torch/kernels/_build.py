@@ -1,0 +1,108 @@
+"""Build and load the CUDA kernels of this package.
+
+Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
+header, so ``nvcc`` builds it in seconds. ``load(name)`` compiles the source
+for ``sm_90a`` into a shared library at first use and opens it with
+``ctypes``; all sources are compiled together, one ``nvcc`` process each, so
+the first kernel's launch pays for the whole set once. Libraries are keyed by
+a hash of the source and the flags: an edit rebuilds, an unchanged source is
+reused. Nothing is built when the module is imported, and a machine without
+``nvcc`` can import it; only the first launch needs the compiler.
+
+The build directory is ``build/`` at the root of the checkout.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+#: nvcc processes started since import: stays put while libraries are reused
+n_compiles = 0
+#: what ``ptxas -v`` said of each source at its last compile (registers, shared memory, spills)
+ptxas_log: Dict[str, str] = {}
+
+
+def build_dir() -> Path:
+    return Path(__file__).resolve().parents[3] / "build"
+
+
+def find_nvcc() -> str:
+    candidates = [shutil.which("nvcc")]
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            candidates.append(str(Path(os.environ[var]) / "bin" / "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for cand in candidates:
+        if cand and Path(cand).is_file():
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, $CUDA_HOME/bin and /usr/local/cuda/bin): "
+        "the CUDA kernels of repro_torch are compiled from source at first use"
+    )
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _target(src: Path) -> Path:
+    h = hashlib.sha256()
+    h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source that has no up-to-date library; returns name -> path."""
+    global n_compiles
+    targets = {src.stem: (src, _target(src)) for src in sources()}
+    todo: List[Tuple[Path, Path]] = [
+        (src, out) for src, out in targets.values() if not out.exists()
+    ]
+    if todo:
+        nvcc = find_nvcc()
+        build_dir().mkdir(parents=True, exist_ok=True)
+        procs = []
+        for src, out in todo:
+            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            n_compiles += 1
+            procs.append((src, out, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        failures = []
+        for src, out, tmp, cmd, proc in procs:
+            log, _ = proc.communicate()
+            ptxas_log[src.stem] = log
+            if proc.returncode != 0:
+                failures.append(f"$ {' '.join(cmd)}\n{log}")
+            else:
+                os.replace(tmp, out)  # atomic: a reader never sees a half-written library
+        if failures:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return {name: out for name, (_, out) in targets.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The shared library built from ``csrc/<name>.cu``."""
+    with _lock:
+        if name not in _libs:
+            paths = build_all()
+            if name not in paths:
+                raise KeyError(f"no kernel source csrc/{name}.cu")
+            _libs[name] = ctypes.CDLL(str(paths[name]))
+        return _libs[name]

@@ -1,0 +1,125 @@
+"""The port stands alone: ``repro_torch`` imports, and serves, with ``jax``
+and the ``repro`` package made unimportable; and what it copied from the
+reference (configs, the synthetic data stream) is equal to the original.
+"""
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+
+_PROBE = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "repro"):
+    sys.modules[name] = None  # any `import jax...` / `import repro...` now raises ImportError
+
+import torch
+import repro_torch
+import repro_torch.configs.base
+import repro_torch.configs.registry
+import repro_torch.convert
+import repro_torch.data.synthetic
+import repro_torch.kernels._build
+import repro_torch.kernels.decode_attention
+import repro_torch.kernels.flash_attention
+import repro_torch.kernels.ops
+import repro_torch.kernels.ref
+import repro_torch.models.attention
+import repro_torch.models.losses
+import repro_torch.models.model_api
+import repro_torch.models.module
+import repro_torch.models.transformer
+import repro_torch.runtime.serve_step
+import repro_torch.sharding.plan
+
+# importing built nothing and needs no compiler
+from repro_torch.kernels import _build
+assert _build.n_compiles == 0
+assert len(_build.sources()) == 2
+
+# and the slice runs end to end on the CPU
+from repro_torch.configs.registry import get_config
+from repro_torch.data import synthetic
+from repro_torch.models.model_api import build_model
+from repro_torch.runtime.serve_step import greedy_generate
+from repro_torch.sharding.plan import make_plan
+
+cfg = get_config("granite-3-2b").reduced()
+model = build_model(cfg)
+params = model.init(torch.Generator().manual_seed(0), "cpu")
+prompt = torch.from_numpy(synthetic.token_batch(cfg.vocab, 2, 8, seed=7)["tokens"])
+out = greedy_generate(model, params, prompt, 3, make_plan(cfg, None))
+assert out.shape == (2, 3)
+assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
+print("PORT-STANDS-ALONE")
+"""
+
+
+def test_port_imports_and_serves_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "PORT-STANDS-ALONE" in proc.stdout
+
+
+def test_no_source_of_the_port_names_jax_or_repro():
+    pattern = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro[. ])", re.M)
+    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "examples" / "serve_lm_torch.py"]
+    assert len(files) > 20
+    hits = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
+    assert hits == []
+
+
+def test_configs_equal_the_reference_field_by_field():
+    from repro.configs import registry as jreg
+    from repro_torch.configs import registry as treg
+
+    assert list(treg.CONFIGS) == list(jreg.CONFIGS)
+    assert list(treg.ASSIGNED) == list(jreg.ASSIGNED)
+    for name, want in jreg.CONFIGS.items():
+        got = treg.CONFIGS[name]
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+        assert dataclasses.asdict(got.reduced()) == dataclasses.asdict(want.reduced()), name
+        assert (got.padded_vocab, got.resolved_head_dim, got.q_groups) == (
+            want.padded_vocab, want.resolved_head_dim, want.q_groups)
+    assert treg.dryrun_grid() == jreg.dryrun_grid()
+    with pytest.raises(KeyError, match="unknown arch"):
+        treg.get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("seed,epoch,step", [(0, 0, 0), (7, 0, 0), (3, 2, 11)])
+def test_token_batch_gives_the_same_bytes(seed, epoch, step):
+    from repro.data import synthetic as jsyn
+    from repro_torch.data import synthetic as tsyn
+
+    extras = {"patches": ((2, 3, 8), "bfloat16")}
+    want = jsyn.token_batch(49155, 4, 33, seed=seed, epoch=epoch, step=step, extras=extras)
+    got = tsyn.token_batch(49155, 4, 33, seed=seed, epoch=epoch, step=step, extras=extras)
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype and got[key].tobytes() == want[key].tobytes(), key
+
+
+def test_batch_for_gives_the_same_bytes():
+    from repro.configs.registry import get_config as jget
+    from repro.configs.base import ShapeSuite as JSuite
+    from repro.data import synthetic as jsyn
+    from repro_torch.configs.base import ShapeSuite
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic as tsyn
+
+    for arch in ("granite-3-2b", "llava-next-34b", "resnet_small"):
+        want = jsyn.batch_for(jget(arch).reduced(), JSuite("t", 16, 2, "train"), seed=5, step=3)
+        got = tsyn.batch_for(get_config(arch).reduced(), ShapeSuite("t", 16, 2, "train"), seed=5, step=3)
+        assert set(got) == set(want)
+        for key in want:
+            assert np.asarray(got[key]).tobytes() == np.asarray(want[key]).tobytes(), (arch, key)
