@@ -5,6 +5,8 @@ parameters stacked on a leading ``L`` dim. The port keeps the same tree and
 the same stacking, so conversion is leaf by leaf: names, shapes and types
 are kept. The caller hands over numpy arrays (``jax.device_get`` of the
 reference tree); nothing here imports the reference or its framework.
+``from_jax_train_state`` does the same for a whole train state
+``{"params", "opt": AdamWState(step, m, v)}``.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.optim.adamw import AdamWState
 
 
 def _leaf(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -40,3 +43,20 @@ def from_jax_params(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
         return _leaf(node, dev)
 
     return walk(tree)
+
+
+def from_jax_train_state(state: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """The reference's ``{"params", "opt"}`` train state (numpy leaves) -> the port's.
+
+    ``opt`` may be the reference's ``AdamWState`` or any object with ``step``,
+    ``m`` and ``v``; the step becomes a 0-d int32 tensor, m and v stay f32.
+    """
+    opt = state["opt"]
+    return {
+        "params": from_jax_params(state["params"], device),
+        "opt": AdamWState(
+            step=from_jax_params({"step": np.asarray(opt.step, dtype=np.int32)}, device)["step"],
+            m=from_jax_params(opt.m, device),
+            v=from_jax_params(opt.v, device),
+        ),
+    }

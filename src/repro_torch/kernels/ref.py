@@ -3,7 +3,9 @@
 These are what the kernels are held against on the card and what the
 wrappers run for a tensor that lies on the CPU. They are deliberately
 naive — O(S^2) attention materializing the score matrix in f32 — because
-clarity is the point of an oracle.
+clarity is the point of an oracle. ``flash_attention_bwd_reference`` is the
+plain version of both backward kernels: it recomputes ``p`` from the saved
+``lse`` as they do, rather than differentiating ``mha_reference``.
 """
 from __future__ import annotations
 
@@ -57,6 +59,43 @@ def mha_reference_with_lse(
     p = torch.exp(s - lse[..., None])
     o = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, H, D).to(q.dtype), lse.reshape(B, Sq, H)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,  # (B, KVH, Sq, G, D)
+    k: torch.Tensor,  # (B, KVH, Skv, D)
+    v: torch.Tensor,  # (B, KVH, Skv, D)
+    o: torch.Tensor,  # (B, KVH, Sq, G, D)
+    lse: torch.Tensor,  # (B, KVH, Sq, G) f32
+    do: torch.Tensor,  # (B, KVH, Sq, G, D)
+    *,
+    causal: bool,
+    scale: float,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of flash attention in the folded layout, all in f32 inside.
+
+    ``p = exp(scale * q.k^T - lse)`` is recomputed from the forward's ``lse``,
+    ``delta = sum_d o * do``, ``ds = p * (do.v^T - delta)``; then
+    ``dv = p^T.do``, ``dk = scale * ds^T.q`` and ``dq = scale * ds.k``, the
+    sums over the G folded rows landing on their shared KV head. Outputs come
+    back in the types of q, k and v.
+    """
+    Sq, Skv = q.shape[2], k.shape[2]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bhqgd,bhkd->bhqgk", qf, kf) * scale
+    if causal:
+        q_pos = q_offset + torch.arange(Sq, device=q.device)
+        mask = q_pos[:, None] >= torch.arange(Skv, device=q.device)[None, :]
+        s = torch.where(mask[:, None, :], s, NEG_INF)
+    p = torch.exp(s - lse.float()[..., None])
+    delta = (o.float() * dof).sum(dim=-1)
+    dv = torch.einsum("bhqgk,bhqgd->bhkd", p, dof)
+    dp = torch.einsum("bhqgd,bhkd->bhqgk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dk = torch.einsum("bhqgk,bhqgd->bhkd", ds, qf) * scale
+    dq = torch.einsum("bhqgk,bhkd->bhqgd", ds, kf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_reference(

@@ -3,12 +3,12 @@
 ``xla_flash_attention`` keeps the name of its counterpart in the reference:
 a blocked online-softmax attention over KV blocks in plain PyTorch, so the
 S x S score matrix is never materialized. It is the path of CPU tensors and
-of the calls the flash kernel does not cover (``kv_len`` or ``q_offset``).
+of the calls the flash kernel does not cover (a dynamic ``kv_len``).
 The CUDA kernels in ``repro_torch.kernels`` are the hot path on the card.
 
-Dispatch is decided from the arguments alone (device, ``kv_len``,
-``q_offset``) before anything is launched, never from an exception or from
-process state: a kernel that fails to build or launch raises.
+Dispatch is decided from the arguments alone (device, ``kv_len``) before
+anything is launched, never from an exception or from process state: a
+kernel that fails to build or launch raises.
 """
 from __future__ import annotations
 
@@ -33,13 +33,12 @@ def flash_attention(
 ) -> torch.Tensor:
     """Device dispatch: the CUDA kernel on the card, the blocked path elsewhere.
 
-    A CUDA tensor goes to the flash kernel when ``kv_len is None and
-    q_offset == 0``, at any sequence length (the kernel masks its ragged
-    edge). Every other call, and every CPU tensor, runs
-    ``xla_flash_attention``.
+    A CUDA tensor goes to the flash kernel when ``kv_len is None``, at any
+    sequence length and ``q_offset`` (the kernel masks its ragged edge).
+    Every other call, and every CPU tensor, runs ``xla_flash_attention``.
     """
-    if q.device.type == "cuda" and kv_len is None and q_offset == 0:
-        return ops.flash_attention(q, k, v, causal=causal, scale=scale)
+    if q.device.type == "cuda" and kv_len is None:
+        return ops.flash_attention(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
     return xla_flash_attention(
         q, k, v, causal=causal, block_k=block_k, q_offset=q_offset,
         scale=scale, kv_len=kv_len,

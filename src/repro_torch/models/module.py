@@ -4,14 +4,15 @@ Parameters are nested dicts of tensors, built by pure ``init`` functions and
 consumed by pure ``apply`` functions. Where the reference stacks layer
 parameters on a leading ``L`` dim and scans over them, the port keeps the
 same stacked leaves (so a converted reference tree needs no re-layout) and
-loops over ``L`` in Python, indexing each leaf.
+loops over ``L`` in Python, over views of each leaf.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 Params = Dict[str, Any]
 
@@ -145,12 +146,23 @@ def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
     return fn(tree)
 
 
-def tree_leaves(tree: Any) -> Iterator[torch.Tensor]:
+def tree_paths(tree: Any, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """(path of dict keys, leaf) of every leaf of a nested dict, in insertion order."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from tree_leaves(v)
+        for key, val in tree.items():
+            yield from tree_paths(val, prefix + (str(key),))
     else:
-        yield tree
+        yield prefix, tree
+
+
+def tree_leaves(tree: Any) -> Iterator[torch.Tensor]:
+    return (leaf for _, leaf in tree_paths(tree))
+
+
+def tree_unflatten(like: Any, leaves) -> Any:
+    """A tree shaped like ``like`` whose leaves, in ``tree_leaves`` order, are ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def layer_params(stacked: Params, i: int) -> Params:
@@ -158,15 +170,44 @@ def layer_params(stacked: Params, i: int) -> Params:
     return tree_map(lambda a: a[i], stacked)
 
 
-def scan_layers(body: Callable[[Any, Params], Any], carry: Any, stacked: Params):
+def unbind_layers(stacked: Params) -> List[Params]:
+    """All layers of a stacked-params tree as views, one ``unbind`` per leaf.
+
+    Under autograd this matters: ``a[i]`` of a stacked leaf sends back, in
+    backward, a zero-filled gradient of the whole leaf for every layer, while
+    one ``unbind`` sends back one ``stack`` of the per-layer gradients.
+    """
+    n_layers = next(tree_leaves(stacked)).shape[0]
+    layers: List[Params] = [{} for _ in range(n_layers)]
+
+    def walk(node: Params, outs: List[Params]) -> None:
+        for key, val in node.items():
+            if isinstance(val, dict):
+                subs = [out.setdefault(key, {}) for out in outs]
+                walk(val, subs)
+            else:
+                for out, view in zip(outs, val.unbind(0)):
+                    out[key] = view
+
+    walk(stacked, layers)
+    return layers
+
+
+def scan_layers(
+    body: Callable[[Any, Params], Any], carry: Any, stacked: Params, *, remat: bool = False
+):
     """Run ``carry = body(carry, layer_params)`` across the stacked dim.
 
     The reference scans so that its lowered program is O(1) in depth; eager
-    PyTorch has no such program, so this is a Python loop.
+    PyTorch has no such program, so this is a Python loop. ``remat=True`` is
+    the twin of ``jax.checkpoint`` around the body: each layer keeps only its
+    input for backward and runs its forward again there.
     """
-    n_layers = next(tree_leaves(stacked)).shape[0]
-    for i in range(n_layers):
-        carry = body(carry, layer_params(stacked, i))
+    for lp in unbind_layers(stacked):
+        if remat and torch.is_grad_enabled():
+            carry = torch.utils.checkpoint.checkpoint(body, carry, lp, use_reentrant=False)
+        else:
+            carry = body(carry, lp)
     return carry
 
 

@@ -2,8 +2,9 @@
 llava backbone). Layer parameters are stacked on a leading ``L`` dim, as the
 reference stacks them, and depth is a Python loop over that dim.
 
-Every function here runs under ``torch.no_grad()`` in this slice of the port:
-the attention kernels have no backward yet.
+``forward`` is differentiable (the flash kernels have a backward) and honours
+``cfg.remat`` as the reference does; ``prefill`` and ``decode_step`` are the
+serving path and are called under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -186,7 +187,7 @@ def forward(
     """Token ids (B, S) -> logits (B, S, V)."""
     h = embed_tokens(cfg, params, tokens, plan, patches)
     body = functools.partial(block_fwd, cfg, plan)
-    h = nn.scan_layers(body, h, params["layers"])
+    h = nn.scan_layers(body, h, params["layers"], remat=cfg.remat)
     logits = logits_fn(cfg, params, h, plan)
     return plan.act(logits, "logits")
 

@@ -1,8 +1,10 @@
-"""The port stands alone: ``repro_torch`` imports, and serves, with ``jax``
-and the ``repro`` package made unimportable; and what it copied from the
-reference (configs, the synthetic data stream) is equal to the original.
+"""The port stands alone: ``repro_torch`` imports, serves and trains with
+``jax`` and the ``repro`` package made unimportable; and what it copied from
+the reference (configs, the synthetic data stream, the host pipeline) is equal
+to the original.
 """
 import dataclasses
+import inspect
 import os
 import re
 import subprocess
@@ -24,25 +26,30 @@ import torch
 import repro_torch
 import repro_torch.configs.base
 import repro_torch.configs.registry
+import repro_torch.checkpoint.store
 import repro_torch.convert
+import repro_torch.data.pipeline
 import repro_torch.data.synthetic
 import repro_torch.kernels._build
 import repro_torch.kernels.decode_attention
 import repro_torch.kernels.flash_attention
 import repro_torch.kernels.ops
 import repro_torch.kernels.ref
+import repro_torch.launch.train
 import repro_torch.models.attention
 import repro_torch.models.losses
 import repro_torch.models.model_api
 import repro_torch.models.module
 import repro_torch.models.transformer
+import repro_torch.optim.adamw
 import repro_torch.runtime.serve_step
+import repro_torch.runtime.train_step
 import repro_torch.sharding.plan
 
 # importing built nothing and needs no compiler
 from repro_torch.kernels import _build
 assert _build.n_compiles == 0
-assert len(_build.sources()) == 2
+assert len(_build.sources()) == 3
 
 # and the slice runs end to end on the CPU
 from repro_torch.configs.registry import get_config
@@ -57,6 +64,16 @@ params = model.init(torch.Generator().manual_seed(0), "cpu")
 prompt = torch.from_numpy(synthetic.token_batch(cfg.vocab, 2, 8, seed=7)["tokens"])
 out = greedy_generate(model, params, prompt, 3, make_plan(cfg, None))
 assert out.shape == (2, 3)
+
+# and trains, through the launcher, with a checkpoint to resume from
+import tempfile
+from repro_torch.launch import train
+with tempfile.TemporaryDirectory() as tmp:
+    argv = ["--arch", "granite-3-2b", "--reduced", "--steps", "3", "--batch", "2", "--seq", "16",
+            "--warmup", "1", "--device", "cpu", "--ckpt-dir", tmp]
+    result = train.run(train.build_argparser().parse_args(argv))
+    assert result["steps"] == 3 and result["final_loss"] == result["final_loss"]
+    assert train.run(train.build_argparser().parse_args(argv))["steps"] == 0  # resumed at the end
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 print("PORT-STANDS-ALONE")
 """
@@ -73,7 +90,7 @@ def test_port_imports_and_serves_without_jax_or_repro():
 
 def test_no_source_of_the_port_names_jax_or_repro():
     pattern = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro[. ])", re.M)
-    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "examples" / "serve_lm_torch.py"]
+    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + sorted((REPO / "examples").glob("*_torch.py"))
     assert len(files) > 20
     hits = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert hits == []
@@ -123,3 +140,22 @@ def test_batch_for_gives_the_same_bytes():
         assert set(got) == set(want)
         for key in want:
             assert np.asarray(got[key]).tobytes() == np.asarray(want[key]).tobytes(), (arch, key)
+
+
+def test_host_pipeline_is_a_copy_of_the_reference():
+    """The class body is the reference's line for line, and both give the same stream."""
+    from repro.data import pipeline as jpipe
+    from repro_torch.data import pipeline as tpipe
+
+    assert inspect.getsource(tpipe.HostPipeline) == inspect.getsource(jpipe.HostPipeline)
+
+    def source(step):
+        return {"x": np.full((3,), step, dtype=np.int64)}
+
+    streams = []
+    for mod in (jpipe, tpipe):
+        with mod.HostPipeline(source, workers=3, max_queue_size=2, start_step=5) as p:
+            streams.append([int(p.get()["x"][0]) for _ in range(12)])
+            assert set(p.stats()) == {"batches", "input_wait_s", "input_wait_per_batch_ms", "workers",
+                                      "max_queue_size"}
+    assert streams[0] == streams[1] == list(range(5, 17))
