@@ -4,12 +4,13 @@
 
 Builds the CUDA kernels from the sources in this checkout and holds each
 against its plain PyTorch version on the card, at the shape its main path
-gives it and at ragged small shapes. Then it drives granite-3-2b at its full
-size through the port's entry points, random weights from a seed:
+gives it and at ragged small shapes. Then it drives granite-3-2b and
+rwkv6-1.6b at their full size through the port's entry points, random weights
+from a seed:
 
-  * serving -- batch 8, prompt 2048, 32 new tokens; held against the same
-    requests on the non-kernel PyTorch path;
-  * training -- batch 2, seq 4096, remat on: one step's loss and gradients
+  * serving, both -- batch 8, prompt 2048, 32 new tokens; held against the
+    same requests on the non-kernel PyTorch path;
+  * training, granite-3-2b -- batch 2, seq 4096, remat on: one step's loss and gradients
     against the non-kernel path, then TRAIN_STEPS steps through
     ``repro_torch.launch.train.run``, then a run cut at half way and resumed
     (at depth 2) against an uninterrupted one.
@@ -52,7 +53,8 @@ from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.models import attention, transformer  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rk  # noqa: E402
+from repro_torch.models import attention, rwkv6, transformer  # noqa: E402
 from repro_torch.models.model_api import build_model  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models.module import param_bytes, param_count, tree_leaves, tree_paths  # noqa: E402
@@ -64,12 +66,17 @@ DEV = torch.device("cuda", 0)
 
 # published peaks of one H100 SXM (dense): what ``bound_ms`` is reckoned against
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 # the serving shape: granite-3-2b, batch 8, prompt 2048, 32 new tokens
 ARCH, BATCH, PROMPT, NEW = "granite-3-2b", 8, 2048, 32
 # the training shape: batch 2 at the sequence length of the TRAIN_4K suite
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6
+# the attention-free family, served at the same batch, prompt and new tokens
+RWKV_ARCH = "rwkv6-1.6b"
+# the long WKV6 case: one sequence of 512 chunks, 32 (batch, head) pairs
+WKV_LONG_T = 32768
 
 TOL_BF16 = 2e-2   # one bf16 rounding of o, and p rounded to bf16 for p.v
 TOL_LSE = 1e-4    # f32 statistics; only summation order and fast exp/log differ
@@ -91,7 +98,12 @@ ULP = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
 # residual stream: measured on an H100, 2 of 393,240 prefill logits lay beyond
 # 6e-2, the worst at 0.077. So: 6e-2 for all but 0.1% of the elements, and a hard
 # limit of 0.25 for every one. A cache, rotary or position fault gives O(1)
-# errors on most elements and fails both.
+# errors on most elements and fails both. rwkv6-1.6b is held to the same
+# limits: its two paths (the WKV6 kernel, the plain chunked form) agree to
+# about 1e-5 in f32 and differ where the bf16 rounding of the WKV output
+# flips; measured on an H100, none of 16.8 M logits beyond 6e-2, the worst
+# 0.047. A WKV6 kernel planted with a fault, the state not decayed at chunk
+# ends (examples/profile_wkv6_torch.py --variants plant), fails both limits.
 TOL_LOGITS = 6e-2
 TOL_LOGITS_OUTLIERS = 1e-3
 TOL_LOGITS_HARD = 0.25
@@ -111,6 +123,14 @@ TOL_GRAD_ATTN = 0.1
 TOL_GRAD_OTHER = 0.06
 ATTN_LEAVES = "layers/attn/"
 TOL_RESUME = 1e-5  # the reference's resume tolerance (tests/test_train_integration.py)
+# The WKV6 kernel against its plain version (token by token) run in float64 on
+# the same inputs, out and final state: atol = rtol = 5e-5, the reference's own
+# wkv6 tolerance (tests/test_kernels.py). The kernel computes in f32 (ex2.approx
+# for the exps). The plain version's own f32 run is no oracle at that limit:
+# with the model's slow decay (about -0.0025 a token) its state sums hundreds
+# of tokens one by one, and on an H100 it lay 2.7e-4 from float64 where the
+# kernel lay 4.5e-5. Each case reports that f32 run's error beside the kernel's.
+TOL_WKV = 5e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -147,7 +167,7 @@ def require(cond, message: str) -> None:
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return (a.float() - b.float()).abs().max().item()
+    return (a.double() - b.double()).abs().max().item()
 
 
 def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float,
@@ -161,7 +181,8 @@ def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float,
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite values")
-    g, w = got.float(), want.float()
+    dt = torch.promote_types(torch.float32, torch.promote_types(got.dtype, want.dtype))
+    g, w = got.to(dt), want.to(dt)
     diff = (g - w).abs()
     err = diff.max().item()
     n_bad = int((diff > tol + tol * w.abs()).sum())
@@ -424,7 +445,7 @@ def phase_decode(cfg) -> dict:
         "name": "decode_attention", "shape": f"q ({BATCH},{H},{D}) caches ({BATCH},{smax},{KVH},{D}) bf16 kv_len {kv_n}",
         "tolerance": {"o": f"{TOL_ROW_RMS} * rms(row) + 1 ulp at this shape, {TOL_BF16} at the small ones"},
         "max_abs_err": main_err,
-        "kv_splits": da.n_splits(BATCH, KVH, H // KVH, smax, torch.cuda.get_device_properties(0).multi_processor_count),
+        "kv_splits": da.n_splits(BATCH, KVH, H // KVH, smax, _build.sm_count(0)),
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "library_call": library_call, "library_vs_kernel_max_abs_err": lib_err,
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -600,6 +621,184 @@ def phase_flash_bwd(cfg) -> list:
         emit("kernel", **out)
         outs.append(out)
     return outs
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Inside the block f32 matrix products run in full f32, TF32 off (the
+    default for matmul; set here so the plain versions do not depend on it)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def wkv6_inputs(gen, B, T, H, dtype=torch.bfloat16, *, state=False, decay="test"):
+    """r, k, v (in ``dtype``), logw, u, state0 (f32), K = V = 64.
+
+    ``decay``: "test" is the reference's kernel test, logw = -exp(N/2 - 2)
+    (about -0.14); "model" the model's decay at init, -exp(-6 + N/10) (about
+    -0.0025, a state that remembers hundreds of tokens); a float is a constant
+    logw (-3 is the reference's strong-decay test).
+    """
+    K = rk.HEAD_SIZE
+    r, k, v = ((randn(gen, (B, T, H, K), torch.float32) * 0.5).to(dtype) for _ in range(3))
+    z = randn(gen, (B, T, H, K), torch.float32)
+    if decay == "test":
+        logw = -torch.exp(z * 0.5 - 2.0)
+    elif decay == "model":
+        logw = -torch.exp(z * 0.1 - 6.0)
+    else:
+        logw = torch.full_like(z, float(decay))
+    u = randn(gen, (H, K), torch.float32) * 0.2
+    s0 = (randn(gen, (B, H, K, K), torch.float32) * 0.3 if state
+          else torch.zeros((B, H, K, K), device=DEV))
+    return r, k, v, logw, u, s0
+
+
+def wkv6_work(B, T, H, in_bytes) -> tuple:
+    """(operations, bytes) that the WKV6 function needs on these shapes.
+
+    Bytes: r, k, v, logw and u read once, out written once, state0 read and
+    the final state written once. Operations, per (token, head), K = V, by the
+    recurrence itself: r_t.S 2 K^2; the bonus (r_t.(u k_t)) v_t 3 K + 2 K;
+    S = e^{logw_t} S + k_t v_t^T 3 K^2 and K exps, each exp one operation.
+    """
+    K = rk.HEAD_SIZE
+    ops_ = B * T * H * (5 * K * K + 6 * K)
+    nbytes = B * T * H * K * (3 * in_bytes + 4 + 4) + H * K * 4 + 2 * B * H * K * K * 4
+    return ops_, nbytes
+
+
+def wkv6_chunked_ops(B, T, H) -> int:
+    """Operations of the kernel's chunked algorithm, per chunk of n valid rows
+    and head: the pairwise scores 7 K per pair s < t (difference, exp, two
+    multiplies and an add; then 2 a value column for scores.v), 10 K a row for
+    the bonus and the two decays, 4 K^2 a row for the two products with the
+    state, 2 K^2 + K for the state's decay. A figure of the algorithm, not the
+    bound: it does about 1.5 times what the function needs."""
+    K = rk.HEAD_SIZE
+    ops_ = 0
+    for t0 in range(0, T, rk.CHUNK):
+        n = min(rk.CHUNK, T - t0)
+        ops_ += n * (n - 1) // 2 * K * 7 + n * K * 10 + n * K * K * 4 + 2 * K * K + K
+    return ops_ * B * H
+
+
+def wkv6_bound(B, T, H, in_bytes) -> dict:
+    ops_, nbytes = wkv6_work(B, T, H, in_bytes)
+    t_ops, t_bytes = ops_ / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_reckoned": f"max({ops_:.4g} f32 operations / 67 TFLOP/s, {nbytes:.4g} B / 3.35 TB/s)",
+            "chunked_algorithm_ops": wkv6_chunked_ops(B, T, H)}
+
+
+def wkv6_case(gen, B, T, H, dtype=torch.bfloat16, **kw) -> dict:
+    """The WKV6 kernel (out and final state) against its plain version, run in
+    float64 on the same inputs, at one shape. The plain version's own f32 run
+    is held against the same float64 run, as context only."""
+    args = wkv6_inputs(gen, B, T, H, dtype, **kw)
+    launches0 = rk.launch_count
+    out, state = rk.wkv6_scan(*args)
+    torch.cuda.synchronize()
+    require(rk.launch_count == launches0 + 1, "the wkv6 wrapper did not count its launch")
+    with full_f32_matmul():
+        out_ref, state_ref = ref.wkv6_reference(*args)
+        out64, state64 = ref.wkv6_reference(*(x.double() for x in args))
+    label = f"wkv6 B{B} T{T} H{H} {dtype} {kw}"
+    errs = {"plain_f32_out_max_abs_err": max_err(out_ref, out64),
+            "plain_f32_state_max_abs_err": max_err(state_ref, state64),
+            "out_rms": out64.square().mean().sqrt().item()}
+    del out_ref, state_ref
+    for name, got, want in (("out", out, out64), ("state", state, state64)):
+        errs[f"{name}_max_abs_err"] = check(f"{label} {name}", got, want, TOL_WKV)
+    return {"B": B, "T": T, "H": H, "dtype": str(dtype).replace("torch.", ""), **kw,
+            "v_splits": rk.n_splits(B, H, _build.sm_count(0)), **errs}
+
+
+def phase_wkv6(cfg) -> dict:
+    """K5 at the prefill shape of rwkv6-1.6b, at one long sequence and at
+    ragged small shapes; the guard against autograd; its times."""
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    H = cfg.d_model // cfg.ssm.head_dim
+    cases = [
+        wkv6_case(gen, BATCH, PROMPT, H),                                  # the main path's shape
+        wkv6_case(gen, BATCH, PROMPT, H, state=True, decay="model"),      # the model's slow decay
+        wkv6_case(gen, 1, WKV_LONG_T, H),                                 # 512 chunks, V split 4 ways
+        wkv6_case(gen, 3, 200, H, state=True),                            # ragged, V split 2 ways
+        wkv6_case(gen, 2, 100, 4, state=True),                            # ragged
+        wkv6_case(gen, 1, 37, 2),                                         # T < 64
+        wkv6_case(gen, 1, 192, 2, state=True, decay=-3.0),                # strong decay
+        # f32 inputs at the (B, T, H, state) of the reference's WKV_CASES, K = V = 64
+        wkv6_case(gen, 1, 64, 2, torch.float32),
+        wkv6_case(gen, 2, 128, 4, torch.float32),
+        wkv6_case(gen, 1, 96, 2, torch.float32, state=True),
+        wkv6_case(gen, 2, 64, 2, torch.float32),
+    ]
+
+    # no backward: a call that autograd would differentiate raises on the card
+    small = wkv6_inputs(gen, 1, 64, 2, torch.float32)
+    small[0].requires_grad_(True)
+    launches0 = rk.launch_count
+    try:
+        ops.wkv6(*small)
+        guarded = False
+    except NotImplementedError:
+        guarded = True
+    require(guarded and rk.launch_count == launches0, "ops.wkv6 launched on inputs that need a gradient")
+    with torch.no_grad():
+        ops.wkv6(*small)
+    require(rk.launch_count == launches0 + 1, "ops.wkv6 under no_grad did not launch the kernel")
+
+    # timings at the prefill shape, and at the long one
+    args = wkv6_inputs(gen, BATCH, PROMPT, H)
+    kernel_ms = gpu_ms(lambda: rk.wkv6_scan(*args), iters=20)
+    with full_f32_matmul():
+        plain_ms = gpu_ms(lambda: ref.wkv6_reference(*args), iters=1, reps=3)
+        chunked_ms = gpu_ms(lambda: rwkv6.wkv_chunked(*args), iters=1, reps=3)
+    del args
+    long_args = wkv6_inputs(gen, 1, WKV_LONG_T, H)
+    long_ms = gpu_ms(lambda: rk.wkv6_scan(*long_args), iters=10)
+    with full_f32_matmul():
+        long_chunked_ms = gpu_ms(lambda: rwkv6.wkv_chunked(*long_args), iters=1, reps=1)
+    del long_args
+    torch.cuda.empty_cache()
+
+    main = cases[0]
+    bound = wkv6_bound(BATCH, PROMPT, H, 2)
+    long_bound = wkv6_bound(1, WKV_LONG_T, H, 2)
+    out = {
+        "name": "wkv6_scan", "replaces": "src/repro/kernels/rwkv6_scan.py:124",
+        "shape": f"r/k/v ({BATCH},{PROMPT},{H},64) bf16, logw f32, state0 0",
+        "tolerance": {"out, state": f"atol=rtol={TOL_WKV} against the plain version in float64"},
+        "max_abs_err": max(main["out_max_abs_err"], main["state_max_abs_err"]),
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "plain_call": "ref.wkv6_reference (token by token)",
+        "chunked_ms": chunked_ms, "chunked_call": "models.rwkv6.wkv_chunked (the model's non-kernel path)",
+        "library_ms": None, "library_call": "none: no single PyTorch call computes WKV6",
+        **bound,
+        "achieved_ops_per_s": wkv6_work(BATCH, PROMPT, H, 2)[0] / (kernel_ms * 1e-3),
+        "long": {"shape": f"r/k/v (1,{WKV_LONG_T},{H},64) bf16", "kernel_ms": long_ms,
+                 "chunked_ms": long_chunked_ms, **long_bound},
+        "cases": cases,
+    }
+    emit("kernel", **out)
+    return out
+
+
+@contextlib.contextmanager
+def torch_wkv_path():
+    """Inside the block the rwkv6 prefill's WKV goes to the non-kernel
+    ``wkv_chunked``, by rebinding the name ``time_mix_seq`` calls (as
+    ``torch_attention_path`` does for attention)."""
+    saved = rwkv6.wkv6
+    rwkv6.wkv6 = rwkv6.wkv_chunked
+    try:
+        yield
+    finally:
+        rwkv6.wkv6 = saved
 
 
 @contextlib.contextmanager
@@ -780,7 +979,8 @@ def phase_train(cfg) -> dict:
 @torch.no_grad()
 def serve(model, params, plan, prompts, forced_tokens=None):
     """Prefill, pad the cache, NEW - 1 decode steps. Returns the last logits of
-    prefill and of every decode step, the tokens fed, and host-clock times.
+    prefill and of every decode step, the tokens fed, the cache's shapes and
+    host-clock times.
 
     With ``forced_tokens`` the decode steps are fed those tokens instead of
     their own argmax, so two runs see the same inputs at every step.
@@ -804,13 +1004,21 @@ def serve(model, params, plan, prompts, forced_tokens=None):
     return {
         "logits": torch.stack(logits, dim=1),  # (B, NEW, V)
         "tokens": torch.stack(tokens, dim=1),  # (B, NEW)
-        "cache_shape": tuple(cache["k"].shape),
+        "cache_shapes": {name: tuple(leaf.shape) for name, leaf in cache.items()},
         "prefill_ms": (t1 - t0) * 1e3,
         "decode_ms_per_step": (t2 - t1) * 1e3 / (NEW - 1),
     }
 
 
-def phase_serve(cfg) -> dict:
+def phase_serve(cfg, counters: dict, expected: dict, torch_path, cache_shapes: dict) -> dict:
+    """Serve ``cfg`` at full size (batch 8, prompt 2048, 32 new tokens), random
+    weights from a seed, through the kernels; then the same requests on the
+    non-kernel path (inside ``torch_path``), fed the same tokens.
+
+    ``counters`` names the kernel wrappers whose ``launch_count`` the run must
+    raise by ``expected[name]`` (set to 0 just before the run, read just
+    after); the non-kernel run must raise none.
+    """
     model = build_model(cfg)
     plan = make_plan(cfg, None)
     params = model.init(torch.Generator(device=DEV).manual_seed(0), DEV)
@@ -828,64 +1036,76 @@ def phase_serve(cfg) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     # ---- the main path, through the kernels, with the counts set to 0 just before
-    fa.launch_count = 0
-    da.launch_count = 0
+    for mod in counters.values():
+        mod.launch_count = 0
     run = serve(model, params, plan, prompts)
-    flash_launches, decode_launches = fa.launch_count, da.launch_count
+    launches = {name: mod.launch_count for name, mod in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    L = cfg.n_layers
-    require(flash_launches == L, f"flash launches {flash_launches}, expected {L}")
-    require(decode_launches == L * (NEW - 1), f"decode launches {decode_launches}, expected {L * (NEW - 1)}")
+    require(launches == expected, f"launches {launches}, expected {expected}")
     require(run["logits"].shape == (BATCH, NEW, cfg.padded_vocab), f"logits shape {tuple(run['logits'].shape)}")
-    require(run["cache_shape"] == (L, BATCH, PROMPT + NEW, cfg.n_kv_heads, cfg.resolved_head_dim),
-            f"cache shape {run['cache_shape']}")
+    require(run["cache_shapes"] == cache_shapes, f"cache shapes {run['cache_shapes']}, expected {cache_shapes}")
     require(torch.isfinite(run["logits"][..., : cfg.vocab].float()).all(), "non-finite logits")
     require((run["tokens"] >= 0).all() and (run["tokens"] < cfg.vocab).all(), "a greedy token outside the vocab")
 
     # ---- the same requests on the non-kernel PyTorch path, fed the same tokens
-    with torch_attention_path():
+    with torch_path():
         base = serve(model, params, plan, prompts, forced_tokens=run["tokens"])
-    require((fa.launch_count, da.launch_count) == (flash_launches, decode_launches), "the non-kernel run launched a kernel")
+    require({name: mod.launch_count for name, mod in counters.items()} == launches,
+            "the non-kernel run launched a kernel")
     got = run["logits"][..., : cfg.vocab]
     want = base["logits"][..., : cfg.vocab]
-    err_prefill = check("serve: prefill last logits, kernels vs torch path", got[:, 0], want[:, 0],
-                        TOL_LOGITS, TOL_LOGITS_OUTLIERS, TOL_LOGITS_HARD)
-    err_decode = check("serve: decode logits, kernels vs torch path", got[:, 1:], want[:, 1:],
-                       TOL_LOGITS, TOL_LOGITS_OUTLIERS, TOL_LOGITS_HARD)
+    beyond = int(((got.float() - want.float()).abs() > TOL_LOGITS + TOL_LOGITS * want.float().abs()).sum())
     agree = (run["tokens"] == base["tokens"]).float().mean().item()
-
     out = {
-        "arch": cfg.name, "layers": L, "d_model": cfg.d_model, "batch": BATCH, "prompt": PROMPT,
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model, "batch": BATCH, "prompt": PROMPT,
         "new_tokens": NEW, "params": param_count(params), "param_gb": param_bytes(params) / 1e9,
         "prefill_ms": run["prefill_ms"], "decode_ms_per_step": run["decode_ms_per_step"],
         "prefill_tokens_per_s": BATCH * PROMPT / (run["prefill_ms"] * 1e-3),
         "decode_tokens_per_s": BATCH / (run["decode_ms_per_step"] * 1e-3),
         "peak_memory_gb": peak_gb,
-        "launches": {"flash_attention_fwd": flash_launches, "decode_attention": decode_launches},
+        "launches": launches,
         "torch_path": {"prefill_ms": base["prefill_ms"], "decode_ms_per_step": base["decode_ms_per_step"]},
         "logits_tolerance": {"atol=rtol": TOL_LOGITS, "share_allowed_beyond": TOL_LOGITS_OUTLIERS,
                              "hard_limit": TOL_LOGITS_HARD},
-        "logits_beyond_tolerance": int(((got.float() - want.float()).abs()
-                                        > TOL_LOGITS + TOL_LOGITS * want.float().abs()).sum()),
-        "logits_compared": got.numel(), "logits_abs_max": want.float().abs().max().item(),
-        "logits_std": want.float().std().item(),
-        "prefill_logits_max_abs_err": err_prefill,
-        "decode_logits_max_abs_err": err_decode, "greedy_token_agreement": agree,
+        "logits_beyond_tolerance": beyond, "logits_compared": got.numel(),
+        "logits_abs_max": want.float().abs().max().item(), "logits_std": want.float().std().item(),
+        "logits_max_abs_err": max_err(got, want), "greedy_token_agreement": agree,
     }
-    emit("serve", **out)
+    emit("serve", **out)  # the readings first, so that a failing run still shows them
+    out["prefill_logits_max_abs_err"] = check(
+        f"serve {cfg.name}: prefill last logits, kernels vs torch path", got[:, 0], want[:, 0],
+        TOL_LOGITS, TOL_LOGITS_OUTLIERS, TOL_LOGITS_HARD)
+    out["decode_logits_max_abs_err"] = check(
+        f"serve {cfg.name}: decode logits, kernels vs torch path", got[:, 1:], want[:, 1:],
+        TOL_LOGITS, TOL_LOGITS_OUTLIERS, TOL_LOGITS_HARD)
     return out
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     device = phase_device()
     cfg = get_config(ARCH)
     phase_build()
     flash = phase_flash(cfg)
     decode = phase_decode(cfg)
     dkv, dq = phase_flash_bwd(cfg)
+    rwkv_cfg = get_config(RWKV_ARCH)
+    wkv = phase_wkv6(rwkv_cfg)
     torch.cuda.empty_cache()
-    served = phase_serve(cfg)
+    L, kvh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    served = phase_serve(
+        cfg, {"flash_attention_fwd": fa, "decode_attention": da},
+        {"flash_attention_fwd": L, "decode_attention": L * (NEW - 1)}, torch_attention_path,
+        {name: (L, BATCH, PROMPT + NEW, kvh, hd) for name in ("k", "v")})
+    torch.cuda.empty_cache()
+    L, d, K = rwkv_cfg.n_layers, rwkv_cfg.d_model, rwkv_cfg.ssm.head_dim
+    served_rwkv = phase_serve(
+        rwkv_cfg, {"wkv6_scan": rk}, {"wkv6_scan": L}, torch_wkv_path,
+        {"wkv": (L, BATCH, d // K, K, K), "tm_x": (L, BATCH, d), "cm_x": (L, BATCH, d)})
+    emit("serve_rwkv_wkv6_share", wkv6_ms_in_prefill=L * wkv["kernel_ms"],
+         share_of_prefill=L * wkv["kernel_ms"] / served_rwkv["prefill_ms"],
+         reckoned="launches x the kernel's time at this shape (phase kernel wkv6_scan) / prefill ms")
     torch.cuda.empty_cache()
     trained = phase_train(cfg)
 
@@ -898,8 +1118,10 @@ def main() -> None:
         }
 
     # launches: K1 and K4 on the serving path, K2 and K3 on the training path
-    # (TRAIN_STEPS steps); K1's count on the training path beside its own
+    # (TRAIN_STEPS steps), K5 on rwkv6's serving path; K1's count on the
+    # training path beside its own
     bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    emit("wall", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": [
         dict(row(flash, "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
                  "src/repro/kernels/flash_attention.py:159", served["launches"]["flash_attention_fwd"]),
@@ -909,6 +1131,7 @@ def main() -> None:
             "src/repro/kernels/decode_attention.py:126", served["launches"]["decode_attention"]),
         row(dkv, bwd_src, dkv["replaces"], trained["launches"]["flash_attention_bwd_dkv"]),
         row(dq, bwd_src, dq["replaces"], trained["launches"]["flash_attention_bwd_dq"]),
+        row(wkv, "src/repro_torch/kernels/csrc/wkv6_scan.cu", wkv["replaces"], served_rwkv["launches"]["wkv6_scan"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 

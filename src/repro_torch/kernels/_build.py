@@ -14,6 +14,7 @@ The build directory is ``build/`` at the root of the checkout.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -106,3 +107,12 @@ def load(name: str) -> ctypes.CDLL:
                 raise KeyError(f"no kernel source csrc/{name}.cu")
             _libs[name] = ctypes.CDLL(str(paths[name]))
         return _libs[name]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, asked once: the
+    wrappers split their work so that every SM gets a block."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -11,7 +11,7 @@ function with the plain version in ``kernels/ref.py``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Union
+from typing import Optional, Union
 
 import torch
 
@@ -28,7 +28,6 @@ BLOCKS_PER_SM = 4
 launch_count = 0
 
 _fn = None
-_sm_count: Dict[int, int] = {}
 
 
 def _kernel():
@@ -139,10 +138,7 @@ def decode_attention(
     else:
         kv_len = torch.tensor([int(kv_len)], dtype=torch.int32, device=q.device)
 
-    idx = q.device.index
-    if idx not in _sm_count:
-        _sm_count[idx] = torch.cuda.get_device_properties(q.device).multi_processor_count
-    ns = n_splits(B, KVH, H // KVH, Smax, _sm_count[idx])
+    ns = n_splits(B, KVH, H // KVH, Smax, _build.sm_count(q.device.index))
     out = torch.empty_like(q)
     # scratch of the split sweep, one allocation: acc (B,H,ns,D), then m and l (B,H,ns) each
     slots = B * H * ns

@@ -9,16 +9,18 @@ There is no execution-mode switch: a tensor on the card goes to the kernel
 in ``ref.py``. ``flash_attention`` is differentiable: a
 ``torch.autograd.Function`` runs the forward kernel and, in backward, the dq
 and dk/dv kernels, the twin of the reference's ``_flash`` under
-``custom_vjp``. The decode kernel has no backward, here as in the reference.
+``custom_vjp``. The decode and WKV6 kernels have no backward, here as in
+the reference.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rwkv6_scan as rk
 
 
 def _fold(q: torch.Tensor, kvh: int) -> torch.Tensor:
@@ -97,3 +99,24 @@ def decode_attention(
     q3 = q[:, 0] if squeeze else q
     out = da.decode_attention(q3, k_cache, v_cache, kv_len, scale=scale)
     return out[:, None] if squeeze else out
+
+
+def wkv6(
+    r: torch.Tensor,  # (B, T, H, K)
+    k: torch.Tensor,  # (B, T, H, K)
+    v: torch.Tensor,  # (B, T, H, V)
+    logw: torch.Tensor,  # (B, T, H, K) log-decay <= 0
+    u: torch.Tensor,  # (H, K) bonus
+    state0: torch.Tensor,  # (B, H, K, V)
+    *,
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked WKV6 scan; returns (out (B,T,H,V) f32, state (B,H,K,V) f32).
+
+    A CUDA tensor goes to the kernel, a CPU tensor to ``ref.wkv6_reference``
+    (the reference's ``mode="ref"``). The kernel has no backward, as the
+    reference's ``wkv6`` has no ``custom_vjp``: on the card a call that
+    autograd would have to differentiate raises (in ``rk.wkv6_scan``) rather
+    than computing the gradient some other way.
+    """
+    return rk.wkv6_scan(r, k, v, logw, u, state0, chunk=chunk)

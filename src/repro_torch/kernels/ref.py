@@ -2,10 +2,11 @@
 
 These are what the kernels are held against on the card and what the
 wrappers run for a tensor that lies on the CPU. They are deliberately
-naive — O(S^2) attention materializing the score matrix in f32 — because
-clarity is the point of an oracle. ``flash_attention_bwd_reference`` is the
-plain version of both backward kernels: it recomputes ``p`` from the saved
-``lse`` as they do, rather than differentiating ``mha_reference``.
+naive — O(S^2) attention materializing the score matrix in f32, the WKV6
+recurrence token by token — because clarity is the point of an oracle.
+``flash_attention_bwd_reference`` is the plain version of both backward
+kernels: it recomputes ``p`` from the saved ``lse`` as they do, rather than
+differentiating ``mha_reference``.
 """
 from __future__ import annotations
 
@@ -120,3 +121,32 @@ def decode_attention_reference(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def wkv6_reference(
+    r: torch.Tensor,  # (B, T, H, K)
+    k: torch.Tensor,  # (B, T, H, K)
+    v: torch.Tensor,  # (B, T, H, V)
+    logw: torch.Tensor,  # (B, T, H, K) log-decay <= 0
+    u: torch.Tensor,  # (H, K) bonus
+    state0: torch.Tensor,  # (B, H, K, V)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-by-token WKV6 recurrence (RWKV-6 'Finch'):
+
+        o_t = r_t @ (S_{t-1} + (u * k_t) v_t^T)
+        S_t = diag(exp(logw_t)) S_{t-1} + k_t v_t^T
+
+    Returns (out (B,T,H,V) f32, final state (B,H,K,V) f32); given float64
+    inputs it computes and returns float64.
+    """
+    dt = torch.float64 if r.dtype == torch.float64 else torch.float32
+    rf, kf, vf, wf = (x.to(dt) for x in (r, k, v, logw))
+    uf = u.to(dt)
+    S = state0.to(dt)
+    outs = []
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]  # (B,H,K,V)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], S + uf[None, :, :, None] * kv))
+        S = torch.exp(wf[:, t])[..., None] * S + kv
+    out = torch.stack(outs, dim=1) if outs else vf.new_zeros(vf.shape)
+    return out, S

@@ -10,7 +10,7 @@ architecture:
   cache_spec(batch, seq)          -> dict of (shape, dtype)
   input_specs(suite)              -> dict[str, (shape, dtype)]
 
-This slice of the port builds the ``dense`` and ``vlm`` families; any other
+The port builds the ``dense``, ``vlm`` and ``rwkv`` families; any other
 family raises ``KeyError`` as an unknown family does.
 """
 from __future__ import annotations
@@ -145,6 +145,11 @@ register_family("vlm")(_build_dense)  # llava backbone = dense + patch stub
 
 
 def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family == "rwkv" and "rwkv" not in _BUILDERS:
+        # late import, as the reference's: rwkv6 imports this module
+        from repro_torch.models import rwkv6
+
+        register_family("rwkv")(rwkv6._build_rwkv)
     if cfg.family not in _BUILDERS:
         raise KeyError(f"unknown family {cfg.family!r}")
     return _BUILDERS[cfg.family](cfg)

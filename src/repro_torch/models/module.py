@@ -46,6 +46,11 @@ def fan_in_init(
     return trunc_normal(gen, shape, std, dtype, device)
 
 
+def zeros_init(_gen: Optional[torch.Generator], shape: Sequence[int], dtype, device) -> torch.Tensor:
+    """Zeros; takes (and ignores) a generator, as the reference's takes a key."""
+    return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+
 # ---------------------------------------------------------------------------
 # primitive layers
 # ---------------------------------------------------------------------------

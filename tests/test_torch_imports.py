@@ -35,11 +35,13 @@ import repro_torch.kernels.decode_attention
 import repro_torch.kernels.flash_attention
 import repro_torch.kernels.ops
 import repro_torch.kernels.ref
+import repro_torch.kernels.rwkv6_scan
 import repro_torch.launch.train
 import repro_torch.models.attention
 import repro_torch.models.losses
 import repro_torch.models.model_api
 import repro_torch.models.module
+import repro_torch.models.rwkv6
 import repro_torch.models.transformer
 import repro_torch.optim.adamw
 import repro_torch.runtime.serve_step
@@ -49,7 +51,7 @@ import repro_torch.sharding.plan
 # importing built nothing and needs no compiler
 from repro_torch.kernels import _build
 assert _build.n_compiles == 0
-assert len(_build.sources()) == 3
+assert len(_build.sources()) == 4
 
 # and the slice runs end to end on the CPU
 from repro_torch.configs.registry import get_config
@@ -62,6 +64,11 @@ cfg = get_config("granite-3-2b").reduced()
 model = build_model(cfg)
 params = model.init(torch.Generator().manual_seed(0), "cpu")
 prompt = torch.from_numpy(synthetic.token_batch(cfg.vocab, 2, 8, seed=7)["tokens"])
+out = greedy_generate(model, params, prompt, 3, make_plan(cfg, None))
+assert out.shape == (2, 3)
+cfg = get_config("rwkv6-1.6b").reduced()
+model = build_model(cfg)
+params = model.init(torch.Generator().manual_seed(0), "cpu")
 out = greedy_generate(model, params, prompt, 3, make_plan(cfg, None))
 assert out.shape == (2, 3)
 
