@@ -29,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -112,12 +113,17 @@ TOL_LOGITS_HARD = 0.25
 # The gradients by relative L2 error of each leaf, the attention leaves
 # (layers/attn/*) and the rest each to a limit of their own. Each limit is the
 # geometric mean, rounded down, of two readings of this check on an H100. One
-# is the sound kernels: attention 0.0241, the rest 0.0260. The two paths round
+# is the sound kernels: attention 0.0245, the rest 0.0261. The two paths round
 # to bf16 at different places, and 40 layers of bf16 backward carry that; the
 # readings repeat to 1e-8 from run to run. The other has one fault planted in
-# the dq kernel, which skips its diagonal KV tile: attention 0.878, the rest
-# 0.157. A fault planted in the dk/dv kernel, which skips the first q tile of
-# its sweep, read 0.720 and 0.537.
+# the dq kernel, which skips its diagonal KV tile: attention 0.906, the rest
+# 0.162. A fault planted in the dk/dv kernel, which skips the first q tile of
+# its sweep, read 0.718 and 0.533 (examples/profile_flash_bwd_torch.py plants
+# both). The wgmma kernels moved the readings from those of the mma.sync ones
+# (0.0241 and 0.0260, 0.878 and 0.157); the limits, recomputed, did not move.
+# delta = sum_d o*do, the dq kernel's f32 sum against PyTorch's: the products
+# of two 16-bit values are exact in f32, so only the order of D additions differs.
+TOL_DELTA = 1e-4
 TOL_LOSS = 3e-2
 TOL_GRAD_ATTN = 0.1
 TOL_GRAD_OTHER = 0.06
@@ -158,6 +164,20 @@ def gpu_ms(fn, *, iters: int, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def host_us_per_call(fn, n: int = 50) -> float:
+    """Host time of one call of ``fn``, in microseconds: ``n`` calls queued
+    behind a spin kernel, so that none of them waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def require(cond, message: str) -> None:
@@ -260,20 +280,117 @@ def phase_device() -> dict:
             "count": torch.cuda.device_count()}
 
 
-def phase_build() -> None:
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")  # warpgroup MMA, TMA tile load, warp-level mma.sync
+
+
+def find_cuobjdump():
+    """cuobjdump beside nvcc, or in Triton's package; None where neither has one."""
+    candidates = []
+    with contextlib.suppress(RuntimeError):
+        candidates.append(Path(_build.find_nvcc()).parent / "cuobjdump")
+    with contextlib.suppress(ImportError):
+        import importlib.util
+
+        spec = importlib.util.find_spec("triton")
+        if spec is not None and spec.origin:
+            candidates.append(Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    return next((str(c) for c in candidates if c.is_file()), None)
+
+
+def kernel_name(mangled: str) -> str:
+    """``kernel<args>`` of a mangled ``*_kernel`` symbol (template arguments
+    that are types or integer literals), else the symbol itself."""
+    for m in re.finditer(r"(?=(\d+))", mangled):  # every start, so "116" also tries "16" and "6"
+        n, end = int(m.group(1)), m.start() + len(m.group(1))
+        name = mangled[end:end + n]
+        if len(name) < n or not name.endswith("_kernel"):
+            continue
+        rest, args = mangled[end + n:], []
+        if rest.startswith("I"):
+            rest = rest[1:]
+            while rest and not rest.startswith("E"):
+                lit, ident = re.match(r"L[a-z](\d+)E", rest), re.match(r"\d+", rest)
+                if lit:
+                    args.append(lit.group(1))
+                    rest = rest[lit.end():]
+                elif ident:
+                    k = int(ident.group())
+                    args.append(rest[ident.end():ident.end() + k])
+                    rest = rest[ident.end() + k:]
+                else:
+                    args.append({"f": "float"}.get(rest[0], rest[0]))
+                    rest = rest[1:]
+        return f"{name}<{','.join(args)}>" if args else name
+    return mangled
+
+
+def sass_counts(cuobjdump, lib: Path) -> dict:
+    """Per kernel of ``lib``: how many SASS instructions of each of SASS_OPS
+    it holds, and of local-memory loads and stores (LDL, STL)."""
+    out = subprocess.run([cuobjdump, "-sass", str(lib)], check=True, capture_output=True, text=True).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            cur = counts.setdefault(kernel_name(line.split("Function :")[1].strip()),
+                                    dict.fromkeys((*SASS_OPS, "LDL", "STL"), 0))
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", line)
+        if cur is not None and m and m.group(1) in cur:
+            cur[m.group(1)] += 1
+    return counts
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """Per kernel, what ``ptxas -v`` said: registers, spill bytes, and any
+    line that warns of serialized wgmma or an ignored setmaxnreg."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            cur = out.setdefault(kernel_name(m.group(1)), {"registers": None, "spill_bytes": 0, "warnings": []})
+        elif cur is not None and "Used " in line and " registers" in line:
+            cur["registers"] = int(line.split("Used ")[1].split(" registers")[0])
+        elif cur is not None and "spill" in line:
+            cur["spill_bytes"] += sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        if "wgmma" in line.lower() or "setmaxnreg" in line.lower():
+            # the message names its function, and may come before that function's own lines
+            named = re.search(r"function '([\w$]+)'", line)
+            where = (out.setdefault(kernel_name(named.group(1)), {"registers": None, "spill_bytes": 0, "warnings": []})
+                     if named else cur or out.setdefault("?", {"warnings": []}))
+            where["warnings"].append(line.strip())
+    return out
+
+
+def phase_build(strict: bool = True) -> None:
+    """Builds every kernel and prints what ptxas and the SASS show of each.
+    ``strict`` (the default) fails on a backward kernel that spills, whose
+    wgmma ptxas serialized, or that is not built on wgmma alone; a timing of
+    an earlier version turns it off."""
     t0 = time.perf_counter()
     paths = _build.build_all()
     for name in paths:
         _build.load(name)
+    seconds = time.perf_counter() - t0
+    cuobjdump = find_cuobjdump()
     resources = {}
-    for name, log in _build.ptxas_log.items():
-        lines = [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        regs = [int(ln.split("Used ")[1].split(" registers")[0]) for ln in lines if "Used " in ln]
-        spills = [ln.strip() for ln in lines if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-        resources[name] = {"kernels": len(regs), "max_registers": max(regs, default=None),
-                           "spilling": spills}
-    emit("build", seconds=round(time.perf_counter() - t0, 3), nvcc_processes=_build.n_compiles,
-         libraries=sorted(p.name for p in paths.values()), ptxas=resources)
+    for name, path in paths.items():
+        kernels = ptxas_by_kernel(_build.ptxas_log.get(name, ""))
+        sass = sass_counts(cuobjdump, path) if cuobjdump else {}
+        for kname in set(kernels) | set(sass):
+            kernels.setdefault(kname, {})["sass"] = sass.get(kname, "unavailable")
+        resources[name] = {"max_registers": max((k.get("registers") or 0 for k in kernels.values()), default=None),
+                           "kernels": kernels}
+    emit("build", seconds=round(seconds, 3), nvcc_processes=_build.n_compiles,
+         libraries=sorted(p.name for p in paths.values()), cuobjdump=cuobjdump or "unavailable",
+         resources=resources)
+    bwd = resources.get("flash_attention_bwd", {}).get("kernels", {}) if strict else {}
+    for kname, k in bwd.items():
+        if "flash_bwd_" not in kname:
+            continue
+        require(not k.get("spill_bytes") and not k.get("warnings"), f"{kname} spills or has serialized wgmma: {k}")
+        if isinstance(k.get("sass"), dict):
+            require(k["sass"]["HGMMA"] > 0 and k["sass"]["HMMA"] == 0,
+                    f"{kname} is not built on wgmma alone: {k['sass']}")
 
 
 def flash_case(gen, B, Sq, Skv, H, KVH, D, causal, q_offset=0, dtype=torch.bfloat16, by_rows=False) -> dict:
@@ -466,10 +583,12 @@ def live_pairs(B, H, Sq, Skv, causal, q_offset=0) -> int:
 
 
 def flash_bwd_case(gen, B, Sq, Skv, H, KVH, D, causal, q_offset=0, dtype=torch.bfloat16,
-                   by_rows=False) -> dict:
+                   by_rows=False, repeat=False) -> dict:
     """Both backward kernels against their plain version, fed the same q, k, v,
     do and the forward kernel's o and lse; and that forward (K1) against its
-    own plain version at the same shape, before the backward uses it."""
+    own plain version at the same shape, before the backward uses it. With
+    ``repeat`` the backward runs a second time on the same inputs and must
+    give the same bits."""
     q = randn(gen, (B, Sq, H, D), dtype)
     k = randn(gen, (B, Skv, KVH, D), dtype)
     v = randn(gen, (B, Skv, KVH, D), dtype)
@@ -497,6 +616,11 @@ def flash_bwd_case(gen, B, Sq, Skv, H, KVH, D, causal, q_offset=0, dtype=torch.b
     torch.cuda.synchronize()
     require((fa.dkv_launch_count - dkv0, fa.dq_launch_count - dq0) == (1, 1),
             "the backward wrapper did not count one launch of each kernel")
+    if repeat:
+        again = fa.flash_attention_bwd(qf, kf, vf, o, lse, dof, **kw)
+        out["repeat_bit_identical"] = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+        require(out["repeat_bit_identical"], f"{label}: a second run gave other bits")
+        del again
     want = ref.flash_attention_bwd_reference(qf, kf, vf, o, lse, dof, **kw)
     # dq row by row per (token, head); dk, dv per (kv row, kv head). The dq
     # row of the first query position is 0 in exact arithmetic (its softmax
@@ -531,7 +655,7 @@ def phase_flash_bwd(cfg) -> list:
     H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     B, S, G = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads // cfg.n_kv_heads
     cases = [
-        flash_bwd_case(gen, B, S, S, H, KVH, D, True, by_rows=True),     # the training shape
+        flash_bwd_case(gen, B, S, S, H, KVH, D, True, by_rows=True, repeat=True),  # the training shape, twice
         flash_bwd_case(gen, 1, 100, 100, 4, 4, 64, True),                # G=1, ragged
         flash_bwd_case(gen, 2, 100, 100, 6, 2, 64, True),                # G=3
         flash_bwd_case(gen, 1, 100, 100, 16, 2, 64, False),              # G=8, non-causal
@@ -551,13 +675,22 @@ def phase_flash_bwd(cfg) -> list:
     qf, kf, vf, dof = ops._fold(q, KVH), ops._kv_fold(k), ops._kv_fold(v), ops._fold(do, KVH)
     kw = dict(causal=True, scale=scale)
     o, lse = fa.flash_attention_fwd(qf, kf, vf, **kw)
-    delta = (o.float() * dof.float()).sum(dim=-1).contiguous()
+    delta = torch.full_like(lse, float("nan"))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dqf, dkf, dvf = ops._fold(dq, KVH), ops._kv_fold(dk), ops._kv_fold(dv)
-    dq_ms = gpu_ms(lambda: fa.launch_bwd_dq(qf, kf, vf, dof, lse, delta, dqf, **kw), iters=10)
-    dkv_ms = gpu_ms(lambda: fa.launch_bwd_dkv(qf, kf, vf, dof, lse, delta, dkf, dvf, **kw), iters=10)
+    run_dq = lambda: fa.launch_bwd_dq(qf, kf, vf, o, dof, lse, delta, dqf, **kw)  # noqa: E731
+    run_dkv = lambda: fa.launch_bwd_dkv(qf, kf, vf, dof, lse, delta, dkf, dvf, **kw)  # noqa: E731
+    run_fwd = lambda: fa.flash_attention_fwd(qf, kf, vf, **kw)  # noqa: E731
+    # K3's delta against the plain sum of the same f32 products
+    run_dq()
+    delta_err = check("flash bwd delta (dq kernel) at the training shape", delta,
+                      (o.float() * dof.float()).sum(dim=-1), TOL_DELTA)
+    dq_ms = gpu_ms(run_dq, iters=10)
+    dkv_ms = gpu_ms(run_dkv, iters=10)
     wrapper_ms = gpu_ms(lambda: fa.flash_attention_bwd(qf, kf, vf, o, lse, dof, **kw), iters=10)
-    fwd_ms = gpu_ms(lambda: fa.flash_attention_fwd(qf, kf, vf, **kw), iters=10)  # K1 at this shape
+    fwd_ms = gpu_ms(run_fwd, iters=10)  # K1 at this shape
+    host_us = {"dq": host_us_per_call(run_dq), "dkv": host_us_per_call(run_dkv),
+               "fwd (K1: the same checks, no tensor maps)": host_us_per_call(run_fwd)}
     plain_ms = gpu_ms(lambda: ref.flash_attention_bwd_reference(qf, kf, vf, o, lse, dof, **kw),
                       iters=1, reps=3)
     torch.cuda.empty_cache()
@@ -604,7 +737,10 @@ def phase_flash_bwd(cfg) -> list:
             "max_abs_err": max(errs.values()), "errors": errs,
             "kernel_ms": ms, "plain_ms": plain_ms,
             "plain_call": "ref.flash_attention_bwd_reference (dq, dk and dv in one call)",
-            "wrapper_ms": wrapper_ms, "wrapper_call": "fa.flash_attention_bwd: delta in PyTorch + both kernels",
+            "wrapper_ms": wrapper_ms, "wrapper_call": "fa.flash_attention_bwd: both kernels (delta in the dq kernel)",
+            "dq_plus_dkv_ms": dq_ms + dkv_ms, "delta_max_abs_err": delta_err, "delta_tolerance": TOL_DELTA,
+            "host_us_per_launch": host_us,
+            "host_us_reckoned": "host clock over 50 launches queued behind a spin kernel, Python wrapper included",
             "forward_kernel_ms": fwd_ms,
             "forward_max_abs_err": {"o": main["o_max_abs_err"], "lse": main["lse_max_abs_err"]},
             "library_ms": library_ms,

@@ -1,53 +1,76 @@
 // Causal / full GQA flash-attention backward for Hopper (sm_90a): two kernels.
 //
 // Replaces the TPU kernels of repro/kernels/flash_attention.py::flash_attention_bwd:
-//   * flash_bwd_dkv_kernel <- _bwd_dkv_kernel (first pallas_call, grid B,KVH,nk,nq):
-//     for one KV tile, sweep the q tiles: p = exp(s - lse), dv += p^T.do,
-//     ds = p o (do.v^T - delta), dk += scale * ds^T.q. The G folded rows of a
-//     q tile all meet the same KV head, so summing over rows is what reduces the
-//     GQA gradients onto it.
 //   * flash_bwd_dq_kernel  <- _bwd_dq_kernel (second pallas_call, grid B,KVH,nq,nk):
-//     for one q tile, sweep the KV tiles: the same p and ds, dq += scale * ds.k.
+//     for one tile of folded q rows, sweep the KV tiles: p = exp(s - lse),
+//     ds = p o (do.v^T - delta), dq += scale * ds.k. It also computes
+//     delta = sum_d o*do for its rows (the reference computes it outside its
+//     kernels) and writes it for the dk/dv kernel, which runs after it.
+//   * flash_bwd_dkv_kernel <- _bwd_dkv_kernel (first pallas_call, grid B,KVH,nk,nq):
+//     for one KV tile, sweep the q tiles: the same p and ds, dv += p^T.do,
+//     dk += scale * ds^T.q. The G folded rows of a q tile all meet the same KV
+//     head, so summing over rows is what reduces the GQA gradients onto it.
 // Both recompute p from q, k and the forward's lse, so no S x S tensor exists.
-// delta = sum_d o*do is an input (computed by the wrapper, as the reference
-// computes it outside its kernels).
 //
 // What bounds them on this card: operations. At the training shape
 // (q (2,8,4096,4,64), k/v (2,8,4096,64), causal) the dk/dv kernel needs
-// 8*D FLOP per live (row, key) pair (s, dv, dp, dk), 275 GFLOP, and the dq
+// 8*D FLOP per live (row, key) pair (s, dp, dv, dk), 275 GFLOP, and the dq
 // kernel 6*D (s, dp, dq), 206 GFLOP, against about 100 MB of traffic each: far
 // above the card's ~295 FLOP/byte ridge.
 //
-// What the design does about it: every product runs on the tensor cores
-// (mma.sync m16n8k16, bf16 or f16 in, f32 accumulate). The accumulators stay in
-// registers for the whole sweep (dk and dv for 16 kv rows a warp in the dk/dv
-// kernel, dq for 16 folded rows a warp in the dq kernel), so each kernel writes
-// its outputs once, with no atomics and no second pass. The score fragment is
-// re-packed in place as the A operand of the next product (p^T.do, ds^T.q,
-// ds.k), so p and ds never leave registers. Operands come out of shared memory
-// with ldmatrix (transposed where the product needs it) from rows padded so the
-// reads hit all banks, and the next tile is fetched with cp.async into a second
-// buffer while the current one is multiplied. Blocks are scheduled heaviest
-// first (the tile index is the slowest grid axis), and only the tiles on the
-// causal diagonal or a ragged edge are masked.
-// What they do not do yet: no wgmma and no TMA, a two-stage pipeline only, and
-// the dk/dv kernel recomputes s where FlashAttention-2 would share it with dq
-// through atomics.
+// What the design does about it:
+//   * every product is a warpgroup wgmma.mma_async (m64nNk16, f32 accumulate),
+//     the only way to the tensor cores' full rate. B always comes from shared
+//     memory; A from shared memory for the resident tiles (K, V in the dk/dv
+//     kernel, q, do in the dq kernel) and from registers for p^T, ds^T and
+//     ds, which go from the f32 accumulator straight to a 16-bit A fragment.
+//     Where B is stored MN-major (do and q for dv and dk, K for dq), the
+//     instruction transposes it;
+//   * tiles lie in shared memory in the 128-byte swizzle that both TMA and the
+//     wgmma descriptors read: a row of 64 elements is one swizzle atom, and a
+//     row of 128 two column blocks of 64;
+//   * the swept tiles arrive by TMA into a ring of STAGES buffers with
+//     mbarriers, issued by one producer warp; the two consumer warpgroups take
+//     its registers with setmaxnreg. q and do are read through a 5-D tensor
+//     map (D, G, S, KVH, B) whose box is a tile of whole positions, so the GQA
+//     fold stays a view; k, v through a 4-D map (D, S, KVH, B);
+//   * larger tiles, so that every fetched tile serves more work: the dk/dv
+//     kernel owns 128 KV rows a block (64 a consumer warpgroup) against q tiles
+//     of 64 folded rows, and the dq kernel 128 folded q rows against KV tiles
+//     of 128 (64 at D = 128). dk and dv (dq) stay in registers for the whole
+//     sweep, and each kernel writes its outputs once: no atomics, no second
+//     pass, and two runs give the same bits;
+//   * the softmax costs few instructions, since each step's tensor work waits
+//     for it: one ex2.approx.ftz an element, and the mask test outside the
+//     element loop (a tile that needs no mask runs a loop without one);
+//   * causal sweeps start (dk/dv) or end (dq) at the diagonal, tiles a
+//     warpgroup would find wholly masked are skipped, blocks are scheduled
+//     heaviest first (the tile index is the slowest grid axis), and only tiles
+//     on the diagonal or a ragged edge are masked. Rows past the end or past
+//     the whole positions of a tile read as 0 (TMA's out-of-bounds fill, or
+//     zeroed once), with lse and delta 0: they add exactly 0 to every output.
+// What it does not do: FA3's fused form (the dk/dv kernel also adding dq by f32
+// atomics, then a convert pass), which does 10*D FLOP per pair instead of
+// 14*D but gives up determinism; ping-pong of one warpgroup's softmax against
+// the other's products. Each step waits for its own products before the next
+// one starts: with commit groups left in flight across the loop's back edge,
+// ptxas serializes every wgmma (its message C7515).
 //
 // Differences from the TPU kernels, on purpose:
 //   * the sequential grid axis of each TPU kernel is a loop inside one block;
-//   * tiles are 64 folded rows x 64 kv positions (the TPU default of 512 x 512
-//     with G = 4 is 2,048 rows, far beyond one SM);
-//   * the causal sweep of the dk/dv kernel starts at the first q tile that
-//     reaches its KV tile, and the dq kernel's ends at the diagonal, instead of
-//     visiting every tile and skipping the dead ones;
+//   * tiles are 64-128 rows (the TPU default of 512 x 512 with G = 4 is 2,048
+//     rows, far beyond one SM);
 //   * the ragged edges are masked, so any Sq, Skv >= 1 works (the TPU entry
 //     needs lengths that divide its blocks);
-//   * every tensor is addressed through strides (last dim contiguous), so the
-//     (B,S,H,D) -> (B,KVH,S,G,D) fold of q, do and dq is a view;
 //   * p and ds are rounded to the input type as tensor-core operands; the
 //     softmax algebra stays f32.
+//
+// The tile plan (positions a tile, groups a tile, tiles along G when G exceeds
+// the tile) is computed by the Python wrapper, which also checks what the
+// tensor maps need: last dim contiguous, strides multiples of 16 bytes,
+// 16-byte aligned storage.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time (no -lcuda)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -56,349 +79,605 @@
 namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BM = 64;              // folded (q position, group) rows per tile
-constexpr int BN = 64;              // kv positions per tile
-constexpr int NWARPS = 4;           // one m16 row slab per warp
-constexpr int NTHREADS = NWARPS * 32;
-static_assert(BM == BN, "the q and kv tiles share one shared-memory tile size");
+constexpr int NCONSUMER = 2;                      // consumer warpgroups a block
+constexpr int NTHREADS = (NCONSUMER + 1) * 128;   // + one producer warpgroup
+constexpr int OWN_ROWS = 128;   // rows a block owns: KV rows (dk/dv), folded q rows (dq)
+constexpr int SWEEP_ROWS = 64;  // folded q rows of a swept tile of the dk/dv kernel
+constexpr int STAGES = 3;       // depth of the ring of swept tiles
+constexpr int ATOM = 128;       // bytes of a swizzled row: 64 16-bit elements
+constexpr int CONSUMER_REGS = 240;
+constexpr int PRODUCER_REGS = 24;
 
-struct BwdParams {
-  const void* q;
-  const void* k;
-  const void* v;
+// KV rows of a swept tile of the dq kernel: 128 at D = 64 (s, dp and dq then
+// take 160 of a consumer's 240 registers), 64 at D = 128 (dq alone takes 64).
+template <int D>
+__host__ __device__ constexpr int dq_kv_rows() {
+  return D == 64 ? 128 : 64;
+}
+
+// ---------------------------------------------------------------------------
+// shared memory, barriers, TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Waits for the phase of parity ``parity`` to complete. A pipeline fault
+// would otherwise hang the card: after about 4 s of waiting the kernel traps,
+// and the launch fails with an error the wrapper reports.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  long long t0 = 0;
+  for (int n = 0;; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (n == 0) t0 = clock64();
+    else if (clock64() - t0 > 8000000000LL) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Generic-proxy stores to shared memory (the zeroed rows) made visible to the
+// async proxy (wgmma, TMA) before a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Descriptor of a 128-byte-swizzled operand tile: start address, leading and
+// stride byte offsets (16-byte units), layout 1 = 128-byte swizzle. The tiles'
+// bases are 1024-byte aligned, so the swizzle phase (base offset) is 0.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// K-major operand (rows x D, D contiguous; a tile of ``cap`` rows holds D/64
+// column blocks of cap x 64): rows [r0, r0 + 8 m) and the k16 slice ``kk``.
+// Within a 128-byte row the slice starts 32 bytes further per step; 8-row
+// groups are 1024 bytes apart (SBO); LBO is unused for this layout.
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int cap, int r0, int kk) {
+  return make_desc(tile + (kk >> 2) * cap * ATOM + r0 * ATOM + (kk & 3) * 32, 16, 1024);
+}
+
+// MN-major operand: the tile's rows are the k dim and D the n dim (B of
+// p^T.do, ds^T.q and ds.k, read transposed). The k16 slice ``kk`` is rows
+// [16 kk, 16 kk + 16): two 8-row groups 1024 bytes apart (SBO); the 64-wide
+// column blocks of n are a tile's column-block stride apart (LBO).
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int cap, int kk) {
+  return make_desc(tile + kk * 16 * ATOM, cap * ATOM, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses to registers that an in-flight
+// wgmma reads or writes across the points where this is called.
+template <int N>
+__device__ __forceinline__ void pin(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j]) :: "memory");
+}
+
+template <typename T>
+struct Mma {
+  // d[64 x N] (+)= A . B^T, A and B K-major in shared memory
+  static __device__ void ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc);
+  static __device__ void ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc);
+  // d[64 x 64] or d[64 x 128] (+)= A . B, A from registers, B MN-major in shared memory
+  static __device__ void rs_n64_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc);
+  static __device__ void rs_n128_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc);
+  static __device__ uint32_t pack(float lo, float hi);
+};
+
+template <>
+__device__ __forceinline__ uint32_t Mma<__nv_bfloat16>::pack(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <>
+__device__ __forceinline__ uint32_t Mma<__half>::pack(float lo, float hi) {
+  __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <>
+__device__ __forceinline__ void Mma<__nv_bfloat16>::ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void Mma<__nv_bfloat16>::ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void Mma<__nv_bfloat16>::rs_n64_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void Mma<__nv_bfloat16>::rs_n128_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void Mma<__half>::ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void Mma<__half>::ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void Mma<__half>::rs_n64_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void Mma<__half>::rs_n128_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 64) {
+    Mma<T>::ss_n64(d, da, db, acc);
+  } else {
+    Mma<T>::ss_n128(d, da, db, acc);
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void mma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64) {
+    Mma<T>::rs_n64_tb(d, a, db, 1);
+  } else {
+    Mma<T>::rs_n128_tb(d, a, db, 1);
+  }
+}
+
+// The accumulator of a 64 x N product (thread (warp w, lane 4 g + t) holds
+// rows 16 w + g and + 8, columns 8 j + 2 t and + 1 in x[4 j .. 4 j + 3]),
+// rounded to T, as the N / 16 A fragments (k16 slices) of the next product.
+template <typename T, int N>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = Mma<T>::pack(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = Mma<T>::pack(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = Mma<T>::pack(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = Mma<T>::pack(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// 2^x in one SFU instruction; results below 2^-126 flush to 0 (p that small
+// adds nothing at f32 or 16-bit precision)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
+}
+
+// Row ``lo`` (0: row g, 1: row g + 8) of a 64 x D accumulator, times
+// ``scale``, to a row of T with 4-byte stores.
+template <typename T, int D>
+__device__ __forceinline__ void store_row(T* row, const float (&acc)[D / 2], int lo, float scale, int t) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
+        Mma<T>::pack(acc[4 * j + 2 * lo] * scale, acc[4 * j + 2 * lo + 1] * scale);
+  }
+}
+
+// Zeroes rows [r_begin, cap) of a tile of ``cap`` rows (all its column
+// blocks): rows that TMA never writes, so that they read as 0 for good.
+template <int D>
+__device__ __forceinline__ void zero_rows(unsigned char* tile, int cap, int r_begin, int tid) {
+  const int n = (cap - r_begin) * (D / 64) * (ATOM / 16);
+  for (int i = tid; i < n; i += NTHREADS) {
+    const int c = i % (ATOM / 16);
+    const int r = r_begin + (i / (ATOM / 16)) % (cap - r_begin);
+    const int cb = i / ((ATOM / 16) * (cap - r_begin));
+    *reinterpret_cast<uint4*>(tile + cb * cap * ATOM + r * ATOM + c * 16) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The folded rows of a tile: P positions x Gt groups, row = p * Gt + g. With
+// G <= rows, Gt = G and a tile is P whole positions; with G > rows, P = 1 and
+// the groups of one position span ``gchunks`` tiles (the last one ragged).
+struct TilePlan {
+  int P, Gt, gchunks;
+};
+
+struct DqParams {
+  const void* o;
   const void* dout;
-  const float* lse;    // (B,KVH,Sq,G) contiguous
-  const float* delta;  // (B,KVH,Sq,G) contiguous
+  const float* lse;  // (B,KVH,Sq,G) contiguous
+  float* delta;      // (B,KVH,Sq,G) contiguous, written
   void* dq;
-  void* dk;
-  void* dv;
-  long long q_sb, q_sh, q_ss, q_sg;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_ss, o_sg;
   long long do_sb, do_sh, do_ss, do_sg;
   long long dq_sb, dq_sh, dq_ss, dq_sg;
-  long long dk_sb, dk_sh, dk_ss;
-  long long dv_sb, dv_sh, dv_ss;
-  int B, KVH, Sq, Skv, G;
+  int KVH, Sq, Skv, G;
+  TilePlan tp;
   int causal, q_offset;
   float scale;
 };
 
-template <typename T>
-struct TensorOp;
-
-template <>
-struct TensorOp<__nv_bfloat16> {
-  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
+struct DkvParams {
+  const float* lse;    // (B,KVH,Sq,G) contiguous
+  const float* delta;  // (B,KVH,Sq,G) contiguous, from the dq kernel
+  void* dk;
+  void* dv;
+  long long dk_sb, dk_sh, dk_ss;
+  long long dv_sb, dv_sh, dv_ss;
+  int KVH, Sq, Skv, G;
+  TilePlan tp;
+  int causal, q_offset;
+  float scale;
 };
 
-template <>
-struct TensorOp<__half> {
-  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
+// Shared memory of the dq kernel: the resident q and do tiles (OWN_ROWS x D
+// each), STAGES x (K, V) tiles (dq_kv_rows x D each), then the barriers.
+// Every tile starts on a 1024-byte boundary, as the 128-byte swizzle needs.
+template <int D>
+struct DqSmem {
+  static constexpr int OWN = OWN_ROWS * D * 2;
+  static constexpr int SWEEP = dq_kv_rows<D>() * D * 2;
+  static constexpr int Q = 0, DO = OWN, STAGE = 2 * OWN;
+  static constexpr int BAR = STAGE + STAGES * 2 * SWEEP;  // full[STAGES], empty[STAGES], q
+  static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8;
+  static constexpr int ALLOC = BYTES + 1024;  // room to align the base
 };
 
-// Four 8x8 b16 matrices from shared memory: lane l supplies the address of
-// row (l & 7) of matrix (l >> 3); register i receives matrix i with thread
-// (g, t) holding elements [g][2t] and [g][2t+1].
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
+// Shared memory of the dk/dv kernel: the resident K and V tiles (OWN_ROWS x D
+// each), STAGES x (q, do) tiles (SWEEP_ROWS x D each), STAGES x (-lse log2 e,
+// delta) of SWEEP_ROWS floats, the position of each row of a q tile, then the
+// barriers.
+template <int D>
+struct DkvSmem {
+  static constexpr int OWN = OWN_ROWS * D * 2;
+  static constexpr int SWEEP = SWEEP_ROWS * D * 2;
+  static constexpr int K = 0, V = OWN, STAGE = 2 * OWN;
+  static constexpr int STATS = STAGE + STAGES * 2 * SWEEP;
+  static constexpr int POS = STATS + STAGES * 2 * SWEEP_ROWS * 4;
+  static constexpr int BAR = POS + SWEEP_ROWS * 4;  // full[STAGES], empty[STAGES], kv
+  static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8;
+  static constexpr int ALLOC = BYTES + 1024;
+};
 
-// The same with each matrix transposed on the way: thread (g, t) holds
-// elements [2t][g] and [2t+1][g] of matrix i.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_row) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16 bytes from global to shared memory without passing through registers;
-// with ``valid`` false nothing is read and the 16 bytes are zero-filled.
-__device__ __forceinline__ void cp_async_16(void* smem_dst, const void* gmem_src, bool valid) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem_src), "r"(src_bytes) : "memory");
-}
-
-// The same for one 4-byte word (the per-row f32 statistics).
-__device__ __forceinline__ void cp_async_4(void* smem_dst, const void* gmem_src, bool valid) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-  const int src_bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(gmem_src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most the most recently committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_all_but_last() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// The A fragment (16 x 16, row-major) of rows [0, 16) and columns [0, 16) of
-// ``base``: lanes 0-15 address rows 0-15 at column 0, lanes 16-31 the same
-// rows at column 8, so registers 0-3 are a0-a3 of mma.m16n8k16.
-template <typename T>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* base, int ld, int lane) {
-  ldmatrix_x4(a, base + (lane & 15) * ld + (lane >> 4) * 8);
-}
-
-// acc[16 x 8*NT] += A (16 x D, from ``a_rows`` in shared memory) . Bs^T, where
-// Bs holds 8*NT rows of D contiguous elements (row n of Bs is column n of the
-// product): q.k^T, do.v^T, k.q^T, v.do^T.
-template <typename T, int D, int NT>
-__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const T* a_rows, const T* bs,
-                                        int ld, int lane) {
-  const int brow = (lane & 7) + (lane >> 4) * 8;
-  const int bcol = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    load_a(a, a_rows + kk * 16, ld, lane);
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, &bs[(j * 8 + brow) * ld + kk * 16 + bcol]);
-      TensorOp<T>::mma(acc[j], a, b[0], b[1]);
-      TensorOp<T>::mma(acc[j + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[16 x D] += P (16 x 8*NT, the accumulator fragments of an earlier
-// product, rounded to T) . Bs, where Bs holds 8*NT rows of D contiguous
-// elements (row k of Bs is row k of the right operand): p^T.do, ds^T.q, ds.k.
-template <typename T, int D, int NT>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4], const float (&pf)[NT][4],
-                                       const T* bs, int ld, int lane) {
-#pragma unroll
-  for (int c = 0; c < NT / 2; ++c) {
-    uint32_t pa[4];
-    pa[0] = TensorOp<T>::pack(pf[2 * c][0], pf[2 * c][1]);
-    pa[1] = TensorOp<T>::pack(pf[2 * c][2], pf[2 * c][3]);
-    pa[2] = TensorOp<T>::pack(pf[2 * c + 1][0], pf[2 * c + 1][1]);
-    pa[3] = TensorOp<T>::pack(pf[2 * c + 1][2], pf[2 * c + 1][3]);
-    const int brow = c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int n2 = 0; n2 < D / 16; ++n2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, &bs[brow * ld + n2 * 16 + (lane >> 4) * 8]);
-      TensorOp<T>::mma(acc[2 * n2], pa, b[0], b[1]);
-      TensorOp<T>::mma(acc[2 * n2 + 1], pa, b[2], b[3]);
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    x[i][0] = 0.f; x[i][1] = 0.f; x[i][2] = 0.f; x[i][3] = 0.f;
-  }
-}
-
-// One row of D/8 accumulator fragments (elements lo, lo + 1 of each), times
-// ``scale``, to a row of T with 4-byte stores.
-template <typename T, int D>
-__device__ __forceinline__ void store_row(T* row, const float (&acc)[D / 8][4], int lo,
-                                          float scale, int t) {
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * t) =
-        TensorOp<T>::pack(acc[n][lo] * scale, acc[n][lo + 1] * scale);
-  }
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
 
 // ---------------------------------------------------------------------------
-// dq: one block per (q tile, kv head, batch); sweeps the KV tiles
+// dq (and delta): one block per (q tile, kv head, batch); sweeps the KV tiles
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const BwdParams p) {
-  constexpr int LD = D + 8;   // padded smem row: 16-byte chunks of 8 rows hit 8 bank groups
-  constexpr int CH = D / 8;   // 16-byte chunks per row
-  constexpr int NT = BN / 8;  // n tiles of a score slab
-  constexpr int TILE = BN * LD;
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                    const DqParams p) {
+  using L = DqSmem<D>;
+  constexpr int NCB = D / 64;  // 64-element column blocks of a row
+  constexpr int NK = dq_kv_rows<D>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = align1024(smem_raw);
+  const uint32_t sbase = smem_u32(smem);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* const empty = full + STAGES;
+  uint64_t* const qbar = empty + STAGES;
 
-  // two stages of (K tile, V tile); stage 0 first stages the q and do tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const smem = reinterpret_cast<T*>(smem_raw);
-
+  const TilePlan tp = p.tp;
+  const int rows_tile = tp.P * tp.Gt;
   // heaviest (latest) causal tiles first: the tile is the slowest grid axis
   const int tile = gridDim.z - 1 - blockIdx.z;
+  const int pos0 = (tile / tp.gchunks) * tp.P;
+  const int g0 = (tile % tp.gchunks) * tp.Gt;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row within the slab (and row + 8)
-  const int t = lane & 3;   // fragment column pair
-
-  const int rows_total = p.Sq * p.G;
-  const int row0 = tile * BM;
-
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  T* dqb = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  const long long stat0 = (static_cast<long long>(b) * p.KVH + h) * rows_total;
-
-  // ---- q and do tiles: staged through stage 0 for 16-byte coalesced loads,
-  // then held as A fragments in registers for the whole KV sweep
-  for (int i = tid; i < BM * CH; i += NTHREADS) {
-    const int r = i / CH;
-    const int c = i % CH;
-    const int row = row0 + r;
-    uint4 qv = make_uint4(0u, 0u, 0u, 0u);
-    uint4 dv = make_uint4(0u, 0u, 0u, 0u);
-    if (row < rows_total) {
-      const long long qi = row / p.G;
-      const long long gi = row % p.G;
-      qv = *reinterpret_cast<const uint4*>(qb + qi * p.q_ss + gi * p.q_sg + c * 8);
-      dv = *reinterpret_cast<const uint4*>(dob + qi * p.do_ss + gi * p.do_sg + c * 8);
-    }
-    *reinterpret_cast<uint4*>(&smem[r * LD + c * 8]) = qv;
-    *reinterpret_cast<uint4*>(&smem[TILE + r * LD + c * 8]) = dv;
-  }
-  __syncthreads();
-  uint32_t qf[D / 16][4], df[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a(qf[kk], smem + warp * 16 * LD + kk * 16, LD, lane);
-    load_a(df[kk], smem + TILE + warp * 16 * LD + kk * 16, LD, lane);
-  }
-  __syncthreads();
-
-  const int row_a = row0 + warp * 16 + g;  // this thread's two rows
-  const int row_b = row_a + 8;
-  const int qpos_a = p.q_offset + row_a / p.G;
-  const int qpos_b = p.q_offset + row_b / p.G;
-  const float c2 = p.scale * LOG2E;  // exp(scale * s - lse) = exp2(c2 * s - lse * log2(e))
-  const float nl_a = row_a < rows_total ? -p.lse[stat0 + row_a] * LOG2E : 0.f;
-  const float nl_b = row_b < rows_total ? -p.lse[stat0 + row_b] * LOG2E : 0.f;
-  const float dl_a = row_a < rows_total ? p.delta[stat0 + row_a] : 0.f;
-  const float dl_b = row_b < rows_total ? p.delta[stat0 + row_b] : 0.f;
-
-  float dq[D / 8][4];
-  zero(dq);
 
   // causal: KV tiles wholly above the diagonal of this block are never visited
   int kv_end = p.Skv;
-  if (p.causal) {
-    const int last_row = min(row0 + BM, rows_total) - 1;
-    kv_end = min(p.Skv, p.q_offset + last_row / p.G + 1);
+  if (p.causal) kv_end = min(p.Skv, p.q_offset + min(pos0 + tp.P, p.Sq));
+  const int n_kt = (kv_end + NK - 1) / NK;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NCONSUMER * 4);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int n_tiles = kv_end > 0 ? (kv_end + BN - 1) / BN : 0;
+  if (rows_tile < OWN_ROWS) {
+    zero_rows<D>(smem + L::Q, OWN_ROWS, rows_tile, tid);
+    zero_rows<D>(smem + L::DO, OWN_ROWS, rows_tile, tid);
+    fence_proxy_async();
+  }
+  __syncthreads();
 
-  auto fetch = [&](int it) {
-    T* dK = smem + (it & 1) * 2 * TILE;
-    T* dV = dK + TILE;
-    const int kv0 = it * BN;
-    for (int i = tid; i < BN * CH; i += NTHREADS) {
-      const int r = i / CH;
-      const int c = i % CH;
-      const bool in = kv0 + r < p.Skv;
-      const long long kv = in ? kv0 + r : 0;
-      cp_async_16(&dK[r * LD + c * 8], kb + kv * p.k_ss + c * 8, in);
-      cp_async_16(&dV[r * LD + c * 8], vb + kv * p.v_ss + c * 8, in);
-    }
-  };
-
-  if (n_tiles > 0) fetch(0);
-  cp_async_commit();
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int kv0 = it * BN;
-    const T* sK = smem + (it & 1) * 2 * TILE;
-    const T* sV = sK + TILE;
-    if (it + 1 < n_tiles) fetch(it + 1);
-    cp_async_commit();
-    cp_async_wait_all_but_last();
-    __syncthreads();
-
-    // s = q.k^T and dp = do.v^T, 16 x BN per warp; q and do from registers
-    float s[NT][4], dp[NT][4];
-    zero(s);
-    zero(dp);
-    const int brow = (lane & 7) + (lane >> 4) * 8;
-    const int bcol = ((lane >> 3) & 1) * 8;
+  if (tid >= NCONSUMER * 128) {
+    // ---- producer: the q and do tiles once, then the ring of (K, V) tiles
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == NCONSUMER * 128) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_do);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      mbar_arrive_expect_tx(qbar, 2 * NCB * rows_tile * ATOM);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t kf[4], vf[4];
-        ldmatrix_x4(kf, &sK[(j * 8 + brow) * LD + kk * 16 + bcol]);
-        TensorOp<T>::mma(s[j], qf[kk], kf[0], kf[1]);
-        TensorOp<T>::mma(s[j + 1], qf[kk], kf[2], kf[3]);
-        ldmatrix_x4(vf, &sV[(j * 8 + brow) * LD + kk * 16 + bcol]);
-        TensorOp<T>::mma(dp[j], df[kk], vf[0], vf[1]);
-        TensorOp<T>::mma(dp[j + 1], df[kk], vf[2], vf[3]);
+      for (int cb = 0; cb < NCB; ++cb) {
+        tma_load_5d(sbase + L::Q + cb * OWN_ROWS * ATOM, &tm_q, qbar, cb * 64, g0, pos0, h, b);
+        tma_load_5d(sbase + L::DO + cb * OWN_ROWS * ATOM, &tm_do, qbar, cb * 64, g0, pos0, h, b);
       }
-    }
-
-    // p = exp(scale * s - lse), masked to 0 where this tile needs it; ds = p o (dp - delta)
-    const bool tile_masked =
-        (kv0 + BN > p.Skv) || (p.causal && kv0 + BN - 1 > p.q_offset + row0 / p.G);
+      for (int it = 0; it < n_kt; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], 2 * NCB * NK * ATOM);
+        const uint32_t sk = sbase + L::STAGE + s * 2 * L::SWEEP;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pv = exp2f(fmaf(s[j][e], c2, e < 2 ? nl_a : nl_b));
-        if (tile_masked) {
-          const int col = kv0 + j * 8 + 2 * t + (e & 1);
-          const int qpos = e < 2 ? qpos_a : qpos_b;
-          pv = (col < p.Skv && (!p.causal || qpos >= col)) ? pv : 0.f;
+        for (int cb = 0; cb < NCB; ++cb) {
+          tma_load_4d(sk + cb * NK * ATOM, &tm_k, &full[s], cb * 64, it * NK, h, b);
+          tma_load_4d(sk + L::SWEEP + cb * NK * ATOM, &tm_v, &full[s], cb * 64, it * NK, h, b);
         }
-        s[j][e] = pv * (dp[j][e] - (e < 2 ? dl_a : dl_b));
       }
     }
+  } else {
+    // ---- consumers: 64 folded rows each
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = tid >> 7;
+    const int wl = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int R = p.Sq * p.G;
+    const long long stat0 = (static_cast<long long>(b) * p.KVH + h) * R;
 
-    // dq += ds.k
-    mma_pb<T, D, NT>(dq, s, sK, LD, lane);
-    __syncthreads();
-  }
+    // this thread's two rows (i = 0: row g of its warp's 16, i = 1: row g + 8)
+    int pos[2], grp[2];
+    bool valid[2];
+    float nl[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int lr = 64 * wg + 16 * wl + g + 8 * i;
+      pos[i] = pos0 + lr / tp.Gt;
+      grp[i] = g0 + lr % tp.Gt;
+      valid[i] = lr < rows_tile && pos[i] < p.Sq && grp[i] < p.G;
+      const long long row = static_cast<long long>(pos[i]) * p.G + grp[i];
+      nl[i] = valid[i] ? -p.lse[stat0 + row] * LOG2E : 0.f;
+      // delta = sum_d o*do in f32: the 4 lanes of a quad share the row's 16-byte chunks
+      float part = 0.f;
+      if (valid[i]) {
+        const T* orow = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh + pos[i] * p.o_ss + grp[i] * p.o_sg;
+        const T* drow = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh + pos[i] * p.do_ss +
+                        grp[i] * p.do_sg;
+#pragma unroll
+        for (int c = t; c < D / 8; c += 4) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * c);
+          const uint4 dv = *reinterpret_cast<const uint4*>(drow + 8 * c);
+          const T* oe = reinterpret_cast<const T*>(&ov);
+          const T* de = reinterpret_cast<const T*>(&dv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) part = fmaf(static_cast<float>(oe[e]), static_cast<float>(de[e]), part);
+        }
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      dl[i] = part;
+      if (valid[i] && t == 0) p.delta[stat0 + row] = part;
+    }
 
-  if (row_a < rows_total) {
-    store_row<T, D>(dqb + static_cast<long long>(row_a / p.G) * p.dq_ss +
-                        static_cast<long long>(row_a % p.G) * p.dq_sg,
-                    dq, 0, p.scale, t);
-  }
-  if (row_b < rows_total) {
-    store_row<T, D>(dqb + static_cast<long long>(row_b / p.G) * p.dq_ss +
-                        static_cast<long long>(row_b % p.G) * p.dq_sg,
-                    dq, 2, p.scale, t);
+    // this warpgroup's rows: which KV tiles it can skip, which it must mask
+    const int wg_rows = min(64, rows_tile - 64 * wg);  // may be <= 0: nothing to do
+    const int wg_first = p.q_offset + pos0 + (64 * wg) / tp.Gt;
+    const int wg_last = p.q_offset + pos0 + (64 * wg + max(wg_rows, 1) - 1) / tp.Gt;
+    // the last kv position each of the two rows sees
+    const int kv_last[2] = {p.causal ? min(p.Skv, p.q_offset + pos[0] + 1) - 1 : p.Skv - 1,
+                            p.causal ? min(p.Skv, p.q_offset + pos[1] + 1) - 1 : p.Skv - 1};
+    const float c2 = p.scale * LOG2E;  // exp(scale * s - lse) = exp2(c2 * s - lse * log2(e))
+    const uint32_t sq = sbase + L::Q;
+    const uint32_t sdo = sbase + L::DO;
+
+    float dq[D / 2];
+    zero(dq);
+    mbar_wait(qbar, 0);
+
+    for (int it = 0; it < n_kt; ++it) {
+      const int s = it % STAGES;
+      const int kv0 = it * NK;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const bool dead = wg_rows <= 0 || (p.causal && kv0 > wg_last);
+      if (!dead) {
+        const uint32_t sk = sbase + L::STAGE + s * 2 * L::SWEEP;
+        const uint32_t sv = sk + L::SWEEP;
+        float sacc[NK / 2], dpacc[NK / 2];
+        // s = q.k^T and dp = do.v^T, 64 x NK a warpgroup
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_ss<T, NK>(sacc, desc_k(sq, OWN_ROWS, 64 * wg, kk), desc_k(sk, NK, 0, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_ss<T, NK>(dpacc, desc_k(sdo, OWN_ROWS, 64 * wg, kk), desc_k(sv, NK, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        pin(sacc);
+
+        // p = exp(scale * s - lse), masked to 0 on a diagonal or ragged tile only
+        if ((kv0 + NK > p.Skv) || (p.causal && kv0 + NK - 1 > wg_first)) {
+#pragma unroll
+          for (int j = 0; j < NK / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kv = kv0 + 8 * j + 2 * t + (e & 1);
+              sacc[4 * j + e] = kv <= kv_last[e >> 1] ? exp2_ftz(fmaf(sacc[4 * j + e], c2, nl[e >> 1])) : 0.f;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NK / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sacc[4 * j + e] = exp2_ftz(fmaf(sacc[4 * j + e], c2, nl[e >> 1]));
+          }
+        }
+        wgmma_wait<0>();
+        pin(dpacc);
+        // ds = p o (dp - delta)
+#pragma unroll
+        for (int j = 0; j < NK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sacc[4 * j + e] *= dpacc[4 * j + e] - dl[e >> 1];
+        }
+        uint32_t dsf[NK / 16][4];
+        to_a_frags<T, NK>(dsf, sacc);
+
+        // dq += ds.k (k read transposed: its rows are the k dim)
+        wgmma_fence();
+        pin(dq);
+#pragma unroll
+        for (int kk = 0; kk < NK / 16; ++kk) mma_rs<T, D>(dq, dsf[kk], desc_mn(sk, NK, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(dq);
+        pin(dsf);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    T* dqb = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (valid[i]) {
+        store_row<T, D>(dqb + static_cast<long long>(pos[i]) * p.dq_ss + static_cast<long long>(grp[i]) * p.dq_sg,
+                        dq, i, p.scale, t);
+      }
+    }
   }
 }
 
@@ -407,244 +686,379 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const BwdParams 
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const BwdParams p) {
-  constexpr int LD = D + 8;
-  constexpr int CH = D / 8;
-  constexpr int NT = BM / 8;  // n tiles of a transposed score slab (folded rows)
-  constexpr int TILE = BM * LD;
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                     const DkvParams p) {
+  using L = DkvSmem<D>;
+  constexpr int NCB = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = align1024(smem_raw);
+  const uint32_t sbase = smem_u32(smem);
+  float* const stats = reinterpret_cast<float*>(smem + L::STATS);
+  int* const qpos = reinterpret_cast<int*>(smem + L::POS);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* const empty = full + STAGES;
+  uint64_t* const kvbar = empty + STAGES;
 
-  // K tile, V tile, then two stages of (q tile, do tile), then two stages of
-  // (lse, delta) for the BM rows of a q tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const smem = reinterpret_cast<T*>(smem_raw);
-  T* const sK = smem;
-  T* const sV = smem + TILE;
-  float* const stats = reinterpret_cast<float*>(smem + 6 * TILE);
-
+  const TilePlan tp = p.tp;
+  const int rows_tile = tp.P * tp.Gt;
   // heaviest first: under the causal mask KV tile 0 meets every q tile
-  const int kt = blockIdx.z;
+  const int kv0 = blockIdx.z * OWN_ROWS;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
 
-  const int rows_total = p.Sq * p.G;
-  const int kv0 = kt * BN;
-  const int kv_a = kv0 + warp * 16 + g;  // this thread's two kv rows
-  const int kv_b = kv_a + 8;
+  // causal: the first q tile holding a position that reaches kv0
+  const int n_pt = (p.Sq + tp.P - 1) / tp.P;
+  int pt_begin = 0;
+  if (p.causal && kv0 > p.q_offset) pt_begin = min(n_pt, (kv0 - p.q_offset) / tp.P);
+  const int tile_begin = pt_begin * tp.gchunks;
+  const int n_iter = n_pt * tp.gchunks - tile_begin;
 
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  T* dkb = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  T* dvb = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
-  const long long stat0 = (static_cast<long long>(b) * p.KVH + h) * rows_total;
-
-  // causal: the first folded row whose position reaches kv0 is (kv0 - q_offset) * G
-  long long r_begin = 0;
-  if (p.causal && kv0 > p.q_offset) r_begin = static_cast<long long>(kv0 - p.q_offset) * p.G;
-  const int n_qt = (rows_total + BM - 1) / BM;
-  const int tile_begin = r_begin >= rows_total ? n_qt : static_cast<int>(r_begin / BM);
-  const int n_iter = n_qt - tile_begin;
-
-  float dk[D / 8][4], dv[D / 8][4];
-  zero(dk);
-  zero(dv);
-
-  auto fetch = [&](int it) {
-    T* sQ = smem + (2 + 2 * (it & 1)) * TILE;
-    T* sD = sQ + TILE;
-    float* sL = stats + (it & 1) * 2 * BM;
-    const int r0 = (tile_begin + it) * BM;
-    for (int i = tid; i < BM * CH; i += NTHREADS) {
-      const int r = i / CH;
-      const int c = i % CH;
-      const int row = r0 + r;
-      const bool in = row < rows_total;
-      const long long qi = in ? row / p.G : 0;
-      const long long gi = in ? row % p.G : 0;
-      cp_async_16(&sQ[r * LD + c * 8], qb + qi * p.q_ss + gi * p.q_sg + c * 8, in);
-      cp_async_16(&sD[r * LD + c * 8], dob + qi * p.do_ss + gi * p.do_sg + c * 8, in);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes, after their stats stores
+      mbar_init(&empty[s], NCONSUMER * 4);
     }
-    if (tid < BM) {
-      const int row = r0 + tid;
-      const bool in = row < rows_total;
-      const long long at = stat0 + (in ? row : 0);
-      cp_async_4(&sL[tid], p.lse + at, in);
-      cp_async_4(&sL[BM + tid], p.delta + at, in);
-    }
-  };
-
-  if (n_iter > 0) {
-    // the K and V tiles, read once, travel with the first q tile
-    for (int i = tid; i < BN * CH; i += NTHREADS) {
-      const int r = i / CH;
-      const int c = i % CH;
-      const bool in = kv0 + r < p.Skv;
-      const long long kv = in ? kv0 + r : 0;
-      cp_async_16(&sK[r * LD + c * 8], kb + kv * p.k_ss + c * 8, in);
-      cp_async_16(&sV[r * LD + c * 8], vb + kv * p.v_ss + c * 8, in);
-    }
-    fetch(0);
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
+  for (int i = tid; i < SWEEP_ROWS; i += NTHREADS) qpos[i] = i / tp.Gt;
+  if (rows_tile < SWEEP_ROWS) {
+    for (int s = 0; s < STAGES; ++s) {
+      zero_rows<D>(smem + L::STAGE + s * 2 * L::SWEEP, SWEEP_ROWS, rows_tile, tid);
+      zero_rows<D>(smem + L::STAGE + s * 2 * L::SWEEP + L::SWEEP, SWEEP_ROWS, rows_tile, tid);
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
 
-  const float c2 = p.scale * LOG2E;
-  const T* const k_rows = sK + warp * 16 * LD;
-  const T* const v_rows = sV + warp * 16 * LD;
-
-  for (int it = 0; it < n_iter; ++it) {
-    const T* sQ = smem + (2 + 2 * (it & 1)) * TILE;
-    const T* sD = sQ + TILE;
-    const float* sL = stats + (it & 1) * 2 * BM;
-    const float* sDelta = sL + BM;
-    const int r0 = (tile_begin + it) * BM;
-    if (it + 1 < n_iter) fetch(it + 1);
-    cp_async_commit();
-    cp_async_wait_all_but_last();
-    __syncthreads();
-
-    // s^T = k.q^T: 16 kv rows x BM folded rows per warp
-    float s[NT][4];
-    zero(s);
-    mma_abt<T, D, NT>(s, k_rows, sQ, LD, lane);
-
-    // p^T = exp(scale * s^T - lse), masked to 0 where this tile needs it
-    const bool tile_masked = (r0 + BM > rows_total) || (kv0 + BN > p.Skv) ||
-                             (p.causal && p.q_offset + r0 / p.G < kv0 + BN - 1);
+  if (tid >= NCONSUMER * 128) {
+    // ---- producer warp: the K and V tiles once, then the ring of (q, do,
+    // -lse log2 e, delta); the tiles by TMA, the row statistics by its lanes
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid < NCONSUMER * 128 + 32 && n_iter > 0) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        prefetch_map(&tm_q);
+        prefetch_map(&tm_do);
+        prefetch_map(&tm_k);
+        prefetch_map(&tm_v);
+        mbar_arrive_expect_tx(kvbar, 2 * NCB * OWN_ROWS * ATOM);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int cl = j * 8 + 2 * t;
-      const float nl0 = -sL[cl] * LOG2E;
-      const float nl1 = -sL[cl + 1] * LOG2E;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pv = exp2f(fmaf(s[j][e], c2, (e & 1) ? nl1 : nl0));
-        if (tile_masked) {
-          const int row = r0 + cl + (e & 1);
-          const int kv = e < 2 ? kv_a : kv_b;
-          const bool ok = row < rows_total && kv < p.Skv &&
-                          (!p.causal || p.q_offset + row / p.G >= kv);
-          pv = ok ? pv : 0.f;
+        for (int cb = 0; cb < NCB; ++cb) {
+          tma_load_4d(sbase + L::K + cb * OWN_ROWS * ATOM, &tm_k, kvbar, cb * 64, kv0, h, b);
+          tma_load_4d(sbase + L::V + cb * OWN_ROWS * ATOM, &tm_v, kvbar, cb * 64, kv0, h, b);
         }
-        s[j][e] = pv;
+      }
+      const long long stat0 = (static_cast<long long>(b) * p.KVH + h) * p.Sq * p.G;
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % STAGES;
+        const int tile = tile_begin + it;
+        const int pos0 = (tile / tp.gchunks) * tp.P;
+        const int g0 = (tile % tp.gchunks) * tp.Gt;
+        if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * NCB * rows_tile * ATOM);
+          const uint32_t sq = sbase + L::STAGE + s * 2 * L::SWEEP;
+#pragma unroll
+          for (int cb = 0; cb < NCB; ++cb) {
+            tma_load_5d(sq + cb * SWEEP_ROWS * ATOM, &tm_q, &full[s], cb * 64, g0, pos0, h, b);
+            tma_load_5d(sq + L::SWEEP + cb * SWEEP_ROWS * ATOM, &tm_do, &full[s], cb * 64, g0, pos0, h, b);
+          }
+        }
+        // rows past the end or past the tile's whole positions: lse and delta 0
+        float* st = stats + s * 2 * SWEEP_ROWS;
+        for (int i = lane; i < SWEEP_ROWS; i += 32) {
+          const int pos = pos0 + i / tp.Gt;
+          const int gg = g0 + i % tp.Gt;
+          const bool in = i < rows_tile && pos < p.Sq && gg < p.G;
+          const long long row = stat0 + static_cast<long long>(pos) * p.G + gg;
+          st[i] = in ? -p.lse[row] * LOG2E : 0.f;
+          st[SWEEP_ROWS + i] = in ? p.delta[row] : 0.f;
+        }
+        mbar_arrive(&full[s]);
       }
     }
+  } else {
+    // ---- consumers: 64 kv rows each, dk and dv in registers for the whole sweep
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = tid >> 7;
+    const int wl = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int kv_w = kv0 + 64 * wg;  // this warpgroup's first kv row
+    const int kv_a = kv_w + 16 * wl + g;
+    const int kv_b = kv_a + 8;
+    const float c2 = p.scale * LOG2E;
+    const uint32_t sk = sbase + L::K;
+    const uint32_t sv = sbase + L::V;
 
-    // dv += p^T.do
-    mma_pb<T, D, NT>(dv, s, sD, LD, lane);
+    float dk[D / 2], dv[D / 2];
+    zero(dk);
+    zero(dv);
+    if (n_iter > 0) mbar_wait(kvbar, 0);
 
-    // dp^T = v.do^T, then ds^T = p^T o (dp^T - delta)
-    float dp[NT][4];
-    zero(dp);
-    mma_abt<T, D, NT>(dp, v_rows, sD, LD, lane);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % STAGES;
+      const int tile = tile_begin + it;
+      const int first = p.q_offset + (tile / tp.gchunks) * tp.P;  // first position of the q tile
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      // every position of the tile before this warpgroup's first kv row: all masked
+      const bool dead = p.causal && first + tp.P - 1 < kv_w;
+      if (!dead) {
+        const uint32_t sq = sbase + L::STAGE + s * 2 * L::SWEEP;
+        const uint32_t sdo = sq + L::SWEEP;
+        const float* nl = stats + s * 2 * SWEEP_ROWS;
+        const float* dl = nl + SWEEP_ROWS;
+        float2 nlc[8];  // -lse log2 e of this thread's columns 8 j + 2 t, + 1
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int cl = j * 8 + 2 * t;
-      const float d0 = sDelta[cl];
-      const float d1 = sDelta[cl + 1];
-      s[j][0] *= dp[j][0] - d0;
-      s[j][1] *= dp[j][1] - d1;
-      s[j][2] *= dp[j][2] - d0;
-      s[j][3] *= dp[j][3] - d1;
+        for (int j = 0; j < 8; ++j) nlc[j] = *reinterpret_cast<const float2*>(nl + 8 * j + 2 * t);
+        float sacc[32], dpacc[32];
+        // s^T = k.q^T and dp^T = v.do^T, 64 kv rows x 64 folded rows a warpgroup
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_ss<T, 64>(sacc, desc_k(sk, OWN_ROWS, 64 * wg, kk), desc_k(sq, SWEEP_ROWS, 0, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_ss<T, 64>(dpacc, desc_k(sv, OWN_ROWS, 64 * wg, kk), desc_k(sdo, SWEEP_ROWS, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        pin(sacc);
+
+        // p^T = exp(scale * s^T - lse), masked to 0 on a diagonal tile only
+        if (p.causal && first < kv_w + 63) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int2 qp = *reinterpret_cast<const int2*>(qpos + 8 * j + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const bool live = first + ((e & 1) ? qp.y : qp.x) >= ((e >> 1) ? kv_b : kv_a);
+              sacc[4 * j + e] = live ? exp2_ftz(fmaf(sacc[4 * j + e], c2, (e & 1) ? nlc[j].y : nlc[j].x)) : 0.f;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sacc[4 * j + e] = exp2_ftz(fmaf(sacc[4 * j + e], c2, (e & 1) ? nlc[j].y : nlc[j].x));
+          }
+        }
+        uint32_t pf[4][4];
+        to_a_frags<T, 64>(pf, sacc);
+
+        // dv += p^T.do (do read transposed: its rows are the k dim)
+        wgmma_fence();
+        pin(dv);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma_rs<T, D>(dv, pf[kk], desc_mn(sdo, SWEEP_ROWS, kk));
+        wgmma_commit();
+
+        // ds^T = p^T o (dp^T - delta)
+        wgmma_wait<1>();
+        pin(dpacc);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sacc[4 * j + e] *= dpacc[4 * j + e] - ((e & 1) ? d2.y : d2.x);
+        }
+        uint32_t dsf[4][4];
+        to_a_frags<T, 64>(dsf, sacc);
+
+        // dk += ds^T.q (times scale at the end)
+        wgmma_fence();
+        pin(dk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma_rs<T, D>(dk, dsf[kk], desc_mn(sq, SWEEP_ROWS, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(dv);
+        pin(dk);
+        pin(pf);
+        pin(dsf);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
 
-    // dk += ds^T.q (times scale at the end)
-    mma_pb<T, D, NT>(dk, s, sQ, LD, lane);
-    __syncthreads();
-  }
-
-  if (kv_a < p.Skv) {
-    store_row<T, D>(dkb + static_cast<long long>(kv_a) * p.dk_ss, dk, 0, p.scale, t);
-    store_row<T, D>(dvb + static_cast<long long>(kv_a) * p.dv_ss, dv, 0, 1.f, t);
-  }
-  if (kv_b < p.Skv) {
-    store_row<T, D>(dkb + static_cast<long long>(kv_b) * p.dk_ss, dk, 2, p.scale, t);
-    store_row<T, D>(dvb + static_cast<long long>(kv_b) * p.dv_ss, dv, 2, 1.f, t);
+    T* dkb = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+    T* dvb = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+    if (kv_a < p.Skv) {
+      store_row<T, D>(dkb + static_cast<long long>(kv_a) * p.dk_ss, dk, 0, p.scale, t);
+      store_row<T, D>(dvb + static_cast<long long>(kv_a) * p.dv_ss, dv, 0, 1.f, t);
+    }
+    if (kv_b < p.Skv) {
+      store_row<T, D>(dkb + static_cast<long long>(kv_b) * p.dk_ss, dk, 1, p.scale, t);
+      store_row<T, D>(dvb + static_cast<long long>(kv_b) * p.dv_ss, dv, 1, 1.f, t);
+    }
   }
 }
 
+// ---------------------------------------------------------------------------
+// host side: tensor maps and launches
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, asked
+// once: the library then needs no -lcuda.
+EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess || ptr == nullptr) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+constexpr int ERR_NO_KERNEL = -1;   // no instantiation for this head_dim or type
+constexpr int ERR_NO_ENCODER = -2;  // the driver has no cuTensorMapEncodeTiled
+constexpr int ERR_MAP = -3;         // the driver refused a tensor map
+constexpr int ERR_PLAN = -4;        // a tile plan the kernels cannot take
+
+// A tiled map of a 16-bit tensor with 128-byte swizzle, dims innermost first;
+// ``strides`` in elements for dims 1.. (dim 0 is contiguous). A dim of size 1
+// is never stepped, so its stride is replaced by one TMA accepts.
+int make_map(CUtensorMap* map, const void* base, int dtype, int rank, const cuuint64_t* dims,
+             const long long* strides, const cuuint32_t* box) {
+  EncodeTiledFn encode = encoder();
+  if (encode == nullptr) return ERR_NO_ENCODER;
+  cuuint64_t bytes[4];
+  for (int i = 0; i + 1 < rank; ++i) {
+    bytes[i] = static_cast<cuuint64_t>(strides[i]) * 2;
+    if (dims[i + 1] == 1) bytes[i] = i == 0 ? dims[0] * 2 : bytes[i - 1] * dims[i];
+  }
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                            rank, const_cast<void*>(base), dims, bytes, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_MAP;
+}
+
+// (B, KVH, S, G, D) through strides s = (b, kvh, s, g), a box of (64, Gt, P, 1, 1)
+int map_folded(CUtensorMap* map, const void* base, int dtype, const long long* s, int B, int KVH, int S, int G,
+               int D, const TilePlan& tp) {
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(G), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(KVH), static_cast<cuuint64_t>(B)};
+  const long long st[4] = {s[3], s[2], s[1], s[0]};
+  const cuuint32_t box[5] = {64, static_cast<cuuint32_t>(tp.Gt), static_cast<cuuint32_t>(tp.P), 1, 1};
+  return make_map(map, base, dtype, 5, dims, st, box);
+}
+
+// (B, KVH, S, D) through strides s = (b, kvh, s), a box of (64, rows, 1, 1)
+int map_kv(CUtensorMap* map, const void* base, int dtype, const long long* s, int B, int KVH, int S, int D,
+           int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(KVH), static_cast<cuuint64_t>(B)};
+  const long long st[3] = {s[2], s[1], s[0]};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  return make_map(map, base, dtype, 4, dims, st, box);
+}
+
+bool plan_ok(const TilePlan& tp, int G, int rows) {
+  return tp.P >= 1 && tp.P <= 256 && tp.Gt >= 1 && tp.Gt <= 256 && tp.P * tp.Gt <= rows &&
+         tp.gchunks == (G + tp.Gt - 1) / tp.Gt && (tp.gchunks == 1 || tp.P == 1);
+}
+
 template <typename T, int D>
-int launch_dq(const BwdParams& p, cudaStream_t stream) {
-  const int rows_total = p.Sq * p.G;
-  // 2 stages x (K, V) x BN rows of D + 8: 36 KB at D = 64, 68 KB at D = 128
-  const int smem_bytes = 2 * 2 * BN * (D + 8) * static_cast<int>(sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+int launch_dq(const CUtensorMap (&m)[4], const DqParams& p, int B, cudaStream_t stream) {
+  const int smem = DqSmem<D>::ALLOC;
+  const cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(p.KVH, p.B, (rows_total + BM - 1) / BM);
-  flash_bwd_dq_kernel<T, D><<<grid, NTHREADS, smem_bytes, stream>>>(p);
+  const dim3 grid(p.KVH, B, ((p.Sq + p.tp.P - 1) / p.tp.P) * p.tp.gchunks);
+  flash_bwd_dq_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
-int launch_dkv(const BwdParams& p, cudaStream_t stream) {
-  // (K, V) + 2 stages x (q, do), each BM rows of D + 8, and 2 x (lse, delta)
-  // of BM floats: 55 KB at D = 64, 103 KB at D = 128
-  const int smem_bytes =
-      6 * BM * (D + 8) * static_cast<int>(sizeof(T)) + 4 * BM * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+int launch_dkv(const CUtensorMap (&m)[4], const DkvParams& p, int B, cudaStream_t stream) {
+  const int smem = DkvSmem<D>::ALLOC;
+  const cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(p.KVH, p.B, (p.Skv + BN - 1) / BN);
-  flash_bwd_dkv_kernel<T, D><<<grid, NTHREADS, smem_bytes, stream>>>(p);
+  const dim3 grid(p.KVH, B, (p.Skv + OWN_ROWS - 1) / OWN_ROWS);
+  flash_bwd_dkv_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], p);
   return static_cast<int>(cudaGetLastError());
-}
-
-BwdParams make_params(const void* q, const void* k, const void* v, const void* dout,
-                      const float* lse, const float* delta, void* dq, void* dk, void* dv,
-                      const long long* s, int B, int KVH, int Sq, int Skv, int G,
-                      int causal, int q_offset, float scale) {
-  BwdParams p;
-  p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse = lse; p.delta = delta;
-  p.dq = dq; p.dk = dk; p.dv = dv;
-  p.q_sb = s[0]; p.q_sh = s[1]; p.q_ss = s[2]; p.q_sg = s[3];
-  p.k_sb = s[4]; p.k_sh = s[5]; p.k_ss = s[6];
-  p.v_sb = s[7]; p.v_sh = s[8]; p.v_ss = s[9];
-  p.do_sb = s[10]; p.do_sh = s[11]; p.do_ss = s[12]; p.do_sg = s[13];
-  p.dq_sb = s[14]; p.dq_sh = s[15]; p.dq_ss = s[16]; p.dq_sg = s[17];
-  p.dk_sb = s[18]; p.dk_sh = s[19]; p.dk_ss = s[20];
-  p.dv_sb = s[21]; p.dv_sh = s[22]; p.dv_ss = s[23];
-  p.B = B; p.KVH = KVH; p.Sq = Sq; p.Skv = Skv; p.G = G;
-  p.causal = causal; p.q_offset = q_offset; p.scale = scale;
-  return p;
 }
 
 }  // namespace
 
-// strides (in elements): q b,kvh,s,g | k b,kvh,s | v b,kvh,s | do b,kvh,s,g |
-// dq b,kvh,s,g | dk b,kvh,s | dv b,kvh,s. dtype: 0 = bf16, 1 = f16. Each entry
-// launches one kernel and returns cudaGetLastError(), or -1 for a head_dim or
-// type that has no instantiation. The dq entry leaves dk, dv untouched and the
-// dk/dv entry dq.
+// Strides in elements. The dq entry: q b,kvh,s,g | k b,kvh,s | v b,kvh,s |
+// o b,kvh,s,g | do b,kvh,s,g | dq b,kvh,s,g (22); it fills dq and delta. The
+// dk/dv entry: q b,kvh,s,g | k b,kvh,s | v b,kvh,s | do b,kvh,s,g |
+// dk b,kvh,s | dv b,kvh,s (20); it reads the delta the dq entry wrote, so it
+// runs after it on the same stream. (P, Gt, gchunks) is the tile plan of the
+// swept (dk/dv: 64 rows) or owned (dq: 128 rows) q tile. dtype: 0 = bf16,
+// 1 = f16. Each entry launches one kernel and returns cudaGetLastError(), or
+// one of the negative ERR_ codes above without launching.
 extern "C" int flash_attention_bwd_dq_launch(
-    const void* q, const void* k, const void* v, const void* dout, const float* lse,
-    const float* delta, void* dq, const long long* strides, int B, int KVH, int Sq,
-    int Skv, int G, int D, int causal, int q_offset, float scale, int dtype, void* stream) {
-  const BwdParams p = make_params(q, k, v, dout, lse, delta, dq, nullptr, nullptr, strides,
-                                  B, KVH, Sq, Skv, G, causal, q_offset, scale);
+    const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse, float* delta,
+    void* dq, const long long* s, int B, int KVH, int Sq, int Skv, int G, int D, int P, int Gt, int gchunks,
+    int causal, int q_offset, float scale, int dtype, void* stream) {
+  DqParams p;
+  p.o = o; p.dout = dout; p.lse = lse; p.delta = delta; p.dq = dq;
+  p.o_sb = s[10]; p.o_sh = s[11]; p.o_ss = s[12]; p.o_sg = s[13];
+  p.do_sb = s[14]; p.do_sh = s[15]; p.do_ss = s[16]; p.do_sg = s[17];
+  p.dq_sb = s[18]; p.dq_sh = s[19]; p.dq_ss = s[20]; p.dq_sg = s[21];
+  p.KVH = KVH; p.Sq = Sq; p.Skv = Skv; p.G = G;
+  p.tp = TilePlan{P, Gt, gchunks};
+  p.causal = causal; p.q_offset = q_offset; p.scale = scale;
+  if (!plan_ok(p.tp, G, OWN_ROWS)) return ERR_PLAN;
+  if (!((D == 64 || D == 128) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
+  CUtensorMap m[4];
+  int r;
+  if ((r = map_folded(&m[0], q, dtype, s, B, KVH, Sq, G, D, p.tp)) != 0) return r;
+  if ((r = map_folded(&m[1], dout, dtype, s + 14, B, KVH, Sq, G, D, p.tp)) != 0) return r;
+  const int nk = D == 64 ? dq_kv_rows<64>() : dq_kv_rows<128>();
+  if ((r = map_kv(&m[2], k, dtype, s + 4, B, KVH, Skv, D, nk)) != 0) return r;
+  if ((r = map_kv(&m[3], v, dtype, s + 7, B, KVH, Skv, D, nk)) != 0) return r;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch_dq<__nv_bfloat16, 64>(p, st);
-  if (dtype == 0 && D == 128) return launch_dq<__nv_bfloat16, 128>(p, st);
-  if (dtype == 1 && D == 64) return launch_dq<__half, 64>(p, st);
-  if (dtype == 1 && D == 128) return launch_dq<__half, 128>(p, st);
-  return -1;
+  if (dtype == 0 && D == 64) return launch_dq<__nv_bfloat16, 64>(m, p, B, st);
+  if (dtype == 0 && D == 128) return launch_dq<__nv_bfloat16, 128>(m, p, B, st);
+  if (dtype == 1 && D == 64) return launch_dq<__half, 64>(m, p, B, st);
+  return launch_dq<__half, 128>(m, p, B, st);
 }
 
 extern "C" int flash_attention_bwd_dkv_launch(
-    const void* q, const void* k, const void* v, const void* dout, const float* lse,
-    const float* delta, void* dk, void* dv, const long long* strides, int B, int KVH, int Sq,
-    int Skv, int G, int D, int causal, int q_offset, float scale, int dtype, void* stream) {
-  const BwdParams p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv, strides,
-                                  B, KVH, Sq, Skv, G, causal, q_offset, scale);
+    const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
+    void* dk, void* dv, const long long* s, int B, int KVH, int Sq, int Skv, int G, int D, int P, int Gt,
+    int gchunks, int causal, int q_offset, float scale, int dtype, void* stream) {
+  DkvParams p;
+  p.lse = lse; p.delta = delta; p.dk = dk; p.dv = dv;
+  p.dk_sb = s[14]; p.dk_sh = s[15]; p.dk_ss = s[16];
+  p.dv_sb = s[17]; p.dv_sh = s[18]; p.dv_ss = s[19];
+  p.KVH = KVH; p.Sq = Sq; p.Skv = Skv; p.G = G;
+  p.tp = TilePlan{P, Gt, gchunks};
+  p.causal = causal; p.q_offset = q_offset; p.scale = scale;
+  if (!plan_ok(p.tp, G, SWEEP_ROWS)) return ERR_PLAN;
+  if (!((D == 64 || D == 128) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
+  CUtensorMap m[4];
+  int r;
+  if ((r = map_folded(&m[0], q, dtype, s, B, KVH, Sq, G, D, p.tp)) != 0) return r;
+  if ((r = map_folded(&m[1], dout, dtype, s + 10, B, KVH, Sq, G, D, p.tp)) != 0) return r;
+  if ((r = map_kv(&m[2], k, dtype, s + 4, B, KVH, Skv, D, OWN_ROWS)) != 0) return r;
+  if ((r = map_kv(&m[3], v, dtype, s + 7, B, KVH, Skv, D, OWN_ROWS)) != 0) return r;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch_dkv<__nv_bfloat16, 64>(p, st);
-  if (dtype == 0 && D == 128) return launch_dkv<__nv_bfloat16, 128>(p, st);
-  if (dtype == 1 && D == 64) return launch_dkv<__half, 64>(p, st);
-  if (dtype == 1 && D == 128) return launch_dkv<__half, 128>(p, st);
-  return -1;
+  if (dtype == 0 && D == 64) return launch_dkv<__nv_bfloat16, 64>(m, p, B, st);
+  if (dtype == 0 && D == 128) return launch_dkv<__nv_bfloat16, 128>(m, p, B, st);
+  if (dtype == 1 && D == 64) return launch_dkv<__half, 64>(m, p, B, st);
+  return launch_dkv<__half, 128>(m, p, B, st);
 }

@@ -14,6 +14,7 @@ only then, it computes the same functions with the plain versions in
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -53,12 +54,59 @@ def _bwd_kernels():
     if _bwd_fns is None:
         lib = _build.load("flash_attention_bwd")
         dq, dkv = lib.flash_attention_bwd_dq_launch, lib.flash_attention_bwd_dkv_launch
-        tail = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)] + tail
-        dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)] + tail
+        tail = [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        dq.argtypes = dkv.argtypes = [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)] + tail
         dq.restype = dkv.restype = ctypes.c_int
         _bwd_fns = (dkv, dq)
     return _bwd_fns
+
+
+#: the backward kernels' tiles: the dq kernel owns 128 folded q rows a block;
+#: the dk/dv kernel owns 128 KV rows a block and sweeps q tiles of 64 folded rows
+DQ_TILE_ROWS, DKV_TILE_ROWS, DKV_KV_ROWS = 128, 64, 128
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """Which folded rows make one q tile of a backward kernel.
+
+    A tile is ``positions`` query positions x ``groups`` query heads of one KV
+    head, row = position * groups + group, read by one TMA box of
+    ``box`` = (64, groups, positions, 1, 1) elements over (D, G, S, KVH, B).
+    With G <= rows a tile holds whole positions (``groups`` = G); with
+    G > rows it holds one position and the G heads span ``g_chunks`` tiles.
+    The ``rows_masked`` rows past positions x groups are never loaded and
+    read as 0.
+    """
+
+    rows: int
+    positions: int
+    groups: int
+    g_chunks: int
+
+    @property
+    def rows_used(self) -> int:
+        return self.positions * self.groups
+
+    @property
+    def rows_masked(self) -> int:
+        return self.rows - self.rows_used
+
+    @property
+    def box(self) -> Tuple[int, int, int, int, int]:
+        return (64, self.groups, self.positions, 1, 1)
+
+    def n_tiles(self, Sq: int) -> int:
+        return -(-Sq // self.positions) * self.g_chunks
+
+
+def tile_plan(G: int, rows: int) -> TilePlan:
+    """The tile plan of ``rows`` folded rows at G query heads per KV head."""
+    if G < 1 or rows < 1:
+        raise ValueError(f"tile_plan needs G >= 1 and rows >= 1, not {G}, {rows}")
+    if G <= rows:
+        return TilePlan(rows, rows // G, G, 1)
+    return TilePlan(rows, 1, rows, -(-G // rows))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -170,10 +218,11 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (dq, dk, dv) in the layouts and types of (q, k, v).
 
-    On the card: ``delta = sum_d o * do`` in plain PyTorch (as the reference
-    computes it outside its kernels), then one launch of the dq kernel and
-    one of the dk/dv kernel. dq is allocated with q's strides and dk, dv with
-    k's and v's, so unfolding them is a view, as for ``o`` in the forward.
+    On the card: one launch of the dq kernel, which also computes
+    ``delta = sum_d o * do`` for its rows (the reference computes it outside
+    its kernels), then one of the dk/dv kernel, which reads that delta. dq is
+    allocated with q's strides and dk, dv with k's and v's, so unfolding them
+    is a view, as for ``o`` in the forward.
     """
     _check(q, k, v)
     B, KVH, Sq, G, D = q.shape
@@ -195,65 +244,91 @@ def flash_attention_bwd(
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, not {q.device}")
 
     lse = lse.contiguous()
-    delta = (o.float() * do.float()).sum(dim=-1).contiguous()
+    delta = torch.empty((B, KVH, Sq, G), dtype=torch.float32, device=q.device)
     dq = torch.empty_strided(q.shape, q.stride(), dtype=q.dtype, device=q.device)
     dk = torch.empty_strided(k.shape, k.stride(), dtype=k.dtype, device=k.device)
     dv = torch.empty_strided(v.shape, v.stride(), dtype=v.dtype, device=v.device)
     kw = dict(causal=causal, scale=scale, q_offset=q_offset)
-    launch_bwd_dq(q, k, v, do, lse, delta, dq, **kw)
+    launch_bwd_dq(q, k, v, o, do, lse, delta, dq, **kw)
     launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, **kw)
     return dq, dk, dv
 
 
-def _bwd_args(q, k, v, do, lse, delta, dq, dk, dv, causal, scale, q_offset):
-    """Checks shared by the two backward launches; returns the ctypes arguments."""
+_BWD_ERRORS = {
+    -1: "no kernel for this head_dim or type",
+    -2: "the CUDA driver has no cuTensorMapEncodeTiled",
+    -3: "the CUDA driver refused a tensor map of these tensors",
+    -4: "a tile plan the kernels cannot take",
+}
+
+
+def _bwd_args(q, k, v, lse, delta, named, rows, causal, scale, q_offset):
+    """Checks shared by the two backward launches, all made before any CUDA
+    call; returns the ctypes arguments after the pointers and before the
+    stream (strides, shapes, tile plan, flags).
+
+    ``named`` holds the kernel's other 16-bit tensors in the order of its
+    strides: o, do, dq for the dq kernel; do, dk, dv for the dk/dv kernel.
+    """
+    _check(q, k, v)
     B, KVH, Sq, G, D = q.shape
     Skv = k.shape[2]
-    _check(q, k, v)
-    if (do.shape, dq.shape, dk.shape, dv.shape) != (q.shape, q.shape, k.shape, v.shape):
-        raise ValueError("do and dq must be shaped like q, dk like k and dv like v")
-    if any(x.dtype != q.dtype or x.device != q.device for x in (do, dq, dk, dv)):
-        raise TypeError("do, dq, dk and dv must have q's type and device")
-    _check_cuda(q, k, v, do=do, dq=dq, dk=dk, dv=dv)
+    plan = tile_plan(G, rows)
+    for name, x in named.items():
+        like = k if name in ("dk", "dv") else q
+        if x.shape != like.shape:
+            raise ValueError(f"{name} {tuple(x.shape)} must be shaped like {tuple(like.shape)}")
+        if x.dtype != q.dtype or x.device != q.device:
+            raise TypeError(f"{name} must have q's type and device")
+    _check_cuda(q, k, v, **named)
+    for name, x in (("q", q), ("k", k), ("v", v), *named.items()):
+        # TMA steps every dim with more than one entry by a positive stride
+        if any(st <= 0 for st, n in zip(x.stride(), x.shape) if n > 1):
+            raise ValueError(f"{name} layout not taken by the tensor maps of the flash backward: strides {x.stride()}")
     for name, x in (("lse", lse), ("delta", delta)):
-        if x.shape != (B, KVH, Sq, G) or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 (B,KVH,Sq,G) tensor")
-    if -(-Sq * G // 64) > 65535 or -(-Skv // 64) > 65535 or B > 65535:
+        if x.shape != (B, KVH, Sq, G) or x.dtype != torch.float32 or not x.is_contiguous() or x.device != q.device:
+            raise ValueError(f"{name} must be a contiguous float32 (B,KVH,Sq,G) tensor on q's device")
+    if plan.n_tiles(Sq) > 65535 or -(-Skv // DKV_KV_ROWS) > 65535 or B > 65535:
         raise ValueError("the flash backward kernels put the tile index on a grid axis of at most 65535")
-    strides = (
-        *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *do.stride()[:4],
-        *dq.stride()[:4], *dk.stride()[:3], *dv.stride()[:3],
-    )
+    if q.device.type != "cuda":
+        raise ValueError(f"the flash backward launches take CUDA tensors, not {q.device}")
+    strides = [st for x in (q, k, v, *named.values()) for st in x.stride()[:-1]]
     return (
-        (ctypes.c_longlong * 24)(*strides), B, KVH, Sq, Skv, G, D,
+        (ctypes.c_longlong * len(strides))(*strides), B, KVH, Sq, Skv, G, D,
+        plan.positions, plan.groups, plan.g_chunks,
         int(bool(causal)), int(q_offset), float(scale), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
     )
 
 
-def launch_bwd_dq(q, k, v, do, lse, delta, dq, *, causal: bool, scale: float, q_offset: int = 0) -> None:
-    """One launch of the dq kernel (CUDA tensors only): fills ``dq``."""
-    global dq_launch_count
-    with torch.cuda.device(q.device):
-        args = _bwd_args(q, k, v, do, lse, delta, dq, k, v, causal, scale, q_offset)
-        err = _bwd_kernels()[1](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), *args,
-        )
+def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"flash attention dq kernel launch failed: CUDA error {err}")
+        why = _BWD_ERRORS.get(err, f"CUDA error {err}")
+        raise RuntimeError(f"flash attention {what} kernel launch failed: {why}")
+
+
+def launch_bwd_dq(q, k, v, o, do, lse, delta, dq, *, causal: bool, scale: float, q_offset: int = 0) -> None:
+    """One launch of the dq kernel (CUDA tensors only): fills ``dq`` and
+    ``delta`` = sum_d o * do, (B,KVH,Sq,G) f32, which the dk/dv kernel reads."""
+    global dq_launch_count
+    args = _bwd_args(q, k, v, lse, delta, {"o": o, "do": do, "dq": dq}, DQ_TILE_ROWS, causal, scale, q_offset)
+    with torch.cuda.device(q.device):
+        err = _bwd_kernels()[1](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), *args, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on(err, "dq")
     dq_launch_count += 1
 
 
 def launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, *, causal: bool, scale: float, q_offset: int = 0) -> None:
-    """One launch of the dk/dv kernel (CUDA tensors only): fills ``dk`` and ``dv``."""
+    """One launch of the dk/dv kernel (CUDA tensors only): fills ``dk`` and
+    ``dv``. ``delta`` is what ``launch_bwd_dq`` wrote, on the same stream."""
     global dkv_launch_count
+    args = _bwd_args(q, k, v, lse, delta, {"do": do, "dk": dk, "dv": dv}, DKV_TILE_ROWS, causal, scale, q_offset)
     with torch.cuda.device(q.device):
-        args = _bwd_args(q, k, v, do, lse, delta, q, dk, dv, causal, scale, q_offset)
         err = _bwd_kernels()[0](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *args,
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *args, torch.cuda.current_stream(q.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"flash attention dk/dv kernel launch failed: CUDA error {err}")
+    _raise_on(err, "dk/dv")
     dkv_launch_count += 1

@@ -140,3 +140,122 @@ def test_bwd_wrapper_checks_its_inputs():
         tfa.flash_attention_bwd(q, k, k, q, lse.double(), q, causal=True, scale=1.0)
     with pytest.raises(ValueError):
         tfa.flash_attention_bwd(q, k, k, q, lse, q[:, :, :4], causal=True, scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' tile plan and the checks their launches make (the
+# kernels themselves run on the card only, held by chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+from repro_torch.configs.registry import ASSIGNED  # noqa: E402
+
+REGISTRY_G_D = sorted({(c.n_heads // c.n_kv_heads, c.resolved_head_dim) for c in ASSIGNED.values()
+                       if c.family in ("dense", "vlm", "moe") and c.resolved_head_dim in tfa.HEAD_DIMS})
+
+
+def test_registry_g_d_pairs_cover_the_issue_list():
+    assert {g for g, _ in REGISTRY_G_D} >= {1, 4, 7, 8} and {d for _, d in REGISTRY_G_D} == {64, 128}
+
+
+@pytest.mark.parametrize("rows", [tfa.DQ_TILE_ROWS, tfa.DKV_TILE_ROWS])
+@pytest.mark.parametrize("g_d", REGISTRY_G_D + [(3, 64), (130, 64)])
+def test_tile_plan_gives_a_legal_tma_box(g_d, rows):
+    """The box a tensor map takes: every dim 1..256, 64 16-bit elements (one
+    128-byte swizzle atom) innermost, at most ``rows`` rows, and as many whole
+    positions as fit."""
+    G, D = g_d
+    plan = tfa.tile_plan(G, rows)
+    assert plan == tfa.tile_plan(G, rows)  # a function of the shapes alone
+    assert all(1 <= n <= 256 for n in plan.box) and plan.box[0] * 2 == 128 and D % plan.box[0] == 0
+    assert plan.rows_used == plan.positions * plan.groups <= rows
+    assert plan.rows_masked == rows - plan.rows_used
+    if G <= rows:
+        assert (plan.groups, plan.g_chunks) == (G, 1) and rows - plan.rows_used < G
+    else:
+        assert (plan.positions, plan.groups) == (1, rows) and plan.g_chunks * rows >= G > (plan.g_chunks - 1) * rows
+
+
+@pytest.mark.parametrize("Sq", [1, 37, 100])
+@pytest.mark.parametrize("G", [1, 3, 4, 7, 8, 130])
+@pytest.mark.parametrize("rows", [tfa.DQ_TILE_ROWS, tfa.DKV_TILE_ROWS])
+def test_tile_plan_covers_every_folded_row_once(G, Sq, rows):
+    """The kernels' map from (tile, local row) to (position, group), run in
+    Python: every (position, group) of q lands in exactly one tile row."""
+    plan = tfa.tile_plan(G, rows)
+    seen = []
+    for tile in range(plan.n_tiles(Sq)):
+        pos0, g0 = (tile // plan.g_chunks) * plan.positions, (tile % plan.g_chunks) * plan.groups
+        for lr in range(rows):
+            pos, g = pos0 + lr // plan.groups, g0 + lr % plan.groups
+            if lr < plan.rows_used and pos < Sq and g < G:
+                seen.append((pos, g))
+    assert sorted(seen) == [(p, g) for p in range(Sq) for g in range(G)]
+
+
+def _bwd_tensors(D=64, dtype=torch.bfloat16):
+    B, KVH, Sq, Skv, G = 1, 2, 8, 8, 2
+    q = torch.zeros(B, KVH, Sq, G, D, dtype=dtype)
+    k = torch.zeros(B, KVH, Skv, D, dtype=dtype)
+    lse = torch.zeros(B, KVH, Sq, G)
+    return dict(q=q, k=k, v=k.clone(), o=q.clone(), do=q.clone(), lse=lse, delta=lse.clone(), dq=q.clone(),
+                dk=k.clone(), dv=k.clone())
+
+
+def _faults():
+    """(tensor, change, error): each change breaks one thing a launch checks;
+    the last changes nothing."""
+    def padded(x):  # rows D + 4 elements apart: not a multiple of 16 bytes
+        return torch.zeros(*x.shape[:-1], x.shape[-1] + 4, dtype=x.dtype)[..., : x.shape[-1]]
+    return [
+        ("o", lambda t: t["o"][:, :, :4], ValueError),
+        ("do", lambda t: t["do"].float(), TypeError),
+        ("dq", lambda t: t["dq"].half(), TypeError),
+        ("dk", lambda t: t["dk"][:, :1], ValueError),
+        ("dv", lambda t: padded(t["dv"]), ValueError),
+        ("do", lambda t: padded(t["do"]), ValueError),
+        ("delta", lambda t: t["delta"][..., :1], ValueError),
+        ("delta", lambda t: t["delta"].double(), ValueError),
+        ("lse", lambda t: t["lse"].transpose(2, 3).contiguous().transpose(2, 3), ValueError),
+        (None, None, None),
+    ]
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+@pytest.mark.parametrize("fault", range(len(_faults())))
+def test_bwd_launches_check_their_inputs(which, fault):
+    """Each launch raises on what its kernel cannot take, before any CUDA call
+    (so here on CPU tensors), and a CPU tensor that passes every other check
+    is refused last: the launches take CUDA tensors only."""
+    name, change, error = _faults()[fault]
+    t = _bwd_tensors()
+    if name is not None:
+        t[name] = change(t)
+    kw = dict(causal=True, scale=0.125)
+    launch = {"dq": lambda: tfa.launch_bwd_dq(t["q"], t["k"], t["v"], t["o"], t["do"], t["lse"], t["delta"],
+                                              t["dq"], **kw),
+              "dkv": lambda: tfa.launch_bwd_dkv(t["q"], t["k"], t["v"], t["do"], t["lse"], t["delta"],
+                                                t["dk"], t["dv"], **kw)}[which]
+    used = {"dq": {"q", "k", "v", "o", "do", "lse", "delta", "dq"},
+            "dkv": {"q", "k", "v", "do", "lse", "delta", "dk", "dv"}}[which]
+    if name in used:
+        with pytest.raises(error):
+            launch()
+    else:  # a change to a tensor this launch does not take, or none
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            launch()
+    assert (tfa.dq_launch_count, tfa.dkv_launch_count) == (0, 0)
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+@pytest.mark.parametrize("bad", ["head_dim", "float32", "broadcast"])
+def test_bwd_launches_refuse_what_the_kernels_do_not_take(which, bad):
+    t = _bwd_tensors(D=32 if bad == "head_dim" else 64, dtype=torch.float32 if bad == "float32" else torch.bfloat16)
+    if bad == "broadcast":  # a stride of 0 on a dim of 8 entries: TMA cannot step it
+        t["q"] = t["q"][:, :, :1].expand(t["q"].shape)
+    kw = dict(causal=False, scale=0.125)
+    launch = {"dq": lambda: tfa.launch_bwd_dq(t["q"], t["k"], t["v"], t["o"], t["do"], t["lse"], t["delta"],
+                                              t["dq"], **kw),
+              "dkv": lambda: tfa.launch_bwd_dkv(t["q"], t["k"], t["v"], t["do"], t["lse"], t["delta"],
+                                                t["dk"], t["dv"], **kw)}[which]
+    with pytest.raises((ValueError, TypeError), match="head_dim|bfloat16|layout"):
+        launch()
