@@ -5,9 +5,11 @@ header, so ``nvcc`` builds it in seconds. ``load(name)`` compiles the source
 for ``sm_90a`` into a shared library at first use and opens it with
 ``ctypes``; all sources are compiled together, one ``nvcc`` process each, so
 the first kernel's launch pays for the whole set once. Libraries are keyed by
-a hash of the source and the flags: an edit rebuilds, an unchanged source is
-reused. Nothing is built when the module is imported, and a machine without
-``nvcc`` can import it; only the first launch needs the compiler.
+a hash of the source, of every header of ``csrc/`` it includes (directly or
+through another header) and of the flags: an edit of either rebuilds, an
+unchanged source is reused. Nothing is built when the module is imported,
+and a machine without ``nvcc`` can import it; only the first launch needs
+the compiler.
 
 The build directory is ``build/`` at the root of the checkout.
 """
@@ -17,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,6 +31,14 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: what the negative codes of ``csrc/hopper.cuh`` that a launch returns mean
+LAUNCH_ERRORS = {
+    -1: "no kernel for this head_dim or type",
+    -2: "the CUDA driver has no cuTensorMapEncodeTiled",
+    -3: "the CUDA driver refused a tensor map of these tensors",
+    -4: "a tile plan the kernels cannot take",
+}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -60,9 +71,31 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def headers(src: Path) -> List[Path]:
+    """The headers that ``src`` includes with quotes, directly or through
+    another header, each once, in the order first met; a quoted include
+    resolves beside the file that names it, as ``nvcc`` resolves it."""
+    found: List[Path] = []
+    todo = [src]
+    while todo:
+        cur = todo.pop(0)
+        for name in _INCLUDE.findall(cur.read_text()):
+            path = (cur.parent / name).resolve()
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def _target(src: Path) -> Path:
     h = hashlib.sha256()
     h.update(src.read_bytes())
+    for header in headers(src):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -11,293 +11,469 @@
 // FLOPs (G = 4 at the serving shape), far below the ~295 FLOP/byte ridge; the
 // least time is the bytes of K and V up to kv_len over the memory rate.
 //
-// What the design does about it: nothing but streaming. Each kv row of one
-// (batch, kv head) is a contiguous 2*D bytes; D/8 lanes read it with 16-byte
-// loads and every thread keeps several rows in flight before it touches them.
-// The (G,D) query tile is too small for tensor cores to matter: scores and
-// p.v are CUDA-core FMAs in f32. The TPU grid (B,KVH,nk) is sequential in nk;
-// here B*KVH blocks alone would leave half the SMs idle at small batch, so
-// the KV sweep is split over gridDim.x blocks, each writing a partial
-// (acc, m, l), and a second small kernel combines them. Slots at or past
-// kv_len are never read: whole splits past it exit at once, the tail is
-// masked. Smax need not divide anything.
+// What the design does about it:
+//   * the cache streams in by TMA: tiles of 64 rows of one (batch, kv head),
+//     which lie KVH*D elements apart in the cache, are gathered by the
+//     hardware through a 4-D tensor map (D, KVH, Smax, B) into a ring of
+//     STAGES buffers behind mbarriers, in the 128-byte swizzle. No register
+//     holds a load in flight;
+//   * the arithmetic runs on the tensor cores, so that it hides behind the
+//     stream: each warp takes 16 rows of a tile, s = q.k^T and o += p.v are
+//     mma.sync m16n8k16 (bf16 or f16 in, f32 accumulate) with the block's 8
+//     query heads as the rows of the 16-row tiles (the other 8 are padding,
+//     and cost nothing the stream would not hide). K and V come out of
+//     shared memory by ldmatrix (V transposed), and the online softmax is
+//     one exp2 an element;
+//   * p keeps f32 precision in p.v, as in the TPU kernel: it goes to the A
+//     fragments of PARTS products, each part the 16-bit rounding of what the
+//     earlier ones left of p (three in bf16, 24 bits of p; two in f16, 22
+//     bits), where one part would round p to 8 or 11 bits. The extra
+//     products hide behind the stream as the first does;
+//   * the sweep of one (batch, kv head) is split over the CL blocks of a
+//     thread block cluster (CL from the shapes and the SM count alone, never
+//     from kv_len; up to 16, the non-portable cluster size, so that one
+//     sequence still fills the card): block j takes tiles j, j + CL,
+//     j + 2 CL, ... below kv_len, so the blocks' shares differ by one tile at
+//     most;
+//   * the partial (acc, m, l) of the blocks meet through distributed shared
+//     memory: each block merges its warps in shared memory, the cluster
+//     synchronizes, and each block combines a share of the outputs from all
+//     CL partials. One launch, no scratch in device memory;
+//   * slots at or past kv_len are never used: tiles past it are not loaded,
+//     the tail of the last one is masked (p = 0). Smax need not divide
+//     anything.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
+
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
+constexpr int STAGES = 3;
+constexpr int MAX_CLUSTER = 16;  // blocks of a cluster: the non-portable most on Hopper
+constexpr int HEADS = 8;        // query heads of one kv head a block takes: rows 0-7 of the m16 tiles
+constexpr int R = 16 * NWARPS;  // cache rows a tile: 16 a warp
 
 struct DecodeParams {
   const void* q;      // (B, H, D) contiguous
-  const void* k;      // (B, Smax, KVH, D) by strides, last dim contiguous
-  const void* v;
   const int* kv_len;  // 1 element, device
   void* out;          // (B, H, D) contiguous
-  float* part_acc;    // (B, H, n_split, D)
-  float* part_m;      // (B, H, n_split)
-  float* part_l;      // (B, H, n_split)
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  int B, H, KVH, G, Smax, n_gt;
+  int H, G, Smax, n_gt;
   float scale;
 };
+
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1);
+
+template <>
+__device__ __forceinline__ void mma16816<__nv_bfloat16>(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <>
+__device__ __forceinline__ void mma16816<__half>(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 16-bit matrices from shared memory: lane l gives the address of
+// row (l & 7) of matrix (l >> 3); register i receives matrix i, thread (g, t)
+// holding its elements [g][2t] and [g][2t + 1] (with .trans: [2t][g] and
+// [2t + 1][g]).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// The 16-byte chunk ``ch`` (elements 8 ch .. 8 ch + 7 of D) of row ``row`` of a
+// tile of R rows in the 128-byte swizzle: column blocks of 64 elements R rows
+// apart, chunk c of row r at chunk c ^ (r % 8) of its 128-byte line.
+__device__ __forceinline__ uint32_t chunk_addr(uint32_t tile, int row, int ch) {
+  return tile + (ch >> 3) * R * ATOM + row * ATOM + (((ch & 7) ^ (row & 7)) << 4);
+}
+
+// p of two slots as PARTS pairs of T, each the rounding of what the earlier
+// parts left: their products with v sum to p.v with p to 24 bits (bf16: three
+// parts of 8) or 22 (f16: two of 11)
+template <typename T>
+struct Split;
+
+template <>
+struct Split<__nv_bfloat16> {
+  static constexpr int PARTS = 3;
+  static __device__ __forceinline__ float2 unpack(uint32_t x) {
+    return make_float2(__uint_as_float(x << 16), __uint_as_float(x & 0xffff0000u));
+  }
+};
+
+template <>
+struct Split<__half> {
+  static constexpr int PARTS = 2;
+  static __device__ __forceinline__ float2 unpack(uint32_t x) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&x));
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ void split_pack(float a, float b, uint32_t (&parts)[Split<T>::PARTS]) {
+#pragma unroll
+  for (int i = 0; i < Split<T>::PARTS; ++i) {
+    parts[i] = Mma<T>::pack(a, b);
+    const float2 f = Split<T>::unpack(parts[i]);
+    a -= f.x;
+    b -= f.y;
+  }
+}
 
 template <typename T>
 struct Cvt;
 
 template <>
 struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(h[i]);
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
-    }
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16(x);
-  }
+  static __device__ __forceinline__ __nv_bfloat16 from_float(float x) { return __float2bfloat16(x); }
 };
 
 template <>
 struct Cvt<__half> {
-  static __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
-    const __half2* h = reinterpret_cast<const __half2*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __half22float2(h[i]);
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
-    }
-  }
   static __device__ __forceinline__ __half from_float(float x) { return __float2half(x); }
 };
 
-// One block: one split of the KV sweep of one (batch, kv head, tile of GT
-// query heads). Lanes are laid out as (row group, 16-byte chunk of D); each
-// row group runs its own online softmax over the rows it visits and the
-// groups are merged through shared memory at the end.
-template <typename T, int D, int GT>
-__global__ void __launch_bounds__(NTHREADS) decode_partial_kernel(const DecodeParams p) {
-  constexpr int LPR = D / 8;          // lanes per kv row
-  constexpr int RPW = 32 / LPR;       // kv rows per warp per load
-  constexpr int NG = NWARPS * RPW;    // row groups per block
-  constexpr int U = (GT >= 8) ? 2 : 4;  // rows in flight per thread
+// Shared memory: STAGES x (K tile, V tile) of R x D (the warps' partials take
+// their place once the sweep is done), then the block's partial (acc of
+// HEADS x D, m and l of HEADS) that the cluster reads, then the barriers.
+template <int D>
+struct DecodeSmem {
+  static constexpr int TILE = R * D * 2;
+  static constexpr int RING = STAGES * 2 * TILE;
+  static constexpr int RES = RING;
+  static constexpr int BAR = RES + (HEADS * D + 2 * HEADS) * 4;
+  static constexpr int BYTES = BAR + STAGES * 8;
+  static constexpr int ALLOC = BYTES + 1024;  // room to align the base for the swizzle
+};
 
-  __shared__ float s_acc[NG][GT][D];
-  __shared__ float s_m[NG][GT];
-  __shared__ float s_l[NG][GT];
+// One block: the tiles of rank j of the cluster, of one (batch, kv head, tile
+// of 8 query heads). Each warp runs the online softmax of its 16 rows of each
+// tile; the warps are merged in shared memory, the cluster's blocks through
+// distributed shared memory.
+template <typename T, int D>
+__global__ void __launch_bounds__(NTHREADS, D == 64 ? 4 : 2)
+decode_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+              const DecodeParams p) {
+  using L = DecodeSmem<D>;
+  constexpr int NCB = D / 64;  // 64-element column blocks of a row
 
-  const int split = blockIdx.x;
-  const int n_split = gridDim.x;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = align1024(smem_raw);
+  float* const res_acc = reinterpret_cast<float*>(smem + L::RES);  // [HEADS][D]
+  float* const res_m = res_acc + HEADS * D;                         // [HEADS]
+  float* const res_l = res_m + HEADS;                               // [HEADS]
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  const uint32_t sbase = smem_u32(smem);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int CL = static_cast<int>(cluster.num_blocks());
   const int kvh = blockIdx.y / p.n_gt;
-  const int g0 = (blockIdx.y % p.n_gt) * GT;  // first query head of this tile, within the group
+  const int g0 = (blockIdx.y % p.n_gt) * HEADS;  // first query head of this block, within the group
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int c = lane % LPR;                 // 16-byte chunk of the row
-  const int gid = warp * RPW + lane / LPR;  // row group
+  const int g = lane >> 2;  // fragment row: query head g0 + g
+  const int t = lane & 3;   // fragment column pair
+  const int r0 = 16 * warp; // this warp's rows of a tile
 
-  const int kv_len = min(p.kv_len[0], p.Smax);
-  const int chunk = (p.Smax + n_split - 1) / n_split;
-  const int start = split * chunk;
-  const int end = min(kv_len, start + chunk);
+  const int kv_len = max(0, min(p.kv_len[0], p.Smax));
+  const int n_all = (kv_len + R - 1) / R;                           // tiles below kv_len
+  const int n_t = rank < n_all ? (n_all - rank + CL - 1) / CL : 0;  // this block's: rank + CL i
 
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh + c * 8;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh + c * 8;
-
-  float qv[GT][8];
-  float acc[GT][8];
-  float m[GT];
-  float l[GT];
-#pragma unroll
-  for (int g = 0; g < GT; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (g0 + g < p.G) {
-      const long long head = static_cast<long long>(b) * p.H + kvh * p.G + g0 + g;
-      raw = *reinterpret_cast<const uint4*>(static_cast<const T*>(p.q) + head * D + c * 8);
-    }
-    Cvt<T>::unpack8(raw, qv[g]);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      qv[g][i] *= p.scale;
-      acc[g][i] = 0.f;
-    }
-  }
-
-  for (int base = start; base < end; base += NG * U) {
-    uint4 kraw[U];
-    uint4 vraw[U];
-    bool ok[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const long long row = base + u * NG + gid;
-      ok[u] = row < end;
-      kraw[u] = make_uint4(0u, 0u, 0u, 0u);
-      vraw[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (ok[u]) {
-        kraw[u] = *reinterpret_cast<const uint4*>(kb + row * p.k_ss);
-        vraw[u] = *reinterpret_cast<const uint4*>(vb + row * p.v_ss);
-      }
-    }
-
-    float s[U][GT];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float kf[8];
-      Cvt<T>::unpack8(kraw[u], kf);
-#pragma unroll
-      for (int g = 0; g < GT; ++g) {
-        float dot = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) dot = fmaf(qv[g][i], kf[i], dot);
-#pragma unroll
-        for (int off = LPR / 2; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        s[u][g] = ok[u] ? dot : NEG_INF;
-      }
-    }
-
-    float vf[U][8];
-#pragma unroll
-    for (int u = 0; u < U; ++u) Cvt<T>::unpack8(vraw[u], vf[u]);
-
-#pragma unroll
-    for (int g = 0; g < GT; ++g) {
-      float mx = s[0][g];
-#pragma unroll
-      for (int u = 1; u < U; ++u) mx = fmaxf(mx, s[u][g]);
-      const float mn = fmaxf(m[g], mx);
-      const float corr = __expf(m[g] - mn);
-      m[g] = mn;
-      l[g] *= corr;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[g][i] *= corr;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float pu = ok[u] ? __expf(s[u][g] - mn) : 0.f;
-        l[g] += pu;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[g][i] = fmaf(pu, vf[u][i], acc[g][i]);
-      }
-    }
-  }
-
-  // ---- merge the row groups of this block
-#pragma unroll
-  for (int g = 0; g < GT; ++g) {
-    if (c == 0) {
-      s_m[gid][g] = m[g];
-      s_l[gid][g] = l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s_acc[gid][g][c * 8 + i] = acc[g][i];
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-
-  for (int idx = tid; idx < GT * D; idx += NTHREADS) {
-    const int g = idx / D;
-    const int d = idx % D;
-    if (g0 + g >= p.G) continue;
-    float mt = NEG_INF;
-    for (int j = 0; j < NG; ++j) mt = fmaxf(mt, s_m[j][g]);
-    float lt = 0.f;
-    float at = 0.f;
-    for (int j = 0; j < NG; ++j) {
-      const float w = __expf(s_m[j][g] - mt);
-      lt += w * s_l[j][g];
-      at += w * s_acc[j][g][d];
+  auto issue = [&](int i) {  // tile rank + CL i into stage i % STAGES
+    const int s = i % STAGES;
+    const int row0 = (rank + CL * i) * R;
+    const uint32_t kt = sbase + s * 2 * L::TILE;
+    mbar_arrive_expect_tx(&full[s], 2 * L::TILE);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      tma_load_4d(kt + cb * R * ATOM, &tm_k, &full[s], cb * 64, kvh, row0, b);
+      tma_load_4d(kt + L::TILE + cb * R * ATOM, &tm_v, &full[s], cb * 64, kvh, row0, b);
     }
-    const long long head = static_cast<long long>(b) * p.H + kvh * p.G + g0 + g;
-    if (n_split == 1) {
-      static_cast<T*>(p.out)[head * D + d] = Cvt<T>::from_float(at / fmaxf(lt, 1e-30f));
-    } else {
-      const long long slot = head * n_split + split;
-      p.part_acc[slot * D + d] = at;
-      if (d == 0) {
-        p.part_m[slot] = mt;
-        p.part_l[slot] = lt;
+  };
+  if (tid == 0) {
+    prefetch_map(&tm_k);
+    prefetch_map(&tm_v);
+    for (int i = 0; i < min(STAGES, n_t); ++i) issue(i);
+  }
+
+  // q as the A operand of s = q.k^T: row g is query head g0 + g (0 past the
+  // group); rows g + 8 are padding, 0 (a[1], a[3] of every fragment)
+  uint32_t qa[D / 16][2];
+  {
+    const bool live = g0 + g < p.G;
+    const T* qrow = static_cast<const T*>(p.q) + (static_cast<long long>(b) * p.H + kvh * p.G + g0 + g) * D;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qa[kk][0] = live ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 2 * t) : 0u;
+      qa[kk][1] = live ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 8 + 2 * t) : 0u;
+    }
+  }
+  const float c2 = p.scale * LOG2E;  // exp(scale * x) = exp2(c2 * x)
+  float o[D / 8][4];                 // o of head g at columns 8 n + 2 t, + 1 in [0], [1]; [2], [3] padding
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m = NEG_INF;  // running max of head g's raw scores over this warp's rows
+  float l = 0.f;      // this thread's part of the running sum
+
+  for (int i = 0; i < n_t; ++i) {
+    const int s = i % STAGES;
+    const int row0 = (rank + CL * i) * R;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    const uint32_t kt = sbase + s * 2 * L::TILE;
+    const uint32_t vt = kt + L::TILE;
+
+    // s = q.k^T over the warp's 16 rows: two n-tiles of 8 rows
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, chunk_addr(kt, r0 + (lane & 7) + (lane >> 4) * 8, 2 * kk + ((lane >> 3) & 1)));
+      const uint32_t a[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
+      mma16816<T>(sc[0], a, kb[0], kb[1]);
+      mma16816<T>(sc[1], a, kb[2], kb[3]);
+    }
+    // head g's scores of rows r0 + 8 j + 2 t + e: x[2 j + e]
+    float x[4] = {sc[0][0], sc[0][1], sc[1][0], sc[1][1]};
+    const bool tail = row0 + r0 + 16 > kv_len;  // the same for the whole warp
+    if (tail) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (row0 + r0 + 8 * (e >> 1) + 2 * t + (e & 1) >= kv_len) x[e] = NEG_INF;
+    }
+    const float mn = fmaxf(m, quad_max(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]))));
+    const float corr = exp2_ftz((m - mn) * c2);
+    m = mn;
+    float pe[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pe[e] = exp2_ftz(fmaf(x[e], c2, -mn * c2));
+    if (tail) {  // p = 0 on slots at or past kv_len, also while the max is the mask value
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (row0 + r0 + 8 * (e >> 1) + 2 * t + (e & 1) >= kv_len) pe[e] = 0.f;
+    }
+    l = l * corr + (pe[0] + pe[1]) + (pe[2] + pe[3]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= corr;
+      o[n][1] *= corr;
+    }
+    // o += p.v: p (heads x the warp's 16 rows) as the A fragments of its
+    // parts, the smallest first; V read transposed
+    constexpr int NP = Split<T>::PARTS;
+    uint32_t p01[NP], p23[NP];
+    split_pack<T>(pe[0], pe[1], p01);
+    split_pack<T>(pe[2], pe[3], p23);
+#pragma unroll
+    for (int n2 = 0; n2 < D / 16; ++n2) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, chunk_addr(vt, r0 + (lane & 7) + ((lane >> 3) & 1) * 8, 2 * n2 + (lane >> 4)));
+#pragma unroll
+      for (int i = NP - 1; i >= 0; --i) {
+        const uint32_t pa[4] = {p01[i], 0u, p23[i], 0u};
+        mma16816<T>(o[2 * n2], pa, vb[0], vb[1]);
+        mma16816<T>(o[2 * n2 + 1], pa, vb[2], vb[3]);
       }
     }
+    __syncthreads();  // every thread is done with stage s
+    if (tid == 0 && i + STAGES < n_t) issue(i + STAGES);
   }
+
+  // ---- merge the warps of this block in shared memory, where the ring was
+  l = quad_sum(l);
+  float* const s_acc = reinterpret_cast<float*>(smem);  // [NWARPS][HEADS][D]
+  float* const s_m = s_acc + NWARPS * HEADS * D;        // [NWARPS][HEADS]
+  float* const s_l = s_m + NWARPS * HEADS;              // [NWARPS][HEADS]
+  static_assert((NWARPS * HEADS * D + 2 * NWARPS * HEADS) * 4 <= L::RING, "the warps' partials must fit in the ring");
+  if (t == 0) {
+    s_m[warp * HEADS + g] = m;
+    s_l[warp * HEADS + g] = l;
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    *reinterpret_cast<float2*>(s_acc + (warp * HEADS + g) * D + 8 * n + 2 * t) = make_float2(o[n][0], o[n][1]);
+  __syncthreads();
+  for (int idx = tid; idx < HEADS * D; idx += NTHREADS) {
+    const int h = idx / D;
+    float mt = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < NWARPS; ++j) mt = fmaxf(mt, s_m[j * HEADS + h]);
+    float lt = 0.f;
+    float at = 0.f;
+#pragma unroll
+    for (int j = 0; j < NWARPS; ++j) {
+      const float w = exp2_ftz((s_m[j * HEADS + h] - mt) * c2);
+      lt += w * s_l[j * HEADS + h];
+      at += w * s_acc[j * HEADS * D + idx];
+    }
+    res_acc[idx] = at;
+    if (idx % D == 0) {
+      res_m[h] = mt;
+      res_l[h] = lt;
+    }
+  }
+
+  // ---- combine the cluster's partials: each block a share of the outputs;
+  // the reads of the other blocks' shared memory are issued together
+  cluster.sync();
+  for (int idx = rank * NTHREADS + tid; idx < HEADS * D; idx += CL * NTHREADS) {
+    const int h = idx / D;
+    const int d = idx % D;
+    if (g0 + h >= p.G) continue;
+    float mj[MAX_CLUSTER];
+    float mt = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < MAX_CLUSTER; ++j) {
+      mj[j] = j < CL ? cluster.map_shared_rank(res_m, j)[h] : NEG_INF;
+      mt = fmaxf(mt, mj[j]);
+    }
+    float lt = 0.f;
+    float at = 0.f;
+#pragma unroll
+    for (int j = 0; j < MAX_CLUSTER; ++j) {
+      if (j < CL) {
+        const float w = exp2_ftz((mj[j] - mt) * c2);
+        lt += w * cluster.map_shared_rank(res_l, j)[h];
+        at += w * cluster.map_shared_rank(res_acc, j)[idx];
+      }
+    }
+    const long long head = static_cast<long long>(b) * p.H + kvh * p.G + g0 + h;
+    static_cast<T*>(p.out)[head * D + d] = Cvt<T>::from_float(at / fmaxf(lt, 1e-30f));
+  }
+  cluster.sync();  // no block leaves while another still reads its partial
 }
 
-// One block per (batch, head), one thread per output element: combine the
-// partial (acc, m, l) of the splits.
-template <typename T>
-__global__ void decode_combine_kernel(const DecodeParams p, int n_split, int D) {
-  const long long head = blockIdx.x;
-  const int d = threadIdx.x;
-  float mt = NEG_INF;
-  for (int s = 0; s < n_split; ++s) mt = fmaxf(mt, p.part_m[head * n_split + s]);
-  float lt = 0.f;
-  float at = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const long long slot = head * n_split + s;
-    const float w = __expf(p.part_m[slot] - mt);
-    lt += w * p.part_l[slot];
-    at += w * p.part_acc[slot * D + d];
-  }
-  static_cast<T*>(p.out)[head * D + d] = Cvt<T>::from_float(at / fmaxf(lt, 1e-30f));
-}
-
-template <typename T, int D, int GT>
-int launch(const DecodeParams& p, int n_split, cudaStream_t stream) {
-  dim3 grid(n_split, p.KVH * p.n_gt, p.B);
-  decode_partial_kernel<T, D, GT><<<grid, NTHREADS, 0, stream>>>(p);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0 || n_split == 1) return err;
-  decode_combine_kernel<T><<<p.B * p.H, D, 0, stream>>>(p, n_split, D);
-  return static_cast<int>(cudaGetLastError());
+// The kernel's dynamic shared memory, and clusters past the portable 8 blocks
+template <typename T, int D>
+cudaError_t set_attributes() {
+  cudaError_t err = cudaFuncSetAttribute(decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DecodeSmem<D>::ALLOC);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(decode_kernel<T, D>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
 template <typename T, int D>
-int launch_gt(DecodeParams& p, int gt, int n_split, cudaStream_t stream) {
-  p.n_gt = (p.G + gt - 1) / gt;
-  switch (gt) {
-    case 8: return launch<T, D, 8>(p, n_split, stream);
-    case 4: return launch<T, D, 4>(p, n_split, stream);
-    case 2: return launch<T, D, 2>(p, n_split, stream);
-    case 1: return launch<T, D, 1>(p, n_split, stream);
-    default: return -1;
-  }
+int launch(const CUtensorMap (&m)[2], const DecodeParams& p, int B, int KVH, int n_split, cudaStream_t stream) {
+  const int smem = DecodeSmem<D>::ALLOC;
+  cudaError_t err = set_attributes<T, D>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, KVH * p.n_gt, B);
+  cfg.blockDim = dim3(NTHREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, decode_kernel<T, D>, m[0], m[1], p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks that one SM holds at once, and clusters of n_split blocks that the
+// card holds at once, as the CUDA runtime reckons them; -1 on an error.
+template <typename T, int D>
+int occupancy(int n_split, int* clusters) {
+  const int smem = DecodeSmem<D>::ALLOC;
+  int n = 0;
+  if (set_attributes<T, D>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, decode_kernel<T, D>, NTHREADS, smem) != cudaSuccess)
+    return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, 1, 1);
+  cfg.blockDim = dim3(NTHREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (cudaOccupancyMaxActiveClusters(clusters, decode_kernel<T, D>, &cfg) != cudaSuccess) return -1;
+  return n;
+}
+
+// (B, Smax, KVH, D) through strides s = (b, s, kvh) as a 4-D map (D, KVH,
+// Smax, B) with a box of (64, 1, R, 1): R rows of one (batch, kv head), one
+// 64-element column block of them, in the 128-byte swizzle
+int map_cache(CUtensorMap* map, const void* base, int dtype, const long long* s, int B, int Smax, int KVH, int D) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(KVH),
+                              static_cast<cuuint64_t>(Smax), static_cast<cuuint64_t>(B)};
+  const long long st[3] = {s[2], s[1], s[0]};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(R), 1};
+  return make_map(map, base, dtype, 4, dims, st, box);
 }
 
 }  // namespace
 
 // Cache strides are in elements: k b,s,kvh | v b,s,kvh. dtype: 0 = bf16,
-// 1 = f16. gt = query heads of one kv head handled by one block (1, 2, 4 or
-// 8; a group larger than gt takes several blocks). part_* are scratch of
-// n_split partial results per (batch, head), unused when n_split == 1.
-// Returns cudaGetLastError(), or -1 for a head_dim, type or gt that has no
-// instantiation.
+// 1 = f16. A block takes 8 query heads of one kv head (a group of more takes
+// several blocks). n_split = blocks of the cluster that share one sweep (1 to
+// 16). Launches one kernel and returns cudaGetLastError(), or one of the
+// negative ERR_ codes of hopper.cuh without launching.
 extern "C" int decode_attention_launch(
-    const void* q, const void* k, const void* v, const int* kv_len, void* out,
-    float* part_acc, float* part_m, float* part_l, const long long* strides,
-    int B, int H, int KVH, int D, int Smax, int gt, int n_split, float scale, int dtype,
-    void* stream) {
+    const void* q, const void* k, const void* v, const int* kv_len, void* out, const long long* strides,
+    int B, int H, int KVH, int D, int Smax, int n_split, float scale, int dtype, void* stream) {
   DecodeParams p;
-  p.q = q; p.k = k; p.v = v; p.kv_len = kv_len; p.out = out;
-  p.part_acc = part_acc; p.part_m = part_m; p.part_l = part_l;
-  p.k_sb = strides[0]; p.k_ss = strides[1]; p.k_sh = strides[2];
-  p.v_sb = strides[3]; p.v_ss = strides[4]; p.v_sh = strides[5];
-  p.B = B; p.H = H; p.KVH = KVH; p.G = H / KVH; p.Smax = Smax; p.n_gt = 1;
+  p.q = q; p.kv_len = kv_len; p.out = out;
+  p.H = H; p.G = H / KVH; p.Smax = Smax; p.n_gt = (p.G + HEADS - 1) / HEADS;
   p.scale = scale;
+  if (!((D == 64 || D == 128) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
+  if (n_split < 1 || n_split > MAX_CLUSTER) return ERR_PLAN;
+  CUtensorMap m[2];
+  int r;
+  if ((r = map_cache(&m[0], k, dtype, strides, B, Smax, KVH, D)) != 0) return r;
+  if ((r = map_cache(&m[1], v, dtype, strides + 3, B, Smax, KVH, D)) != 0) return r;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch_gt<__nv_bfloat16, 64>(p, gt, n_split, st);
-  if (dtype == 0 && D == 128) return launch_gt<__nv_bfloat16, 128>(p, gt, n_split, st);
-  if (dtype == 1 && D == 64) return launch_gt<__half, 64>(p, gt, n_split, st);
-  if (dtype == 1 && D == 128) return launch_gt<__half, 128>(p, gt, n_split, st);
-  return -1;
+  if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64>(m, p, B, KVH, n_split, st);
+  if (dtype == 0 && D == 128) return launch<__nv_bfloat16, 128>(m, p, B, KVH, n_split, st);
+  if (dtype == 1 && D == 64) return launch<__half, 64>(m, p, B, KVH, n_split, st);
+  return launch<__half, 128>(m, p, B, KVH, n_split, st);
+}
+
+// Blocks of the kernel for (D, dtype) that one SM holds at once, and in
+// ``clusters`` how many clusters of n_split blocks the card holds at once.
+// Returns -1 on an error, ERR_NO_KERNEL for what has no instantiation.
+extern "C" int decode_attention_occupancy(int D, int dtype, int n_split, int* clusters) {
+  *clusters = 0;
+  if (dtype == 0 && D == 64) return occupancy<__nv_bfloat16, 64>(n_split, clusters);
+  if (dtype == 0 && D == 128) return occupancy<__nv_bfloat16, 128>(n_split, clusters);
+  if (dtype == 1 && D == 64) return occupancy<__half, 64>(n_split, clusters);
+  if (dtype == 1 && D == 128) return occupancy<__half, 128>(n_split, clusters);
+  return ERR_NO_KERNEL;
 }

@@ -68,23 +68,18 @@
 // The tile plan (positions a tile, groups a tile, tiles along G when G exceeds
 // the tile) is computed by the Python wrapper, which also checks what the
 // tensor maps need: last dim contiguous, strides multiples of 16 bytes,
-// 16-byte aligned storage.
+// 16-byte aligned storage. The building blocks (barriers, TMA, wgmma and its
+// descriptors, the tensor maps) are in hopper.cuh, shared with the forward.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time (no -lcuda)
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr int NCONSUMER = 2;                      // consumer warpgroups a block
 constexpr int NTHREADS = (NCONSUMER + 1) * 128;   // + one producer warpgroup
 constexpr int OWN_ROWS = 128;   // rows a block owns: KV rows (dk/dv), folded q rows (dq)
 constexpr int SWEEP_ROWS = 64;  // folded q rows of a swept tile of the dk/dv kernel
 constexpr int STAGES = 3;       // depth of the ring of swept tiles
-constexpr int ATOM = 128;       // bytes of a swizzled row: 64 16-bit elements
 constexpr int CONSUMER_REGS = 240;
 constexpr int PRODUCER_REGS = 24;
 
@@ -94,321 +89,6 @@ template <int D>
 __host__ __device__ constexpr int dq_kv_rows() {
   return D == 64 ? 128 : 64;
 }
-
-// ---------------------------------------------------------------------------
-// shared memory, barriers, TMA
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Waits for the phase of parity ``parity`` to complete. A pipeline fault
-// would otherwise hang the card: after about 4 s of waiting the kernel traps,
-// and the launch fails with an error the wrapper reports.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  long long t0 = 0;
-  for (int n = 0;; ++n) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (n == 0) t0 = clock64();
-    else if (clock64() - t0 > 8000000000LL) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
-      : "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
-// Generic-proxy stores to shared memory (the zeroed rows) made visible to the
-// async proxy (wgmma, TMA) before a barrier.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-
-// ---------------------------------------------------------------------------
-// wgmma
-// ---------------------------------------------------------------------------
-
-// Descriptor of a 128-byte-swizzled operand tile: start address, leading and
-// stride byte offsets (16-byte units), layout 1 = 128-byte swizzle. The tiles'
-// bases are 1024-byte aligned, so the swizzle phase (base offset) is 0.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// K-major operand (rows x D, D contiguous; a tile of ``cap`` rows holds D/64
-// column blocks of cap x 64): rows [r0, r0 + 8 m) and the k16 slice ``kk``.
-// Within a 128-byte row the slice starts 32 bytes further per step; 8-row
-// groups are 1024 bytes apart (SBO); LBO is unused for this layout.
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int cap, int r0, int kk) {
-  return make_desc(tile + (kk >> 2) * cap * ATOM + r0 * ATOM + (kk & 3) * 32, 16, 1024);
-}
-
-// MN-major operand: the tile's rows are the k dim and D the n dim (B of
-// p^T.do, ds^T.q and ds.k, read transposed). The k16 slice ``kk`` is rows
-// [16 kk, 16 kk + 16): two 8-row groups 1024 bytes apart (SBO); the 64-wide
-// column blocks of n are a tile's column-block stride apart (LBO).
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int cap, int kk) {
-  return make_desc(tile + kk * 16 * ATOM, cap * ATOM, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accesses to registers that an in-flight
-// wgmma reads or writes across the points where this is called.
-template <int N>
-__device__ __forceinline__ void pin(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&x)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j]) :: "memory");
-}
-
-template <typename T>
-struct Mma {
-  // d[64 x N] (+)= A . B^T, A and B K-major in shared memory
-  static __device__ void ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc);
-  static __device__ void ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc);
-  // d[64 x 64] or d[64 x 128] (+)= A . B, A from registers, B MN-major in shared memory
-  static __device__ void rs_n64_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc);
-  static __device__ void rs_n128_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc);
-  static __device__ uint32_t pack(float lo, float hi);
-};
-
-template <>
-__device__ __forceinline__ uint32_t Mma<__nv_bfloat16>::pack(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-template <>
-__device__ __forceinline__ uint32_t Mma<__half>::pack(float lo, float hi) {
-  __half2 h = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-template <>
-__device__ __forceinline__ void Mma<__nv_bfloat16>::ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void Mma<__nv_bfloat16>::ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void Mma<__nv_bfloat16>::rs_n64_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void Mma<__nv_bfloat16>::rs_n128_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void Mma<__half>::ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void Mma<__half>::ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void Mma<__half>::rs_n64_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void Mma<__half>::rs_n128_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
-  if constexpr (N == 64) {
-    Mma<T>::ss_n64(d, da, db, acc);
-  } else {
-    Mma<T>::ss_n128(d, da, db, acc);
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void mma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 64) {
-    Mma<T>::rs_n64_tb(d, a, db, 1);
-  } else {
-    Mma<T>::rs_n128_tb(d, a, db, 1);
-  }
-}
-
-// The accumulator of a 64 x N product (thread (warp w, lane 4 g + t) holds
-// rows 16 w + g and + 8, columns 8 j + 2 t and + 1 in x[4 j .. 4 j + 3]),
-// rounded to T, as the N / 16 A fragments (k16 slices) of the next product.
-template <typename T, int N>
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = Mma<T>::pack(x[8 * kk + 0], x[8 * kk + 1]);
-    a[kk][1] = Mma<T>::pack(x[8 * kk + 2], x[8 * kk + 3]);
-    a[kk][2] = Mma<T>::pack(x[8 * kk + 4], x[8 * kk + 5]);
-    a[kk][3] = Mma<T>::pack(x[8 * kk + 6], x[8 * kk + 7]);
-  }
-}
-
-// 2^x in one SFU instruction; results below 2^-126 flush to 0 (p that small
-// adds nothing at f32 or 16-bit precision)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = 0.f;
-}
-
-// Row ``lo`` (0: row g, 1: row g + 8) of a 64 x D accumulator, times
-// ``scale``, to a row of T with 4-byte stores.
-template <typename T, int D>
-__device__ __forceinline__ void store_row(T* row, const float (&acc)[D / 2], int lo, float scale, int t) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
-        Mma<T>::pack(acc[4 * j + 2 * lo] * scale, acc[4 * j + 2 * lo + 1] * scale);
-  }
-}
-
-// Zeroes rows [r_begin, cap) of a tile of ``cap`` rows (all its column
-// blocks): rows that TMA never writes, so that they read as 0 for good.
-template <int D>
-__device__ __forceinline__ void zero_rows(unsigned char* tile, int cap, int r_begin, int tid) {
-  const int n = (cap - r_begin) * (D / 64) * (ATOM / 16);
-  for (int i = tid; i < n; i += NTHREADS) {
-    const int c = i % (ATOM / 16);
-    const int r = r_begin + (i / (ATOM / 16)) % (cap - r_begin);
-    const int cb = i / ((ATOM / 16) * (cap - r_begin));
-    *reinterpret_cast<uint4*>(tile + cb * cap * ATOM + r * ATOM + c * 16) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// The folded rows of a tile: P positions x Gt groups, row = p * Gt + g. With
-// G <= rows, Gt = G and a tile is P whole positions; with G > rows, P = 1 and
-// the groups of one position span ``gchunks`` tiles (the last one ragged).
-struct TilePlan {
-  int P, Gt, gchunks;
-};
 
 struct DqParams {
   const void* o;
@@ -467,9 +147,6 @@ struct DkvSmem {
   static constexpr int ALLOC = BYTES + 1024;
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
 
 // ---------------------------------------------------------------------------
 // dq (and delta): one block per (q tile, kv head, batch); sweeps the KV tiles
@@ -514,8 +191,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (rows_tile < OWN_ROWS) {
-    zero_rows<D>(smem + L::Q, OWN_ROWS, rows_tile, tid);
-    zero_rows<D>(smem + L::DO, OWN_ROWS, rows_tile, tid);
+    zero_rows<D, NTHREADS>(smem + L::Q, OWN_ROWS, rows_tile, tid);
+    zero_rows<D, NTHREADS>(smem + L::DO, OWN_ROWS, rows_tile, tid);
     fence_proxy_async();
   }
   __syncthreads();
@@ -727,8 +404,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
   for (int i = tid; i < SWEEP_ROWS; i += NTHREADS) qpos[i] = i / tp.Gt;
   if (rows_tile < SWEEP_ROWS) {
     for (int s = 0; s < STAGES; ++s) {
-      zero_rows<D>(smem + L::STAGE + s * 2 * L::SWEEP, SWEEP_ROWS, rows_tile, tid);
-      zero_rows<D>(smem + L::STAGE + s * 2 * L::SWEEP + L::SWEEP, SWEEP_ROWS, rows_tile, tid);
+      zero_rows<D, NTHREADS>(smem + L::STAGE + s * 2 * L::SWEEP, SWEEP_ROWS, rows_tile, tid);
+      zero_rows<D, NTHREADS>(smem + L::STAGE + s * 2 * L::SWEEP + L::SWEEP, SWEEP_ROWS, rows_tile, tid);
     }
     fence_proxy_async();
   }
@@ -900,82 +577,6 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
   }
 }
 
-// ---------------------------------------------------------------------------
-// host side: tensor maps and launches
-// ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, asked
-// once: the library then needs no -lcuda.
-EncodeTiledFn encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
-#endif
-    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess || ptr == nullptr) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-constexpr int ERR_NO_KERNEL = -1;   // no instantiation for this head_dim or type
-constexpr int ERR_NO_ENCODER = -2;  // the driver has no cuTensorMapEncodeTiled
-constexpr int ERR_MAP = -3;         // the driver refused a tensor map
-constexpr int ERR_PLAN = -4;        // a tile plan the kernels cannot take
-
-// A tiled map of a 16-bit tensor with 128-byte swizzle, dims innermost first;
-// ``strides`` in elements for dims 1.. (dim 0 is contiguous). A dim of size 1
-// is never stepped, so its stride is replaced by one TMA accepts.
-int make_map(CUtensorMap* map, const void* base, int dtype, int rank, const cuuint64_t* dims,
-             const long long* strides, const cuuint32_t* box) {
-  EncodeTiledFn encode = encoder();
-  if (encode == nullptr) return ERR_NO_ENCODER;
-  cuuint64_t bytes[4];
-  for (int i = 0; i + 1 < rank; ++i) {
-    bytes[i] = static_cast<cuuint64_t>(strides[i]) * 2;
-    if (dims[i + 1] == 1) bytes[i] = i == 0 ? dims[0] * 2 : bytes[i - 1] * dims[i];
-  }
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-                            rank, const_cast<void*>(base), dims, bytes, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_MAP;
-}
-
-// (B, KVH, S, G, D) through strides s = (b, kvh, s, g), a box of (64, Gt, P, 1, 1)
-int map_folded(CUtensorMap* map, const void* base, int dtype, const long long* s, int B, int KVH, int S, int G,
-               int D, const TilePlan& tp) {
-  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(G), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(KVH), static_cast<cuuint64_t>(B)};
-  const long long st[4] = {s[3], s[2], s[1], s[0]};
-  const cuuint32_t box[5] = {64, static_cast<cuuint32_t>(tp.Gt), static_cast<cuuint32_t>(tp.P), 1, 1};
-  return make_map(map, base, dtype, 5, dims, st, box);
-}
-
-// (B, KVH, S, D) through strides s = (b, kvh, s), a box of (64, rows, 1, 1)
-int map_kv(CUtensorMap* map, const void* base, int dtype, const long long* s, int B, int KVH, int S, int D,
-           int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(KVH), static_cast<cuuint64_t>(B)};
-  const long long st[3] = {s[2], s[1], s[0]};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  return make_map(map, base, dtype, 4, dims, st, box);
-}
-
-bool plan_ok(const TilePlan& tp, int G, int rows) {
-  return tp.P >= 1 && tp.P <= 256 && tp.Gt >= 1 && tp.Gt <= 256 && tp.P * tp.Gt <= rows &&
-         tp.gchunks == (G + tp.Gt - 1) / tp.Gt && (tp.gchunks == 1 || tp.P == 1);
-}
 
 template <typename T, int D>
 int launch_dq(const CUtensorMap (&m)[4], const DqParams& p, int B, cudaStream_t stream) {

@@ -9,147 +9,138 @@
 // What bounds it on this card: operations. At the serving shape
 // (q (8,8,2048,4,64), k/v (8,8,2048,64), causal) the function needs
 // 2*2*B*H*Sq*Skv*D/2 = 137 GFLOP against 67 MB of traffic, far above the
-// card's ~295 FLOP/byte ridge, so the tensor cores are the limit.
+// card's ~295 FLOP/byte ridge, so the tensor cores are the limit. At D = 64
+// the softmax's one exp2 an element comes as close: the SM's 16 exp2 a cycle
+// take as long as its wgmma take for the two products of a 64-deep row, so
+// the kernel nears the bound only where each hides the other.
 //
-// What the design does about it: both products run on the tensor cores
-// (mma.sync m16n8k16, bf16 or f16 in, f32 accumulate); the scores never leave
-// registers, because the accumulator fragment of q.k^T is re-packed in place
-// as the A fragment of p.v; K and V tiles are read once per block of 64 folded
-// rows, which at G=4 is 16 query positions x 4 heads sharing one K/V tile;
-// K and V fragments come out of shared memory with ldmatrix, four 8x8
-// matrices an instruction, from rows padded so that the reads hit all banks.
-// The next K/V tile is fetched with cp.async into a second buffer while the
-// current one is multiplied. Only the tiles on the causal diagonal or the
-// ragged edge are masked, and scale and log2(e) are folded into the one FMA in
-// front of ex2.
-// What it does not do yet: no wgmma and no TMA, a two-stage pipeline only, and
-// o is written with 4-byte stores straight from the fragments.
+// What the design does about it:
+//   * both products are warpgroup wgmma.mma_async (f32 accumulate), the only
+//     way to the tensor cores' full rate: s = q.k^T with both operands in
+//     shared memory, o += p.v with p from registers (the f32 scores go
+//     straight to a 16-bit A fragment) and V read MN-major;
+//   * a block owns the folded q rows of a work item (q tile, kv head,
+//     batch), 64 a consumer warpgroup: three warpgroups (192 rows) at D = 64,
+//     so that while one runs its softmax two others keep the tensor cores
+//     busy; two (128 rows) at D = 128, where o takes 64 registers a thread.
+//     One producer warp feeds them: the q tile, then K and V tiles of 128
+//     rows at D = 64 (64 at D = 128) by TMA into a ring of STAGES buffers, K
+//     and V behind separate barriers. The consumers take the producer's
+//     registers (setmaxnreg). q, o are read and written through a 5-D tensor
+//     map (D, G, S, KVH, B) whose box is a tile of whole positions, so the
+//     GQA fold stays a view; k, v through a 4-D map (D, S, KVH, B);
+//   * the kernel is persistent: one block an SM walks over the work items,
+//     heaviest first (item w is q tile n_tiles - 1 - w / (KVH B)), block i
+//     taking items i, i + gridDim.x, ... The next item's q tile loads while
+//     the last p.v of the current one runs, and o leaves through a tile of
+//     its own by TMA (which also clips the ragged edge) while the next item
+//     starts;
+//   * each warpgroup issues s of tile j beside p.v of tile j - 1 and runs the
+//     softmax of tile j while that product runs (the overlap within a
+//     warpgroup of FlashAttention-3), and the warpgroups take turns, round
+//     robin, to issue their products, so that one's softmax runs while the
+//     others' products do. Both groups are waited for before the loop's back
+//     edge: with wgmma groups in flight across it, ptxas serializes every
+//     wgmma (its message C7515);
+//   * the softmax costs few instructions: one ex2.approx.ftz an element with
+//     scale and log2(e) folded into one FMA, and the mask test outside the
+//     element loop (a tile that needs no mask runs a loop without one);
+//   * causal sweeps end at the diagonal, and tiles a warpgroup would find
+//     wholly masked are skipped.
 //
 // Differences from the TPU kernel, on purpose:
 //   * the TPU grid's sequential KV axis is a loop inside one block, and m, l
 //     are per-row registers, not lane-replicated (rows, 128) tiles;
-//   * tiles are 64 folded rows x 64 kv positions (the TPU default of 512x512
-//     with G=4 is 2048 accumulator rows, far beyond one SM);
-//   * the ragged edge is masked, so any Sq, Skv >= 1 works;
-//   * q, k, v, o are addressed through strides (last dim contiguous), so the
-//     (B,S,H,D) -> (B,KVH,S,G,D) fold is a view and costs no copy;
+//   * tiles are 128-192 folded rows x 64-128 kv positions (the TPU default of
+//     512 x 512 with G = 4 is 2,048 accumulator rows, far beyond one SM);
+//   * the ragged edges are masked, so any Sq, Skv >= 1 works; rows past the
+//     whole positions of a tile read as 0 and are never stored;
 //   * p is rounded to the input type for p.v (tensor-core operand); softmax
 //     statistics stay f32.
 // Kept from the TPU kernel: the finite mask value -1e30 and the guarded final
-// divide max(l, 1e-30), so a fully masked row gives the same numbers, not NaN.
+// divide max(l, 1e-30), so a fully masked row gives the same numbers, not NaN
+// (lse = m * scale + log(l) with m the mask value itself).
+//
+// The tile plan (positions a tile, groups a tile, tiles along G when G exceeds
+// the tile) is computed by the Python wrapper, which also checks what the
+// tensor maps need: last dim contiguous, strides multiples of 16 bytes,
+// 16-byte aligned storage.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int BM = 64;              // folded (q position, group) rows per block
-constexpr int BN = 64;              // kv positions per tile
-constexpr int NWARPS = BM / 16;     // one m16 row slab per warp
-constexpr int NTHREADS = NWARPS * 32;
+constexpr int STAGES = 3;  // depth of the ring of (K, V) tiles
+constexpr int PRODUCER_REGS = 24;
 
-struct FlashParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  float* lse;
-  long long q_sb, q_sh, q_ss, q_sg;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  long long o_sb, o_sh, o_ss, o_sg;
+// Consumer warpgroups a block, 64 folded q rows each: 3 at D = 64, where a
+// consumer thread holds s (64 registers), p (32) and o (32) within 160; 2 at
+// D = 128, where o alone takes 64.
+template <int D>
+__host__ __device__ constexpr int n_consumers() {
+  return D == 64 ? 3 : 2;
+}
+
+// Registers of a consumer thread after setmaxnreg: the SM's 64 K registers
+// shared by NC x 128 consumer threads and 128 producer threads at 24.
+template <int NC>
+__host__ __device__ constexpr int consumer_regs() {
+  return NC == 3 ? 160 : 240;
+}
+
+// KV rows of a swept tile: 128 at D = 64, 64 at D = 128.
+template <int D>
+__host__ __device__ constexpr int kv_rows() {
+  return D == 64 ? 128 : 64;
+}
+
+struct FwdParams {
+  float* lse;  // (B,KVH,Sq,G) contiguous, written
   int B, KVH, Sq, Skv, G;
+  TilePlan tp;
+  int n_tiles;  // q tiles of one (batch, kv head)
   int causal, q_offset;
   float scale;
 };
 
-template <typename T>
-struct TensorOp;
-
-template <>
-struct TensorOp<__nv_bfloat16> {
-  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
+// Shared memory: the q tile and the o tile (QR x D each), STAGES x (K, V)
+// tiles (kv_rows x D each), then the barriers. Every tile starts on a
+// 1024-byte boundary, as the 128-byte swizzle needs.
+template <int D>
+struct FwdSmem {
+  static constexpr int NC = n_consumers<D>();
+  static constexpr int QR = 64 * NC;  // folded q rows a block owns
+  static constexpr int QT = QR * D * 2;
+  static constexpr int KV = kv_rows<D>() * D * 2;
+  static constexpr int Q = 0, O = QT, STAGE = 2 * QT;
+  // full_k[STAGES], full_v[STAGES], empty[STAGES], q_full, q_empty
+  static constexpr int BAR = STAGE + STAGES * 2 * KV;
+  static constexpr int BYTES = BAR + (3 * STAGES + 2) * 8;
+  static constexpr int ALLOC = BYTES + 1024;  // room to align the base
 };
 
-template <>
-struct TensorOp<__half> {
-  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
+// One work item: the q tile ``tile`` of (kv head h, batch b). Items are
+// numbered heaviest first (the tile index falls slowest), and block i takes
+// items i, i + gridDim.x, ...
+struct Item {
+  int h, b, pos0, g0, n_kt;
 };
 
-// Four 8x8 b16 matrices from shared memory: lane l supplies the address of
-// row (l & 7) of matrix (l >> 3); register i receives matrix i with thread
-// (g, t) holding elements [g][2t] and [g][2t+1].
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// The same with each matrix transposed on the way: thread (g, t) holds
-// elements [2t][g] and [2t+1][g] of matrix i.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_row) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16 bytes from global to shared memory without passing through registers;
-// with ``valid`` false nothing is read and the 16 bytes are zero-filled.
-__device__ __forceinline__ void cp_async_16(void* smem_dst, const void* gmem_src, bool valid) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem_src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most the most recently committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_all_but_last() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return x;
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
+template <int NK>
+__device__ __forceinline__ Item item_of(const FwdParams& p, int w) {
+  const int hb = p.KVH * p.B;
+  const int tile = p.n_tiles - 1 - w / hb;
+  Item it;
+  it.h = (w % hb) % p.KVH;
+  it.b = (w % hb) / p.KVH;
+  it.pos0 = (tile / p.tp.gchunks) * p.tp.P;
+  it.g0 = (tile % p.tp.gchunks) * p.tp.Gt;
+  // causal: KV tiles wholly above the diagonal of the q tile are never visited
+  int kv_end = p.Skv;
+  if (p.causal) kv_end = min(p.Skv, p.q_offset + min(it.pos0 + p.tp.P, p.Sq));
+  it.n_kt = kv_end > 0 ? (kv_end + NK - 1) / NK : 0;
+  return it;
 }
 
 // The row max in score units. A row that saw nothing but masked slots keeps
@@ -159,284 +150,389 @@ __device__ __forceinline__ float scaled_max(float m_raw, float scale) {
   return m_raw == NEG_INF ? NEG_INF : m_raw * scale;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const FlashParams p) {
-  constexpr int LD = D + 8;   // padded smem row: 16-byte chunks of 8 rows hit 8 bank groups
-  constexpr int CH = D / 8;   // 16-byte chunks per row
-  constexpr int KT = D / 16;  // k tiles of q.k^T
-  constexpr int NT = BN / 8;  // n tiles of the score slab
-  constexpr int DT = D / 8;   // n tiles of the output slab
+// Rows (i = 0: row g, 1: row g + 8) of this thread, as the online softmax
+// carries them: the running max of the raw scores and the thread's part of
+// the running sum.
+struct RowStats {
+  float m[2], l[2];
+};
 
-  // two stages of (K tile, V tile): tile i+1 is fetched while tile i is used
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const smem = reinterpret_cast<T*>(smem_raw);
-  constexpr int TILE = BN * LD;
-  T* sK = smem;  // stage 0; also the staging buffer of the q tile
-
-  // heaviest (latest) causal tiles first
-  const int tile = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row within the slab (and row + 8)
-  const int t = lane & 3;   // fragment column pair
-
-  const int rows_total = p.Sq * p.G;
-  const int row0 = tile * BM;
-
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  // ---- q tile: staged through sK for 16-byte coalesced loads, then held as
-  // A fragments in registers for the whole KV sweep
-  for (int i = tid; i < BM * CH; i += NTHREADS) {
-    const int r = i / CH;
-    const int c = i % CH;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < rows_total) {
-      const long long qi = row / p.G;
-      const long long gi = row % p.G;
-      val = *reinterpret_cast<const uint4*>(qb + qi * p.q_ss + gi * p.q_sg + c * 8);
-    }
-    *reinterpret_cast<uint4*>(&sK[r * LD + c * 8]) = val;
-  }
-  __syncthreads();
-
-  uint32_t qf[KT][4];
-  {
-    const T* base = sK + (warp * 16) * LD;
+// p = exp(scale * (s - m_new)) of one tile in place, with the running
+// statistics brought up to date; returns the factor (one a row) by which the
+// output accumulated so far must be scaled. ``masked`` tiles set the scores
+// of slots past kv_last (a row's last visible kv position) to the mask value
+// first. Scores stay unscaled: scale and log2(e) are folded into the one FMA
+// in front of ex2, so m is the max of the raw dots.
+template <int NK>
+__device__ __forceinline__ void softmax_tile(float (&s)[NK / 2], RowStats& st, float (&corr)[2], bool masked,
+                                             int kv0, const int (&kv_last)[2], int t, float c2) {
+  if (masked) {
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(&base[g * LD + kk * 16 + 2 * t]);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(&base[(g + 8) * LD + kk * 16 + 2 * t]);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(&base[g * LD + kk * 16 + 8 + 2 * t]);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(&base[(g + 8) * LD + kk * 16 + 8 + 2 * t]);
-    }
-  }
-  __syncthreads();
-
-  const int row_a = row0 + warp * 16 + g;  // this thread's two rows
-  const int row_b = row_a + 8;
-  const int qpos_a = p.q_offset + row_a / p.G;
-  const int qpos_b = p.q_offset + row_b / p.G;
-
-  float o_acc[DT][4];
+    for (int j = 0; j < NK / 8; ++j) {
 #pragma unroll
-  for (int n = 0; n < DT; ++n) {
-    o_acc[n][0] = 0.f; o_acc[n][1] = 0.f; o_acc[n][2] = 0.f; o_acc[n][3] = 0.f;
-  }
-  float m_a = NEG_INF, m_b = NEG_INF;  // running max of the unscaled scores
-  const float c2 = p.scale * 1.4426950408889634f;  // exp(scale * x) = exp2(c2 * x)
-  float l_a = 0.f, l_b = 0.f;  // per-thread partial row sums, reduced over the quad at the end
-
-  // causal: KV tiles wholly above the diagonal of this block are never visited
-  int kv_end = p.Skv;
-  if (p.causal) {
-    const int last_row = min(row0 + BM, rows_total) - 1;
-    const int q_hi = p.q_offset + last_row / p.G;
-    kv_end = min(p.Skv, q_hi + 1);
-  }
-  const int n_tiles = kv_end > 0 ? (kv_end + BN - 1) / BN : 0;
-
-  // each thread copies its share of a K tile and a V tile, 16 bytes a time,
-  // straight into shared memory; rows past Skv are zero-filled (src size 0)
-  auto fetch = [&](int it) {
-    T* dK = smem + (it & 1) * 2 * TILE;
-    T* dV = dK + TILE;
-    const int kv0 = it * BN;
-    for (int i = tid; i < BN * CH; i += NTHREADS) {
-      const int r = i / CH;
-      const int c = i % CH;
-      const bool in = kv0 + r < p.Skv;
-      const long long kv = in ? kv0 + r : 0;
-      cp_async_16(&dK[r * LD + c * 8], kb + kv * p.k_ss + c * 8, in);
-      cp_async_16(&dV[r * LD + c * 8], vb + kv * p.v_ss + c * 8, in);
-    }
-  };
-
-  if (n_tiles > 0) fetch(0);
-  cp_async_commit();
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int kv0 = it * BN;
-    sK = smem + (it & 1) * 2 * TILE;
-    const T* sV = sK + TILE;
-
-    // start the next tile into the other stage (free since the barrier that
-    // ended the last iteration), then wait for this one
-    if (it + 1 < n_tiles) fetch(it + 1);
-    cp_async_commit();
-    cp_async_wait_all_but_last();
-    __syncthreads();
-
-    // ---- s = q . k^T  (16 x BN per warp)
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = 0.f; s[j][1] = 0.f; s[j][2] = 0.f; s[j][3] = 0.f;
-    }
-    // K is read as B fragments four 8x8 matrices at a time: n tiles j, j+1,
-    // each with the two 8-wide halves of the 16-deep k step
-    const int krow = (lane & 7) + (lane >> 4) * 8;
-    const int kcol = ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, &sK[(j * 8 + krow) * LD + kk * 16 + kcol]);
-        TensorOp<T>::mma(s[j], qf[kk], kf[0], kf[1]);
-        TensorOp<T>::mma(s[j + 1], qf[kk], kf[2], kf[3]);
+      for (int e = 0; e < 4; ++e) {
+        const int kv = kv0 + 8 * j + 2 * t + (e & 1);
+        s[4 * j + e] = kv <= kv_last[e >> 1] ? s[4 * j + e] : NEG_INF;
       }
     }
-
-    // ---- mask (ragged kv edge and causal) where this tile needs it, running
-    // max. Scores stay unscaled: scale and log2(e) are folded into the one FMA
-    // in front of ex2, so m is the max of the raw dots.
-    const bool tile_masked =
-        (kv0 + BN > p.Skv) || (p.causal && kv0 + BN - 1 > p.q_offset + row0 / p.G);
-    if (tile_masked) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kv0 + j * 8 + 2 * t + (e & 1);
-          const int qpos = (e < 2) ? qpos_a : qpos_b;
-          const bool ok = (col < p.Skv) && (!p.causal || qpos >= col);
-          s[j][e] = ok ? s[j][e] : NEG_INF;
-        }
-      }
-    }
-    float mx_a = NEG_INF, mx_b = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
-    }
-    mx_a = quad_max(mx_a);
-    mx_b = quad_max(mx_b);
-    const float mn_a = fmaxf(m_a, mx_a);
-    const float mn_b = fmaxf(m_b, mx_b);
-    const float corr_a = exp2f((m_a - mn_a) * c2);
-    const float corr_b = exp2f((m_b - mn_b) * c2);
-    m_a = mn_a;
-    m_b = mn_b;
-    // p = exp2(c * s + off). A row with nothing valid so far (max still the
-    // mask value) takes c = off = 0, so p = 1 on its masked slots as in the
-    // TPU kernel's exp(s - m), instead of the difference of two huge products.
-    const float c_a = mn_a == NEG_INF ? 0.f : c2;
-    const float c_b = mn_b == NEG_INF ? 0.f : c2;
-    const float off_a = -mn_a * c_a;
-    const float off_b = -mn_b * c_b;
-
-    float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = exp2f(fmaf(s[j][0], c_a, off_a));
-      s[j][1] = exp2f(fmaf(s[j][1], c_a, off_a));
-      s[j][2] = exp2f(fmaf(s[j][2], c_b, off_b));
-      s[j][3] = exp2f(fmaf(s[j][3], c_b, off_b));
-      sum_a += s[j][0] + s[j][1];
-      sum_b += s[j][2] + s[j][3];
-    }
-    l_a = l_a * corr_a + sum_a;
-    l_b = l_b * corr_b + sum_b;
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      o_acc[n][0] *= corr_a; o_acc[n][1] *= corr_a;
-      o_acc[n][2] *= corr_b; o_acc[n][3] *= corr_b;
-    }
-
-    // ---- o += p . v : the score accumulators of two n tiles are the A
-    // fragment of one 16-deep k step
-#pragma unroll
-    for (int c = 0; c < BN / 16; ++c) {
-      uint32_t pa[4];
-      pa[0] = TensorOp<T>::pack(s[2 * c][0], s[2 * c][1]);
-      pa[1] = TensorOp<T>::pack(s[2 * c][2], s[2 * c][3]);
-      pa[2] = TensorOp<T>::pack(s[2 * c + 1][0], s[2 * c + 1][1]);
-      pa[3] = TensorOp<T>::pack(s[2 * c + 1][2], s[2 * c + 1][3]);
-      const int vrow = c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, &sV[vrow * LD + n2 * 16 + (lane >> 4) * 8]);
-        TensorOp<T>::mma(o_acc[2 * n2], pa, vf[0], vf[1]);
-        TensorOp<T>::mma(o_acc[2 * n2 + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();
   }
-
-  // ---- finalize: o = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30))
-  l_a = fmaxf(quad_sum(l_a), 1e-30f);
-  l_b = fmaxf(quad_sum(l_b), 1e-30f);
-  const float inv_a = 1.f / l_a;
-  const float inv_b = 1.f / l_b;
-  float* lse_base = p.lse + (static_cast<long long>(b) * p.KVH + h) * rows_total;
-
-  if (row_a < rows_total) {
-    T* orow = ob + static_cast<long long>(row_a / p.G) * p.o_ss +
-              static_cast<long long>(row_a % p.G) * p.o_sg;
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-          TensorOp<T>::pack(o_acc[n][0] * inv_a, o_acc[n][1] * inv_a);
-    }
-    if (t == 0) lse_base[row_a] = scaled_max(m_a, p.scale) + __logf(l_a);
-  }
-  if (row_b < rows_total) {
-    T* orow = ob + static_cast<long long>(row_b / p.G) * p.o_ss +
-              static_cast<long long>(row_b % p.G) * p.o_sg;
+  for (int i = 0; i < 2; ++i) {
+    float mx = NEG_INF;
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-          TensorOp<T>::pack(o_acc[n][2] * inv_b, o_acc[n][3] * inv_b);
+    for (int j = 0; j < NK / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+    const float mn = fmaxf(st.m[i], quad_max(mx));
+    corr[i] = exp2_ftz((st.m[i] - mn) * c2);
+    st.m[i] = mn;
+    // A row with nothing visible so far (max still the mask value) takes
+    // c = off = 0, so p = 1 on its masked slots as in the TPU kernel's
+    // exp(s - m), instead of the difference of two huge products.
+    const float c = mn == NEG_INF ? 0.f : c2;
+    const float off = -mn * c;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j) {
+      s[4 * j + 2 * i] = exp2_ftz(fmaf(s[4 * j + 2 * i], c, off));
+      s[4 * j + 2 * i + 1] = exp2_ftz(fmaf(s[4 * j + 2 * i + 1], c, off));
+      sum += s[4 * j + 2 * i] + s[4 * j + 2 * i + 1];
     }
-    if (t == 0) lse_base[row_b] = scaled_max(m_b, p.scale) + __logf(l_b);
+    st.l[i] = st.l[i] * corr[i] + sum;
   }
 }
 
+// s = q.k^T of one KV tile (at ``sk``), 64 x NK for warpgroup ``wg`` of a q
+// tile of QR rows, both operands K-major in shared memory; one wgmma group.
+template <typename T, int D, int NK, int QR>
+__device__ __forceinline__ void issue_s(float (&sacc)[NK / 2], uint32_t sq, uint32_t sk, int wg) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    mma_ss<T, NK>(sacc, desc_k(sq, QR, 64 * wg, kk), desc_k(sk, NK, 0, kk), kk > 0);
+  wgmma_commit();
+}
+
+// o += p.v of one KV tile (V at ``sv``, read MN-major), p from registers;
+// issued as one wgmma group after a fence that no register write follows.
+template <typename T, int D, int NK>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)[NK / 16][4], uint32_t sv) {
+  pin(o);
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk) mma_rs<T, D>(o, pf[kk], desc_mn(sv, NK, kk));
+  wgmma_commit();
+}
+
+// The o accumulator (64 x D of one warpgroup) times the row factors, rounded
+// to T, into the 128-byte-swizzled tile ``tile`` (QR rows, D / 64 column
+// blocks) at rows [r0, r0 + 64): the layout TMA read q in and writes o from.
+// Row r's 16-byte chunk c lies at chunk c ^ (r % 8) of its 128-byte row.
+template <typename T, int D, int QR>
+__device__ __forceinline__ void o_to_smem(unsigned char* tile, int r0, const float (&o)[D / 2], const float (&f)[2],
+                                          int wl, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 16 * wl + g + 8 * i;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int cb = j / 8, c = j % 8;
+      *reinterpret_cast<uint32_t*>(tile + cb * QR * ATOM + r * ATOM + ((c ^ (r & 7)) << 4) + 4 * t) =
+          Mma<T>::pack(o[4 * j + 2 * i] * f[i], o[4 * j + 2 * i + 1] * f[i]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// persistent: one block an SM walks over the work items (q tile, kv head,
+// batch), sweeping the KV tiles of each
+// ---------------------------------------------------------------------------
+
 template <typename T, int D>
-int launch(const FlashParams& p, cudaStream_t stream) {
-  const int rows_total = p.Sq * p.G;
-  dim3 grid((rows_total + BM - 1) / BM, p.KVH, p.B);
-  // 2 stages x (K, V) x BN rows of D + 8: 36 KB at D = 64, 68 KB at D = 128,
-  // the latter above the 48 KB a kernel gets without asking
-  const int smem_bytes = 2 * 2 * BN * (D + 8) * static_cast<int>(sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+__global__ void __launch_bounds__((n_consumers<D>() + 1) * 128, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                 const FwdParams p) {
+  using L = FwdSmem<D>;
+  constexpr int NC = L::NC;
+  constexpr int QR = L::QR;
+  constexpr int NTHREADS = (NC + 1) * 128;
+  constexpr int NCB = D / 64;  // 64-element column blocks of a row
+  constexpr int NK = kv_rows<D>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = align1024(smem_raw);
+  const uint32_t sbase = smem_u32(smem);
+  uint64_t* const full_k = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* const full_v = full_k + STAGES;
+  uint64_t* const empty = full_v + STAGES;
+  uint64_t* const q_full = empty + STAGES;
+  uint64_t* const q_empty = q_full + 1;
+
+  const TilePlan tp = p.tp;
+  const int rows_tile = tp.P * tp.Gt;
+  const int n_items = p.n_tiles * p.KVH * p.B;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], NC * 4);
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, NC * 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // rows past the tile's whole positions: never loaded, 0 for good
+  if (rows_tile < QR) {
+    zero_rows<D, NTHREADS>(smem + L::Q, QR, rows_tile, tid);
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (tid >= NC * 128) {
+    // ---- producer: per item the q tile, once its last one is no longer
+    // read, then the item's (K, V) tiles into the ring
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == NC * 128) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      prefetch_map(&tm_o);
+      int kc = 0;  // ring slots filled so far
+      int n = 0;   // items of this block so far
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++n) {
+        const Item it = item_of<NK>(p, w);
+        if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
+        mbar_arrive_expect_tx(q_full, NCB * rows_tile * ATOM);
+#pragma unroll
+        for (int cb = 0; cb < NCB; ++cb)
+          tma_load_5d(sbase + L::Q + cb * QR * ATOM, &tm_q, q_full, cb * 64, it.g0, it.pos0, it.h, it.b);
+        for (int j = 0; j < it.n_kt; ++j, ++kc) {
+          const int s = kc % STAGES;
+          if (kc >= STAGES) mbar_wait(&empty[s], ((kc / STAGES) - 1) & 1);
+          const uint32_t sk = sbase + L::STAGE + s * 2 * L::KV;
+          mbar_arrive_expect_tx(&full_k[s], NCB * NK * ATOM);
+#pragma unroll
+          for (int cb = 0; cb < NCB; ++cb)
+            tma_load_4d(sk + cb * NK * ATOM, &tm_k, &full_k[s], cb * 64, j * NK, it.h, it.b);
+          mbar_arrive_expect_tx(&full_v[s], NCB * NK * ATOM);
+#pragma unroll
+          for (int cb = 0; cb < NCB; ++cb)
+            tma_load_4d(sk + L::KV + cb * NK * ATOM, &tm_v, &full_v[s], cb * 64, j * NK, it.h, it.b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 folded rows each
+  setmaxnreg_inc<consumer_regs<NC>()>();
+  const int wg = tid >> 7;
+  const int wl = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float c2 = p.scale * LOG2E;  // exp(scale * x) = exp2(c2 * x)
+  const uint32_t sq = sbase + L::Q;
+  const uint32_t stage0 = sbase + L::STAGE;
+
+  // The consumer warpgroups take turns, round robin, to issue their products
+  // (hardware barrier 2 + w is warpgroup w's turn), one turn each a KV tile
+  // past the first of every item, so that one's softmax runs while the
+  // others' products do. The last warpgroup lets the first go first.
+  if (wg == NC - 1) named_barrier_arrive(2, 256);
+  int kc = 0;  // ring slots consumed so far
+  int n = 0;   // items of this block so far
+  for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++n) {
+    const Item it = item_of<NK>(p, w);
+    // this thread's two rows (i = 0: row g of its warp's 16, i = 1: row g + 8)
+    int pos[2], grp[2], kv_last[2];
+    bool valid[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int lr = 64 * wg + 16 * wl + g + 8 * i;
+      pos[i] = it.pos0 + lr / tp.Gt;
+      grp[i] = it.g0 + lr % tp.Gt;
+      valid[i] = lr < rows_tile && pos[i] < p.Sq && grp[i] < p.G;
+      // the last kv position the row sees
+      kv_last[i] = p.causal ? min(p.Skv, p.q_offset + pos[i] + 1) - 1 : p.Skv - 1;
+    }
+    // the KV tiles warpgroup v sweeps: the rest are wholly masked for its
+    // rows, and come last
+    auto live_tiles = [&](int v) {
+      const int rows = min(64, rows_tile - 64 * v);  // may be <= 0: nothing to do
+      const int last = p.q_offset + it.pos0 + (64 * v + rows - 1) / tp.Gt;
+      return rows <= 0 ? 0 : p.causal ? min(it.n_kt, max(0, last + NK) / NK) : it.n_kt;
+    };
+    const int wg_rows = min(64, rows_tile - 64 * wg);
+    const int n_live = live_tiles(wg);
+    // the first position of this warpgroup's rows, past which a tile needs the causal mask
+    const int wg_first = p.q_offset + it.pos0 + (64 * wg) / tp.Gt;
+    auto needs_mask = [&](int j) {
+      return (j + 1) * NK > p.Skv || (p.causal && (j + 1) * NK - 1 > wg_first);
+    };
+    // KV tile j of this item lies in ring slot kc + j
+    auto slot = [&](int j) { return stage0 + ((kc + j) % STAGES) * 2 * L::KV; };
+    auto phase = [&](int j) { return static_cast<uint32_t>(((kc + j) / STAGES) & 1); };
+
+    float o[D / 2];
+    zero(o);
+    RowStats st = {{NEG_INF, NEG_INF}, {0.f, 0.f}};
+    float corr[2];
+    float sacc[NK / 2];
+    uint32_t pf[NK / 16][4];  // p of the previous tile, A fragments of o += p.v
+    mbar_wait(q_full, n & 1);
+
+    if (n_live > 0) {
+      mbar_wait(&full_k[kc % STAGES], phase(0));
+      issue_s<T, D, NK, QR>(sacc, sq, slot(0), wg);
+      wgmma_wait<0>();
+      pin(sacc);
+      softmax_tile<NK>(sacc, st, corr, needs_mask(0), 0, kv_last, t, c2);  // o is 0: corr unused
+      to_a_frags<T, NK>(pf, sacc);
+    }
+    for (int j = 1; j < n_live; ++j) {
+      // in this warpgroup's turn, the scores of this tile, then o += p.v of
+      // the previous one: the softmax below runs while that product does
+      named_barrier(2 + wg, 256);
+      mbar_wait(&full_k[(kc + j) % STAGES], phase(j));
+      mbar_wait(&full_v[(kc + j - 1) % STAGES], phase(j - 1));
+      issue_s<T, D, NK, QR>(sacc, sq, slot(j), wg);
+      issue_pv<T, D, NK>(o, pf, slot(j - 1) + L::KV);
+      named_barrier_arrive(2 + (wg + 1) % NC, 256);
+      wgmma_wait<1>();
+      pin(sacc);
+      softmax_tile<NK>(sacc, st, corr, needs_mask(j), j * NK, kv_last, t, c2);
+      wgmma_wait<0>();
+      pin(o);
+      pin(pf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(kc + j - 1) % STAGES]);
+#pragma unroll
+      for (int e = 0; e < D / 8; ++e) {
+        o[4 * e + 0] *= corr[0];
+        o[4 * e + 1] *= corr[0];
+        o[4 * e + 2] *= corr[1];
+        o[4 * e + 3] *= corr[1];
+      }
+      to_a_frags<T, NK>(pf, sacc);
+    }
+    // every s of this item has completed: the q tile may take the next item's
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_empty);
+    if (n_live > 0) {
+      // o += p.v of the last tile
+      mbar_wait(&full_v[(kc + n_live - 1) % STAGES], phase(n_live - 1));
+      wgmma_fence();
+      issue_pv<T, D, NK>(o, pf, slot(n_live - 1) + L::KV);
+      wgmma_wait<0>();
+      pin(o);
+      pin(pf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(kc + n_live - 1) % STAGES]);
+    }
+    // tiles wholly masked for this warpgroup: released once they have
+    // arrived, so that the ring's phases stay in step, and their turns passed on
+    for (int j = n_live; j < it.n_kt; ++j) {
+      if (j >= 1) {
+        named_barrier(2 + wg, 256);
+        named_barrier_arrive(2 + (wg + 1) % NC, 256);
+      }
+      mbar_wait(&full_k[(kc + j) % STAGES], phase(j));
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(kc + j) % STAGES]);
+    }
+    kc += it.n_kt;
+
+    // ---- o = acc / max(l, 1e-30) through the o tile, lse = m * scale + log(max(l, 1e-30))
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float l = fmaxf(quad_sum(st.l[i]), 1e-30f);
+      inv[i] = 1.f / l;
+      if (valid[i] && t == 0) {
+        p.lse[(static_cast<long long>(it.b) * p.KVH + it.h) * p.Sq * p.G + static_cast<long long>(pos[i]) * p.G +
+              grp[i]] = scaled_max(st.m[i], p.scale) + __logf(l);
+      }
+    }
+    if (tid == 0) tma_store_wait_read();  // the last item's o has left the o tile
+    named_barrier(1, NC * 128);
+    if (wg_rows > 0) o_to_smem<T, D, QR>(smem + L::O, 64 * wg, o, inv, wl, g, t);
+    fence_proxy_async();
+    named_barrier(1, NC * 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb)
+        tma_store_5d(&tm_o, sbase + L::O + cb * QR * ATOM, cb * 64, it.g0, it.pos0, it.h, it.b);
+      tma_store_commit();
+    }
+  }
+  if (tid == 0) tma_store_wait_read();
+}
+
+template <typename T, int D>
+int launch(const CUtensorMap (&m)[4], const FwdParams& p, cudaStream_t stream) {
+  const int smem = FwdSmem<D>::ALLOC;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_kernel<T, D><<<grid, NTHREADS, smem_bytes, stream>>>(p);
+  int dev = 0, n_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int n_items = p.n_tiles * p.KVH * p.B;
+  flash_fwd_kernel<T, D><<<min(n_items, n_sm), (n_consumers<D>() + 1) * 128, smem, stream>>>(m[0], m[1], m[2], m[3], p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int blocks_per_sm() {
+  const int smem = FwdSmem<D>::ALLOC;
+  int n = 0;
+  if (cudaFuncSetAttribute(flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_fwd_kernel<T, D>, (n_consumers<D>() + 1) * 128, smem) !=
+          cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace
 
-// strides (in elements): q b,kvh,s,g | k b,kvh,s | v b,kvh,s | o b,kvh,s,g.
-// dtype: 0 = bf16, 1 = f16. Returns cudaGetLastError(), or -1 for a head_dim or
-// type that has no instantiation.
+// Blocks of the kernel for (D, dtype) that one SM holds at once, as the CUDA
+// runtime reckons it from the kernel's registers and shared memory; -1 on an
+// error, ERR_NO_KERNEL for a pair that has no instantiation.
+extern "C" int flash_attention_fwd_blocks_per_sm(int D, int dtype) {
+  if (dtype == 0 && D == 64) return blocks_per_sm<__nv_bfloat16, 64>();
+  if (dtype == 0 && D == 128) return blocks_per_sm<__nv_bfloat16, 128>();
+  if (dtype == 1 && D == 64) return blocks_per_sm<__half, 64>();
+  if (dtype == 1 && D == 128) return blocks_per_sm<__half, 128>();
+  return ERR_NO_KERNEL;
+}
+
+// Strides in elements: q b,kvh,s,g | k b,kvh,s | v b,kvh,s | o b,kvh,s,g
+// (14). (P, Gt, gchunks) is the tile plan of a block's folded q rows
+// (FwdSmem<D>::QR: 192 at D = 64, 128 at D = 128). dtype: 0 = bf16, 1 = f16. Launches one
+// kernel, one block an SM, and returns cudaGetLastError(), or one of the
+// negative ERR_ codes of hopper.cuh without launching.
 extern "C" int flash_attention_fwd_launch(
-    const void* q, const void* k, const void* v, void* o, float* lse,
-    const long long* strides, int B, int KVH, int Sq, int Skv, int G, int D,
-    int causal, int q_offset, float scale, int dtype, void* stream) {
-  FlashParams p;
-  p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse;
-  p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2]; p.q_sg = strides[3];
-  p.k_sb = strides[4]; p.k_sh = strides[5]; p.k_ss = strides[6];
-  p.v_sb = strides[7]; p.v_sh = strides[8]; p.v_ss = strides[9];
-  p.o_sb = strides[10]; p.o_sh = strides[11]; p.o_ss = strides[12]; p.o_sg = strides[13];
+    const void* q, const void* k, const void* v, void* o, float* lse, const long long* s, int B, int KVH, int Sq,
+    int Skv, int G, int D, int P, int Gt, int gchunks, int causal, int q_offset, float scale, int dtype,
+    void* stream) {
+  FwdParams p;
+  p.lse = lse;
   p.B = B; p.KVH = KVH; p.Sq = Sq; p.Skv = Skv; p.G = G;
+  p.tp = TilePlan{P, Gt, gchunks};
+  p.n_tiles = ((Sq + P - 1) / P) * gchunks;
   p.causal = causal; p.q_offset = q_offset; p.scale = scale;
+  if (!((D == 64 || D == 128) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
+  if (!plan_ok(p.tp, G, D == 64 ? FwdSmem<64>::QR : FwdSmem<128>::QR)) return ERR_PLAN;
+  CUtensorMap m[4];
+  const int nk = D == 64 ? kv_rows<64>() : kv_rows<128>();
+  int r;
+  if ((r = map_folded(&m[0], q, dtype, s, B, KVH, Sq, G, D, p.tp)) != 0) return r;
+  if ((r = map_kv(&m[1], k, dtype, s + 4, B, KVH, Skv, D, nk)) != 0) return r;
+  if ((r = map_kv(&m[2], v, dtype, s + 7, B, KVH, Skv, D, nk)) != 0) return r;
+  if ((r = map_folded(&m[3], o, dtype, s + 10, B, KVH, Sq, G, D, p.tp)) != 0) return r;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64>(p, st);
-  if (dtype == 0 && D == 128) return launch<__nv_bfloat16, 128>(p, st);
-  if (dtype == 1 && D == 64) return launch<__half, 64>(p, st);
-  if (dtype == 1 && D == 128) return launch<__half, 128>(p, st);
-  return -1;
+  if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64>(m, p, st);
+  if (dtype == 0 && D == 128) return launch<__nv_bfloat16, 128>(m, p, st);
+  if (dtype == 1 && D == 64) return launch<__half, 64>(m, p, st);
+  return launch<__half, 128>(m, p, st);
 }

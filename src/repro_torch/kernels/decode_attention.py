@@ -3,8 +3,9 @@
 ``csrc/decode_attention.cu`` replaces the TPU kernel
 ``repro/kernels/decode_attention.py::_decode_kernel``; the source note there
 says what bounds it on the card and what the design does about it. This
-module checks what the kernel takes, allocates the output and the scratch of
-the split KV sweep, launches on PyTorch's current stream and counts the
+module checks what the kernel takes, chooses how many blocks of a thread block
+cluster share the sweep of one (batch, kv head) (from the shapes alone),
+allocates the output, launches on PyTorch's current stream and counts the
 launches. For a tensor on the CPU, and only then, it computes the same
 function with the plain version in ``kernels/ref.py``.
 """
@@ -19,10 +20,17 @@ from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
-#: kv rows below which a further split of the sweep is not worth a block
-MIN_ROWS_PER_SPLIT = 128
-#: blocks per SM the split aims for
-BLOCKS_PER_SM = 4
+#: cache rows below which a further split of the sweep is not worth a block:
+#: at batch 1 of granite-3-2b splits of 4 tiles (64 rows each) were faster
+#: than splits of 2, at (1,4096,2,64) splits of 4 faster than splits of 8
+#: (an H100, PERF.md)
+MIN_ROWS_PER_SPLIT = 256
+#: blocks per SM the split aims for: fewer, longer splits were faster on an
+#: H100 (clusters of 2 against 4 and 8 at the serving shape, PERF.md)
+BLOCKS_PER_SM = 1
+#: the most blocks of one cluster (the non-portable cluster size of Hopper),
+#: so that a few long sweeps still spread over the card
+MAX_SPLITS = 16
 
 #: calls that launched the CUDA kernel since import (or since the caller reset it)
 launch_count = 0
@@ -35,9 +43,9 @@ def _kernel():
     if _fn is None:
         fn = _build.load("decode_attention").decode_attention_launch
         fn.argtypes = (
-            [ctypes.c_void_p] * 8
+            [ctypes.c_void_p] * 5
             + [ctypes.POINTER(ctypes.c_longlong)]
-            + [ctypes.c_int] * 7
+            + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -45,21 +53,26 @@ def _kernel():
     return _fn
 
 
-def heads_per_block(G: int) -> int:
-    """Query heads of one kv head that one block handles (the kernel has 1, 2, 4, 8)."""
-    return 8 if G >= 8 else (4 if G > 2 else (2 if G > 1 else 1))
+#: query heads of one kv head that one block handles (the rows of its
+#: 16-row tensor-core tiles that are not padding); a larger group takes
+#: several blocks
+HEADS_PER_BLOCK = 8
 
 
 def n_splits(B: int, KVH: int, G: int, Smax: int, n_sm: int) -> int:
-    """How many blocks share the KV sweep of one (batch, kv head).
+    """How many blocks of one cluster share the KV sweep of one (batch, kv head).
 
-    Fixed by the shapes, never by ``kv_len`` (which lives on the device):
-    enough blocks to give every SM ``BLOCKS_PER_SM`` of them, but no split
-    shorter than ``MIN_ROWS_PER_SPLIT`` cache rows.
+    Fixed by the shapes and the SM count, never by ``kv_len`` (which lives on
+    the device): the largest power of two up to ``MAX_SPLITS`` that leaves
+    every SM at most ``BLOCKS_PER_SM`` blocks, with no split shorter than
+    ``MIN_ROWS_PER_SPLIT`` cache rows.
     """
-    blocks = B * KVH * (-(-G // heads_per_block(G)))
-    want = -(-BLOCKS_PER_SM * n_sm // blocks)
-    return max(1, min(want, -(-Smax // MIN_ROWS_PER_SPLIT)))
+    blocks = B * KVH * (-(-G // HEADS_PER_BLOCK))
+    ns = 1
+    while (2 * ns <= MAX_SPLITS and blocks * 2 * ns <= BLOCKS_PER_SM * n_sm
+           and 2 * ns <= -(-Smax // MIN_ROWS_PER_SPLIT)):
+        ns *= 2
+    return ns
 
 
 def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor) -> None:
@@ -89,12 +102,14 @@ def _check_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor) -
     if not q.is_contiguous() or q.data_ptr() % 16:
         raise ValueError(f"q must be contiguous and 16-byte aligned; strides {q.stride()}")
     for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
-        # the cache is read where it lies, 16 bytes a lane: last dim contiguous,
-        # every other stride a multiple of 8 elements, storage 16-byte aligned
-        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
+        # TMA reads the cache where it lies: last dim contiguous, every other
+        # stride a positive multiple of 8 elements (16 bytes) where its dim
+        # has more than one entry, storage 16-byte aligned
+        if (x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16
+                or any(s <= 0 for s, n in zip(x.stride(), x.shape) if n > 1)):
             raise ValueError(
                 f"{name} layout not taken by the decode attention kernel: strides "
-                f"{x.stride()}, need last stride 1, others multiples of 8, 16-byte aligned storage"
+                f"{x.stride()}, need last stride 1, others positive multiples of 8, 16-byte aligned storage"
             )
 
 
@@ -140,22 +155,16 @@ def decode_attention(
 
     ns = n_splits(B, KVH, H // KVH, Smax, _build.sm_count(q.device.index))
     out = torch.empty_like(q)
-    # scratch of the split sweep, one allocation: acc (B,H,ns,D), then m and l (B,H,ns) each
-    slots = B * H * ns
-    part = torch.empty(slots * (D + 2), dtype=torch.float32, device=q.device)
-    part_acc = part.data_ptr()
-    part_m = part_acc + 4 * slots * D
-    part_l = part_m + 4 * slots
     strides = (*k_cache.stride()[:3], *v_cache.stride()[:3])
     with torch.cuda.device(q.device):
         err = _kernel()(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), part_acc, part_m, part_l,
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
             (ctypes.c_longlong * 6)(*strides),
-            B, H, KVH, D, Smax, heads_per_block(H // KVH), ns, float(scale), _DTYPES[q.dtype],
+            B, H, KVH, D, Smax, ns, float(scale), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
+        why = _build.LAUNCH_ERRORS.get(err, f"CUDA error {err}")
+        raise RuntimeError(f"decode_attention kernel launch failed: {why}")
     launch_count += 1
     return out

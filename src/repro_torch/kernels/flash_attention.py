@@ -41,7 +41,7 @@ def _kernel():
         fn.argtypes = (
             [ctypes.c_void_p] * 5
             + [ctypes.POINTER(ctypes.c_longlong)]
-            + [ctypes.c_int] * 8
+            + [ctypes.c_int] * 11
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -66,9 +66,17 @@ def _bwd_kernels():
 DQ_TILE_ROWS, DKV_TILE_ROWS, DKV_KV_ROWS = 128, 64, 128
 
 
+def fwd_tile_rows(D: int) -> int:
+    """Folded q rows a block of the forward kernel owns at head_dim D: 64 a
+    consumer warpgroup, three of them at D = 64 and two at D = 128
+    (``FwdSmem<D>::QR`` in the source; a launch whose plan disagrees fails
+    with ERR_PLAN)."""
+    return 192 if D == 64 else 128
+
+
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
-    """Which folded rows make one q tile of a backward kernel.
+    """Which folded rows make one q tile of a flash kernel.
 
     A tile is ``positions`` query positions x ``groups`` query heads of one KV
     head, row = position * groups + group, read by one TMA box of
@@ -151,6 +159,14 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **more: torch
         raise ValueError("the flash attention kernel indexes rows with int32")
 
 
+def _check_tma(**named: torch.Tensor) -> None:
+    """What the kernels' tensor maps need beyond ``_check_cuda``: TMA steps
+    every dim with more than one entry by a positive stride."""
+    for name, x in named.items():
+        if any(st <= 0 for st, n in zip(x.stride(), x.shape) if n > 1):
+            raise ValueError(f"{name} layout not taken by the tensor maps of the flash kernels: strides {x.stride()}")
+
+
 def flash_attention_fwd(
     q: torch.Tensor,  # (B, KVH, Sq, G, D)
     k: torch.Tensor,  # (B, KVH, Skv, D)
@@ -185,6 +201,10 @@ def flash_attention_fwd(
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu tensors, not {q.device}")
 
     _check_cuda(q, k, v)
+    _check_tma(q=q, k=k, v=v)
+    plan = tile_plan(G, fwd_tile_rows(D))
+    if plan.n_tiles(Sq) * KVH * B >= 2**31:
+        raise ValueError("the flash forward kernel numbers its work items (q tile, kv head, batch) with int32")
     o = torch.empty_strided(q.shape, q.stride(), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, KVH, Sq, G), dtype=torch.float32, device=q.device)
     strides = (
@@ -194,12 +214,11 @@ def flash_attention_fwd(
         err = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             (ctypes.c_longlong * 14)(*strides),
-            B, KVH, Sq, Skv, G, D, int(bool(causal)), int(q_offset),
-            float(scale), _DTYPES[q.dtype],
+            B, KVH, Sq, Skv, G, D, plan.positions, plan.groups, plan.g_chunks,
+            int(bool(causal)), int(q_offset), float(scale), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {err}")
+    _raise_on(err, "forward")
     launch_count += 1
     return o, lse
 
@@ -254,14 +273,6 @@ def flash_attention_bwd(
     return dq, dk, dv
 
 
-_BWD_ERRORS = {
-    -1: "no kernel for this head_dim or type",
-    -2: "the CUDA driver has no cuTensorMapEncodeTiled",
-    -3: "the CUDA driver refused a tensor map of these tensors",
-    -4: "a tile plan the kernels cannot take",
-}
-
-
 def _bwd_args(q, k, v, lse, delta, named, rows, causal, scale, q_offset):
     """Checks shared by the two backward launches, all made before any CUDA
     call; returns the ctypes arguments after the pointers and before the
@@ -281,10 +292,7 @@ def _bwd_args(q, k, v, lse, delta, named, rows, causal, scale, q_offset):
         if x.dtype != q.dtype or x.device != q.device:
             raise TypeError(f"{name} must have q's type and device")
     _check_cuda(q, k, v, **named)
-    for name, x in (("q", q), ("k", k), ("v", v), *named.items()):
-        # TMA steps every dim with more than one entry by a positive stride
-        if any(st <= 0 for st, n in zip(x.stride(), x.shape) if n > 1):
-            raise ValueError(f"{name} layout not taken by the tensor maps of the flash backward: strides {x.stride()}")
+    _check_tma(q=q, k=k, v=v, **named)
     for name, x in (("lse", lse), ("delta", delta)):
         if x.shape != (B, KVH, Sq, G) or x.dtype != torch.float32 or not x.is_contiguous() or x.device != q.device:
             raise ValueError(f"{name} must be a contiguous float32 (B,KVH,Sq,G) tensor on q's device")
@@ -302,7 +310,7 @@ def _bwd_args(q, k, v, lse, delta, named, rows, causal, scale, q_offset):
 
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        why = _BWD_ERRORS.get(err, f"CUDA error {err}")
+        why = _build.LAUNCH_ERRORS.get(err, f"CUDA error {err}")
         raise RuntimeError(f"flash attention {what} kernel launch failed: {why}")
 
 

@@ -212,11 +212,16 @@ def test_wrappers_raise_on_what_they_do_not_take():
 
 
 def test_decode_split_heuristic_depends_on_shapes_only():
-    # the serving shape on a 132-SM card: 64 (batch, kv head) blocks want 9 splits
-    assert tda.n_splits(8, 8, 4, 2080, 132) == 9
+    # the serving shape on a 132-SM card: 64 (batch, kv head) clusters of 2
+    # blocks, 128 blocks for 132 places
+    assert tda.n_splits(8, 8, 4, 2080, 132) == 2
     assert tda.n_splits(128, 8, 4, 32768, 132) == 1   # enough blocks already
     assert tda.n_splits(1, 1, 1, 100, 132) == 1       # never below MIN_ROWS_PER_SPLIT rows
-    assert tda.n_splits(1, 2, 8, 4096, 132) == 32
+    assert tda.n_splits(1, 1, 1, 300, 132) == 2       # a power of two up to that
+    assert tda.n_splits(1, 2, 8, 4096, 132) == 16     # never above the largest cluster
+    assert tda.n_splits(1, 8, 4, 2080, 132) == 8      # batch 1 of granite-3-2b: splits of 260 rows
+    assert tda.n_splits(2, 8, 4, 2080, 132) == 8      # 16 sweeps, 128 blocks
+    assert tda.n_splits(1, 4, 16, 4096, 132) == 16    # 16 query heads: two blocks a kv head
 
 
 # ---------------------------------------------------------------------------
