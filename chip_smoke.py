@@ -21,8 +21,11 @@ just before the path and read just after).
 Prints one JSON object per phase, a summary line {"kernels": [...]}, and as
 its last line {"ok": true, "device": {...}}. Any failed phase raises: the
 exit code is then not 0 and no last line is printed. Needs one CUDA device;
-without one it exits 1. Times are CUDA-event medians after a warm-up; every
-number is of the card named in the "device" line.
+without one it exits 1. Kernel times are CUDA-event medians after a warm-up;
+serving reports the median of PREFILLS prefills and of the decode steps,
+training the median step, each by the host clock and by CUDA events beside
+the single-run figures; every number is of the card named in the "device"
+line.
 """
 from __future__ import annotations
 
@@ -79,6 +82,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6
 RWKV_ARCH = "rwkv6-1.6b"
 # the long WKV6 case: one sequence of 512 chunks, 32 (batch, head) pairs
 WKV_LONG_T = 32768
+# prefills a serving phase times for its median: two before the main path's run, and that run's
+PREFILLS = 3
 
 TOL_BF16 = 2e-2   # one bf16 rounding of o, and p rounded to bf16 for p.v
 TOL_LSE = 1e-4    # f32 statistics; only summation order and fast exp/log differ
@@ -135,12 +140,28 @@ ATTN_LEAVES = "layers/attn/"
 TOL_RESUME = 1e-5  # the reference's resume tolerance (tests/test_train_integration.py)
 # The WKV6 kernel against its plain version (token by token) run in float64 on
 # the same inputs, out and final state: atol = rtol = 5e-5, the reference's own
-# wkv6 tolerance (tests/test_kernels.py). The kernel computes in f32 (ex2.approx
-# for the exps). The plain version's own f32 run is no oracle at that limit:
+# wkv6 tolerance (tests/test_kernels.py). The kernel's products run on the
+# tensor cores with each f32 operand in three bf16 parts and f32 sums, the rest
+# in f32 (ex2.approx for the exps); its CPU model lies within a tenth of the
+# limit at every decay tested (tests/test_torch_wkv6_subchunk.py). The plain version's own f32 run is no oracle at that limit:
 # with the model's slow decay (about -0.0025 a token) its state sums hundreds
 # of tokens one by one, and on an H100 it lay 2.7e-4 from float64 where the
 # kernel lay 4.5e-5. Each case reports that f32 run's error beside the kernel's.
 TOL_WKV = 5e-5
+# Layer 0's WKV6 output in rwkv6 serving, on the run's own r, k, v and logw
+# (the first sequence, 4,194,304 elements of out), against float64: TOL_WKV,
+# but a share of the elements may lie beyond it, none beyond the hard limit
+# (the form of the logits' check). The model's inputs sum larger terms than
+# the cases' random ones, and a few elements keep the f32 rounding of those
+# sums: on an H100 the sound kernel put 5 elements beyond TOL_WKV (a share of
+# 1.2e-6, worst 2.9e-4). Planted faults (examples/profile_wkv6_torch.py): an
+# off-diagonal block's wrong reference point put 3.14 M beyond (worst 9.6),
+# the state not decayed at chunk ends 3.93 M (worst 534). The share allowed is
+# about 80 times the sound reading and 7,500 times below the nearer fault's;
+# the hard limit is 20 TOL_WKV, 3.4 times the sound kernel's worst. The f32
+# plain version's distance on the same inputs is printed beside the kernel's.
+TOL_WKV_SERVED_OUTLIERS = 1e-4
+TOL_WKV_SERVED_HARD = 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -192,6 +213,12 @@ def require(cond, message: str) -> None:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.double() - b.double()).abs().max().item()
+
+
+def n_beyond(got: torch.Tensor, want: torch.Tensor, tol: float) -> int:
+    """Elements with |got - want| > tol + tol * |want|, in float64."""
+    w = want.double()
+    return int(((got.double() - w).abs() > tol + tol * w.abs()).sum())
 
 
 def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float,
@@ -370,7 +397,7 @@ def occupancy() -> dict:
     at once, as the CUDA runtime reckons it from registers and shared memory:
     the flash forward and the decode kernel at every (type, D), the latter
     with the clusters of the serving shape's split that the card holds at
-    once."""
+    once, and the WKV6 kernel at every (type, V slice)."""
     types = (("__nv_bfloat16", 0), ("__half", 1))
     out = {}
     fwd = _build.load("flash_attention_fwd").flash_attention_fwd_blocks_per_sm
@@ -387,21 +414,29 @@ def occupancy() -> dict:
             clusters = ctypes.c_int(0)
             blocks = dec(D, dt, ns, ctypes.byref(clusters))
             out[f"decode_kernel<{tname},{D}>"] = {"blocks_per_sm": blocks, f"clusters_of_{ns}_at_once": clusters.value}
+    wkv = _build.load("wkv6_scan").wkv6_scan_blocks_per_sm
+    for tname, dt in (("__nv_bfloat16", 0), ("float", 1)):
+        for n_split in (1, 2, 4):
+            out[f"wkv6_kernel<{tname},{rk.HEAD_SIZE // n_split}>"] = {"blocks_per_sm": wkv(n_split, dt)}
     return out
 
 
-# K1-K3 are built on wgmma and TMA; K4 on TMA. The build phase holds each of
-# their instantiations to that, with no spill and no wgmma that ptxas serialized.
+# K1-K3 are built on wgmma and TMA; K4 on TMA; K5 on mma.sync (loads by
+# cp.async). The build phase holds each of their instantiations to that, with
+# no spill and no wgmma that ptxas serialized.
 WGMMA_KERNELS = ("flash_fwd_kernel<", "flash_bwd_dq_kernel<", "flash_bwd_dkv_kernel<")
 TMA_KERNELS = WGMMA_KERNELS + ("decode_kernel<",)
+HMMA_KERNELS = ("wkv6_kernel<",)
 
 
 def phase_build(strict: bool = True) -> None:
     """Builds every kernel and prints what ptxas and the SASS show of each,
-    and the blocks an SM holds of K1 and K4. ``strict`` (the default) fails
-    on a kernel of TMA_KERNELS that spills, that does not load by TMA, or
-    (WGMMA_KERNELS) whose wgmma ptxas serialized or that is not built on
-    wgmma alone; a timing of an earlier version turns it off."""
+    and the blocks an SM holds of K1, K4 and K5. ``strict`` (the default)
+    fails on a kernel of TMA_KERNELS or HMMA_KERNELS that spills or whose
+    wgmma ptxas serialized, on one of TMA_KERNELS that does not load by TMA,
+    on one of WGMMA_KERNELS that is not built on wgmma alone, and on one of
+    HMMA_KERNELS with no mma.sync (HMMA) in its SASS; a timing of an earlier
+    version turns it off."""
     t0 = time.perf_counter()
     paths = _build.build_all()
     for name in paths:
@@ -425,16 +460,19 @@ def phase_build(strict: bool = True) -> None:
          resources=resources)
     if not strict:
         return
-    for lib, n_inst in (("flash_attention_fwd", 4), ("flash_attention_bwd", 8), ("decode_attention", 4)):
+    for lib, n_inst in (("flash_attention_fwd", 4), ("flash_attention_bwd", 8), ("decode_attention", 4),
+                        ("wkv6_scan", 6)):
         if _build.ptxas_log.get(lib):  # compiled in this process: ptxas spoke of every kernel
-            found = [k for k in resources[lib]["kernels"] if k.startswith(TMA_KERNELS)]
+            found = [k for k in resources[lib]["kernels"] if k.startswith(TMA_KERNELS + HMMA_KERNELS)]
             require(len(found) == n_inst, f"{lib}: ptxas named {len(found)} of its {n_inst} kernels: {found}")
     for info in resources.values():
         for kname, k in info["kernels"].items():
-            if not kname.startswith(TMA_KERNELS):
+            if not kname.startswith(TMA_KERNELS + HMMA_KERNELS):
                 continue
             require(not k.get("spill_bytes") and not k.get("warnings"), f"{kname} spills or has serialized wgmma: {k}")
-            if isinstance(k.get("sass"), dict):
+            if isinstance(k.get("sass"), dict) and kname.startswith(HMMA_KERNELS):
+                require(k["sass"]["HMMA"] > 0, f"{kname} has no tensor-core instruction (HMMA): {k['sass']}")
+            elif isinstance(k.get("sass"), dict):
                 require(k["sass"]["UTMALDG"] > 0, f"{kname} does not load by TMA: {k['sass']}")
                 if kname.startswith(WGMMA_KERNELS):
                     require(k["sass"]["HGMMA"] > 0 and k["sass"]["HMMA"] == 0,
@@ -821,8 +859,11 @@ def full_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def wkv6_inputs(gen, B, T, H, dtype=torch.bfloat16, *, state=False, decay="test"):
+def wkv6_inputs(gen, B, T, H, dtype=torch.bfloat16, *, state=False, decay="test", width=64):
     """r, k, v (in ``dtype``), logw, u, state0 (f32), K = V = 64.
+
+    ``width`` > 64 gives r, k, v and logw as the first 64 columns of arrays
+    ``width`` wide (rows ``width`` elements apart).
 
     ``decay``: "test" is the reference's kernel test, logw = -exp(N/2 - 2)
     (about -0.14); "model" the model's decay at init, -exp(-6 + N/10) (about
@@ -838,6 +879,8 @@ def wkv6_inputs(gen, B, T, H, dtype=torch.bfloat16, *, state=False, decay="test"
         logw = -torch.exp(z * 0.1 - 6.0)
     else:
         logw = torch.full_like(z, float(decay))
+    if width != K:
+        r, k, v, logw = (torch.cat([x, x[..., : width - K]], -1)[..., :K] for x in (r, k, v, logw))
     u = randn(gen, (H, K), torch.float32) * 0.2
     s0 = (randn(gen, (B, H, K, K), torch.float32) * 0.3 if state
           else torch.zeros((B, H, K, K), device=DEV))
@@ -845,17 +888,20 @@ def wkv6_inputs(gen, B, T, H, dtype=torch.bfloat16, *, state=False, decay="test"
 
 
 def wkv6_work(B, T, H, in_bytes) -> tuple:
-    """(operations, bytes) that the WKV6 function needs on these shapes.
+    """(products, elementwise operations, bytes) that the WKV6 function needs
+    on these shapes.
 
     Bytes: r, k, v, logw and u read once, out written once, state0 read and
     the final state written once. Operations, per (token, head), K = V, by the
-    recurrence itself: r_t.S 2 K^2; the bonus (r_t.(u k_t)) v_t 3 K + 2 K;
-    S = e^{logw_t} S + k_t v_t^T 3 K^2 and K exps, each exp one operation.
+    recurrence itself: the products r_t.S and k_t v_t^T, 2 K^2 each, which
+    the chunked form does as matrix products; elementwise, the decay of S
+    (K^2), the bonus (r_t.(u k_t)) v_t (3 K + 2 K) and K exps, each exp one
+    operation.
     """
     K = rk.HEAD_SIZE
-    ops_ = B * T * H * (5 * K * K + 6 * K)
-    nbytes = B * T * H * K * (3 * in_bytes + 4 + 4) + H * K * 4 + 2 * B * H * K * K * 4
-    return ops_, nbytes
+    n = B * T * H
+    nbytes = n * K * (3 * in_bytes + 4 + 4) + H * K * 4 + 2 * B * H * K * K * 4
+    return n * 4 * K * K, n * (K * K + 6 * K), nbytes
 
 
 def wkv6_chunked_ops(B, T, H) -> int:
@@ -874,11 +920,31 @@ def wkv6_chunked_ops(B, T, H) -> int:
 
 
 def wkv6_bound(B, T, H, in_bytes) -> dict:
-    ops_, nbytes = wkv6_work(B, T, H, in_bytes)
-    t_ops, t_bytes = ops_ / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    """The least time on any of the card's units: the bytes at the memory
+    rate, the products at the tensor cores' bf16 rate, the elementwise work
+    at the CUDA cores' f32 rate. Beside it, under its own name, the figure
+    that counts every operation at the CUDA cores' rate (the bound of a kernel
+    that keeps the products off the tensor cores)."""
+    prods, elem, nbytes = wkv6_work(B, T, H, in_bytes)
+    t_prods, t_elem = prods / PEAK_BF16_FLOPS * 1e3, elem / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(t_prods, t_elem)
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bound_reckoned": f"max({ops_:.4g} f32 operations / 67 TFLOP/s, {nbytes:.4g} B / 3.35 TB/s)",
+            "bound_reckoned": f"max({nbytes:.4g} B / 3.35 TB/s, {prods:.4g} product FLOP / 989 TFLOP/s, "
+                              f"{elem:.4g} elementwise operations / 67 TFLOP/s)",
+            "cuda_core_bound_ms": max((prods + elem) / PEAK_F32_FLOPS * 1e3, t_bytes),
+            "cuda_core_bound_reckoned": f"max({prods + elem:.4g} operations / 67 TFLOP/s, {nbytes:.4g} B / 3.35 TB/s)",
             "chunked_algorithm_ops": wkv6_chunked_ops(B, T, H)}
+
+
+def wkv6_resources(bh: int) -> dict:
+    """Registers and spills (ptxas, where this process compiled the kernel)
+    and blocks an SM of each instantiation of K5, and the V split that
+    ``bh`` (batch x heads) blocks take."""
+    kernels = ptxas_by_kernel(_build.ptxas_log.get("wkv6_scan", ""))
+    occ = {k: v for k, v in occupancy().items() if k.startswith("wkv6_kernel<")}
+    return {"kernels": {k: {**kernels.get(k, {}), **v} for k, v in occ.items()},
+            "v_splits": rk.n_splits(bh, 1, _build.sm_count(0))}
 
 
 def wkv6_case(gen, B, T, H, dtype=torch.bfloat16, **kw) -> dict:
@@ -917,11 +983,15 @@ def phase_wkv6(cfg) -> dict:
         wkv6_case(gen, 2, 100, 4, state=True),                            # ragged
         wkv6_case(gen, 1, 37, 2),                                         # T < 64
         wkv6_case(gen, 1, 192, 2, state=True, decay=-3.0),                # strong decay
+        wkv6_case(gen, 2, 256, 4, state=True, decay=-20.0),               # 2^-1850 a chunk: finite, no overflow
         # f32 inputs at the (B, T, H, state) of the reference's WKV_CASES, K = V = 64
         wkv6_case(gen, 1, 64, 2, torch.float32),
         wkv6_case(gen, 2, 128, 4, torch.float32),
         wkv6_case(gen, 1, 96, 2, torch.float32, state=True),
         wkv6_case(gen, 2, 64, 2, torch.float32),
+        # rows 65 elements apart, off 16 bytes: the wrapper copies them
+        wkv6_case(gen, 2, 100, 4, state=True, width=65),
+        wkv6_case(gen, 1, 96, 2, torch.float32, state=True, width=65),
     ]
 
     # no backward: a call that autograd would differentiate raises on the card
@@ -965,7 +1035,8 @@ def phase_wkv6(cfg) -> dict:
         "chunked_ms": chunked_ms, "chunked_call": "models.rwkv6.wkv_chunked (the model's non-kernel path)",
         "library_ms": None, "library_call": "none: no single PyTorch call computes WKV6",
         **bound,
-        "achieved_ops_per_s": wkv6_work(BATCH, PROMPT, H, 2)[0] / (kernel_ms * 1e-3),
+        "achieved_bytes_per_s": wkv6_work(BATCH, PROMPT, H, 2)[2] / (kernel_ms * 1e-3),
+        "resources": wkv6_resources(BATCH * H),
         "long": {"shape": f"r/k/v (1,{WKV_LONG_T},{H},64) bf16", "kernel_ms": long_ms,
                  "chunked_ms": long_chunked_ms, **long_bound},
         "cases": cases,
@@ -988,10 +1059,48 @@ def torch_wkv_path():
 
 
 @contextlib.contextmanager
-def flash_launches_per_step(record: list):
+def wkv_probe():
+    """Inside the block the first WKV call of the rwkv6 prefill (layer 0's)
+    keeps copies of its inputs and outputs for the first sequence of the
+    batch. Yields a function that, after the block, returns (name, got,
+    want, plain) for its out and state: ``want`` the plain version in float64
+    on the same inputs, ``plain`` its f32 run, as context. So the main path's
+    own run holds K5 to float64 on the model's r, k, v and logw, where the
+    logits, past 24 layers in bf16, do not resolve a fault that moves the
+    scores by a few percent."""
+    kept = []
+    saved = rwkv6.wkv6
+
+    def first_call(*args, **kw):
+        out = saved(*args, **kw)
+        if not kept:
+            kept.append(tuple(x[:1].clone() for x in (*args[:4], *args[5:6], *out)))
+            kept.append(args[4])
+        return out
+
+    def compared() -> list:
+        require(len(kept) == 2, "the prefill made no WKV call")
+        (r, k, v, logw, s0, out, state), u = kept
+        with full_f32_matmul():
+            out64, state64 = ref.wkv6_reference(*(x.double() for x in (r, k, v, logw, u, s0)))
+            out32, state32 = ref.wkv6_reference(r, k, v, logw, u, s0)
+        return [("wkv6_layer0_out", out, out64, out32), ("wkv6_layer0_state", state, state64, state32)]
+
+    rwkv6.wkv6 = first_call
+    try:
+        yield compared
+    finally:
+        rwkv6.wkv6 = saved
+
+
+@contextlib.contextmanager
+def flash_launches_per_step(record: list, times: list):
     """Inside the block every train step that ``launch.train.run`` builds
-    appends its (K1, K2, K3) launch counts to ``record``. Like
-    ``torch_attention_path``, a rebinding made by this script only."""
+    appends its (K1, K2, K3) launch counts to ``record`` and its (host ms,
+    device ms) to ``times``: the host clock from the call to the end of its
+    work on the device (the launcher waits there anyway, for the loss), the
+    device's by CUDA events. Like ``torch_attention_path``, a rebinding made
+    by this script only."""
     saved = train_step.build_train_step
 
     def build(*args, **kwargs):
@@ -999,9 +1108,10 @@ def flash_launches_per_step(record: list):
 
         def counted(state, batch):
             before = (fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count)
-            out = step(state, batch)
+            out, host_ms, device_ms = timed(lambda: step(state, batch))
             after = (fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count)
             record.append(tuple(a - b for a, b in zip(after, before)))
+            times.append((host_ms, device_ms))
             return out
 
         return counted
@@ -1113,9 +1223,10 @@ def phase_train(cfg) -> dict:
 
     # ---- (b) the main path: TRAIN_STEPS steps through the launcher
     per_step: list = []
+    step_times: list = []
     torch.cuda.reset_peak_memory_stats()
     fa.launch_count = fa.dkv_launch_count = fa.dq_launch_count = 0
-    with flash_launches_per_step(per_step):
+    with flash_launches_per_step(per_step, step_times):
         result = train.run(train_args())
     launches = {"flash_attention_fwd": fa.launch_count, "flash_attention_bwd_dkv": fa.dkv_launch_count,
                 "flash_attention_bwd_dq": fa.dq_launch_count}
@@ -1150,7 +1261,12 @@ def phase_train(cfg) -> dict:
         "one_step": {k: one[k] for k in ("loss_abs_err", "grad_rel_l2_attention_max", "grad_rel_l2_other_max")},
         "steps": result["steps"], "losses": {k: result[k] for k in ("first_loss", "final_loss", "head_mean_loss",
                                                                       "tail_mean_loss")},
-        "mean_step_ms": result["mean_step_ms"], "wall_s": result["wall_s"],
+        "mean_step_ms": result["mean_step_ms"],
+        # over the steps the launcher's mean takes (the first three are warm-up)
+        "median_step_ms": statistics.median(t[0] for t in step_times[3:]),
+        "median_step_device_ms": statistics.median(t[1] for t in step_times[3:]),
+        "step_ms_runs": [t[0] for t in step_times], "step_device_ms_runs": [t[1] for t in step_times],
+        "wall_s": result["wall_s"],
         "tokens_per_s": tokens / step_s, "peak_memory_gb": peak_gb,
         "model_flops_per_step": model_flops, "model_flop_share_of_bf16_peak": model_flops / step_s / PEAK_BF16_FLOPS,
         "launches": launches, "launches_per_step": per_step[0],
@@ -1162,48 +1278,80 @@ def phase_train(cfg) -> dict:
     return out
 
 
+def timed(fn):
+    """(fn(), host ms, device ms): the host clock from the call to the end of
+    its work on the device (a synchronize), and CUDA events around it."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def prefill_call(model, params, plan, prompts):
+    """The timed prefill of ``serve``: prefill, then the cache padded for
+    NEW tokens."""
+    def prefill():
+        last, cache = model.prefill(params, {"tokens": prompts}, plan)
+        return last, pad_cache(cache, NEW)
+    return prefill
+
+
 @torch.no_grad()
 def serve(model, params, plan, prompts, forced_tokens=None):
     """Prefill, pad the cache, NEW - 1 decode steps. Returns the last logits of
     prefill and of every decode step, the tokens fed, the cache's shapes and
-    host-clock times.
+    times: the prefill's by the host clock and by CUDA events (``timed``);
+    each decode step's by the host clock (between the ends of successive
+    steps' calls, no synchronize between steps) and by CUDA events recorded
+    after each step (idle time of the device included).
 
     With ``forced_tokens`` the decode steps are fed those tokens instead of
     their own argmax, so two runs see the same inputs at every step.
     """
     S = prompts.shape[1]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    last, cache = model.prefill(params, {"tokens": prompts}, plan)
-    cache = pad_cache(cache, NEW)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
+    (last, cache), prefill_ms, prefill_device_ms = timed(prefill_call(model, params, plan, prompts))
     logits = [last]
     tokens = [torch.argmax(last, dim=-1).to(torch.int32)]
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(NEW)]
+    t1 = time.perf_counter()
+    host = [t1]
+    marks[0].record()
     for i in range(NEW - 1):
         tok = tokens[-1] if forced_tokens is None else forced_tokens[:, i]
         lg, cache = model.decode(params, {"token": tok}, cache, S + i, plan)
         logits.append(lg)
         tokens.append(torch.argmax(lg, dim=-1).to(torch.int32))
+        marks[i + 1].record()
+        host.append(time.perf_counter())
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     return {
         "logits": torch.stack(logits, dim=1),  # (B, NEW, V)
         "tokens": torch.stack(tokens, dim=1),  # (B, NEW)
         "cache_shapes": {name: tuple(leaf.shape) for name, leaf in cache.items()},
-        "prefill_ms": (t1 - t0) * 1e3,
+        "prefill_ms": prefill_ms,
+        "prefill_device_ms": prefill_device_ms,
         "decode_ms_per_step": (t2 - t1) * 1e3 / (NEW - 1),
+        "decode_step_ms_median": statistics.median((b - a) * 1e3 for a, b in zip(host, host[1:])),
+        "decode_step_device_ms_median": statistics.median(a.elapsed_time(b) for a, b in zip(marks, marks[1:])),
     }
 
 
-def phase_serve(cfg, counters: dict, expected: dict, torch_path, cache_shapes: dict) -> dict:
+def phase_serve(cfg, counters: dict, expected: dict, torch_path, cache_shapes: dict, probe=None) -> dict:
     """Serve ``cfg`` at full size (batch 8, prompt 2048, 32 new tokens), random
     weights from a seed, through the kernels; then the same requests on the
     non-kernel path (inside ``torch_path``), fed the same tokens.
 
     ``counters`` names the kernel wrappers whose ``launch_count`` the run must
     raise by ``expected[name]`` (set to 0 just before the run, read just
-    after); the non-kernel run must raise none.
+    after); the non-kernel run must raise none. ``probe``, if given, is a
+    context manager around the run (as ``wkv_probe``) that yields a function
+    returning (name, got, want, plain) tuples: each ``got`` is held to
+    ``want`` as TOL_WKV_SERVED_* say, ``plain``'s distance reported beside.
     """
     model = build_model(cfg)
     plan = make_plan(cfg, None)
@@ -1212,21 +1360,26 @@ def phase_serve(cfg, counters: dict, expected: dict, torch_path, cache_shapes: d
         synthetic.token_batch(cfg.vocab, BATCH, PROMPT, seed=7)["tokens"]
     ).to(DEV)
 
-    # warm-up (library handles, allocator): a short request, not counted
+    # warm-up (library handles, allocator), at full size: not counted
     with torch.no_grad():
-        _, c = model.prefill(params, {"tokens": prompts[:, :256]}, plan)
-        c = pad_cache(c, 2)
-        model.decode(params, {"token": prompts[:, 0]}, c, 256, plan)
+        _, c = prefill_call(model, params, plan, prompts)()
+        model.decode(params, {"token": prompts[:, 0]}, c, PROMPT, plan)
         del c
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    # prefills timed as the main path's own, for the medians beside it
+    with torch.no_grad():
+        extra = [timed(prefill_call(model, params, plan, prompts))[1:] for _ in range(PREFILLS - 1)]
+
     # ---- the main path, through the kernels, with the counts set to 0 just before
     for mod in counters.values():
         mod.launch_count = 0
-    run = serve(model, params, plan, prompts)
+    with (probe() if probe else contextlib.nullcontext(list)) as probed:
+        run = serve(model, params, plan, prompts)
     launches = {name: mod.launch_count for name, mod in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kernel_vs_float64 = probed()
 
     require(launches == expected, f"launches {launches}, expected {expected}")
     require(run["logits"].shape == (BATCH, NEW, cfg.padded_vocab), f"logits shape {tuple(run['logits'].shape)}")
@@ -1247,6 +1400,12 @@ def phase_serve(cfg, counters: dict, expected: dict, torch_path, cache_shapes: d
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model, "batch": BATCH, "prompt": PROMPT,
         "new_tokens": NEW, "params": param_count(params), "param_gb": param_bytes(params) / 1e9,
         "prefill_ms": run["prefill_ms"], "decode_ms_per_step": run["decode_ms_per_step"],
+        "prefill_ms_median": statistics.median([e[0] for e in extra] + [run["prefill_ms"]]),
+        "prefill_device_ms_median": statistics.median([e[1] for e in extra] + [run["prefill_device_ms"]]),
+        "prefill_ms_runs": [e[0] for e in extra] + [run["prefill_ms"]],
+        "prefill_device_ms_runs": [e[1] for e in extra] + [run["prefill_device_ms"]],
+        "decode_step_ms_median": run["decode_step_ms_median"],
+        "decode_step_device_ms_median": run["decode_step_device_ms_median"],
         "prefill_tokens_per_s": BATCH * PROMPT / (run["prefill_ms"] * 1e-3),
         "decode_tokens_per_s": BATCH / (run["decode_ms_per_step"] * 1e-3),
         "peak_memory_gb": peak_gb,
@@ -1258,7 +1417,16 @@ def phase_serve(cfg, counters: dict, expected: dict, torch_path, cache_shapes: d
         "logits_abs_max": want.float().abs().max().item(), "logits_std": want.float().std().item(),
         "logits_max_abs_err": max_err(got, want), "greedy_token_agreement": agree,
     }
+    for name, g, w, plain in kernel_vs_float64:
+        out[name] = {"max_abs_err": max_err(g, w), "beyond_tolerance": n_beyond(g, w, TOL_WKV),
+                     "compared": g.numel(), "rms": w.square().mean().sqrt().item(),
+                     "plain_f32_max_abs_err": max_err(plain, w), "plain_f32_beyond_tolerance": n_beyond(plain, w, TOL_WKV),
+                     "tolerance": {"atol=rtol": TOL_WKV, "share_allowed_beyond": TOL_WKV_SERVED_OUTLIERS,
+                                   "hard_limit": TOL_WKV_SERVED_HARD}}
     emit("serve", **out)  # the readings first, so that a failing run still shows them
+    for name, g, w, _ in kernel_vs_float64:
+        check(f"serve {cfg.name}: {name}, kernel on the run's own inputs vs float64", g, w, TOL_WKV,
+              TOL_WKV_SERVED_OUTLIERS, TOL_WKV_SERVED_HARD)
     out["prefill_logits_max_abs_err"] = check(
         f"serve {cfg.name}: prefill last logits, kernels vs torch path", got[:, 0], want[:, 0],
         TOL_LOGITS, TOL_LOGITS_OUTLIERS, TOL_LOGITS_HARD)
@@ -1288,10 +1456,10 @@ def main() -> None:
     L, d, K = rwkv_cfg.n_layers, rwkv_cfg.d_model, rwkv_cfg.ssm.head_dim
     served_rwkv = phase_serve(
         rwkv_cfg, {"wkv6_scan": rk}, {"wkv6_scan": L}, torch_wkv_path,
-        {"wkv": (L, BATCH, d // K, K, K), "tm_x": (L, BATCH, d), "cm_x": (L, BATCH, d)})
+        {"wkv": (L, BATCH, d // K, K, K), "tm_x": (L, BATCH, d), "cm_x": (L, BATCH, d)}, wkv_probe)
     emit("serve_rwkv_wkv6_share", wkv6_ms_in_prefill=L * wkv["kernel_ms"],
-         share_of_prefill=L * wkv["kernel_ms"] / served_rwkv["prefill_ms"],
-         reckoned="launches x the kernel's time at this shape (phase kernel wkv6_scan) / prefill ms")
+         share_of_prefill=L * wkv["kernel_ms"] / served_rwkv["prefill_device_ms_median"],
+         reckoned="launches x the kernel's time at this shape (phase kernel wkv6_scan) / median prefill device ms")
     torch.cuda.empty_cache()
     trained = phase_train(cfg)
 
@@ -1317,7 +1485,9 @@ def main() -> None:
             "src/repro/kernels/decode_attention.py:126", served["launches"]["decode_attention"]),
         row(dkv, bwd_src, dkv["replaces"], trained["launches"]["flash_attention_bwd_dkv"]),
         row(dq, bwd_src, dq["replaces"], trained["launches"]["flash_attention_bwd_dq"]),
-        row(wkv, "src/repro_torch/kernels/csrc/wkv6_scan.cu", wkv["replaces"], served_rwkv["launches"]["wkv6_scan"]),
+        dict(row(wkv, "src/repro_torch/kernels/csrc/wkv6_scan.cu", wkv["replaces"],
+                 served_rwkv["launches"]["wkv6_scan"]),
+             pytorch_yardstick_ms=wkv["chunked_ms"], pytorch_yardstick="models.rwkv6.wkv_chunked"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 

@@ -131,8 +131,15 @@ def main():
         state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    OUT.mkdir(exist_ok=True)
-    trace_path = OUT / "train_step_trace.json"
+    print_breakdown(prof, OUT / "train_step_trace.json", kind, f"profiled step: {wall_us / 1e3:.1f} ms wall")
+
+
+def print_breakdown(prof, trace_path: Path, kind_of, label: str) -> None:
+    """From a ``torch.profiler`` run over CUDA: writes its trace to
+    ``trace_path`` and prints device busy time and idle share over the window
+    from the first kernel to the last, device time by ``kind_of(name)``, and
+    the kernels that take the most."""
+    trace_path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(trace_path))
     events = json.loads(trace_path.read_text())
     kernels = [e for e in events.get("traceEvents", []) if e.get("cat") == "kernel" and "dur" in e]
@@ -148,10 +155,10 @@ def main():
     window = spans[-1][1] - spans[0][0]
     by_kind, by_name, count = defaultdict(float), defaultdict(float), defaultdict(int)
     for e in kernels:
-        by_kind[kind(e["name"])] += float(e["dur"])
+        by_kind[kind_of(e["name"])] += float(e["dur"])
         by_name[e["name"]] += float(e["dur"])
         count[e["name"]] += 1
-    print(f"profiled step: {wall_us / 1e3:.1f} ms wall, {len(kernels)} kernels, device busy "
+    print(f"{label}, {len(kernels)} kernels, device busy "
           f"{busy / 1e3:.1f} ms = {busy / window:.3f} of the first-to-last-kernel window "
           f"({window / 1e3:.1f} ms); idle share {1 - busy / window:.3f}", flush=True)
     for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
@@ -159,7 +166,6 @@ def main():
     print("top kernels by device time:", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {us / 1e3:8.2f} ms  x{count[name]:<5d} {name[:110]}", flush=True)
-
 
 if __name__ == "__main__":
     main()

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's CUDA kernels:
 // mbarriers, TMA loads and stores through tensor maps, setmaxnreg, warpgroup
-// MMA (wgmma) with its shared-memory descriptors, the fast exp2, and the host
-// side that encodes tensor maps. Every function is inline and lives in an
-// anonymous namespace, so each source that includes this header gets its own
-// copy and the libraries stay independent. kernels/_build.py hashes this
-// header into the name of every library whose source includes it, so an edit
-// here rebuilds each of them.
+// MMA (wgmma) with its shared-memory descriptors, warp-level MMA (mma.sync)
+// with ldmatrix and the split of f32 values into 16-bit parts, the fast exp2,
+// and the host side that encodes tensor maps. Every function is inline and
+// lives in an anonymous namespace, so each source that includes this header
+// gets its own copy and the libraries stay independent. kernels/_build.py
+// hashes this header into the name of every library whose source includes
+// it, so an edit here rebuilds each of them.
 
 #pragma once
 
@@ -289,6 +290,81 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[N / 16][4], const float
     a[kk][3] = Mma<T>::pack(x[8 * kk + 6], x[8 * kk + 7]);
   }
 }
+
+// ---------------------------------------------------------------------------
+// warp-level MMA (mma.sync m16n8k16) and its operands
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1);
+
+template <>
+__device__ __forceinline__ void mma16816<__nv_bfloat16>(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <>
+__device__ __forceinline__ void mma16816<__half>(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 16-bit matrices from shared memory: lane l gives the address of
+// row (l & 7) of matrix (l >> 3); register i receives matrix i, thread (g, t)
+// holding its elements [g][2t] and [g][2t + 1] (with .trans: [2t][g] and
+// [2t + 1][g]).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// Two f32 values as PARTS pairs of T, each the rounding of what the earlier
+// parts left: products of all the parts keep 24 bits of the values (bf16:
+// three parts of 8) or 22 (f16: two of 11), where one part rounds them to 8
+// or 11
+template <typename T>
+struct Split;
+
+template <>
+struct Split<__nv_bfloat16> {
+  static constexpr int PARTS = 3;
+  static __device__ __forceinline__ float2 unpack(uint32_t x) {
+    return make_float2(__uint_as_float(x << 16), __uint_as_float(x & 0xffff0000u));
+  }
+};
+
+template <>
+struct Split<__half> {
+  static constexpr int PARTS = 2;
+  static __device__ __forceinline__ float2 unpack(uint32_t x) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&x));
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ void split_pack(float a, float b, uint32_t (&parts)[Split<T>::PARTS]) {
+#pragma unroll
+  for (int i = 0; i < Split<T>::PARTS; ++i) {
+    parts[i] = Mma<T>::pack(a, b);
+    const float2 f = Split<T>::unpack(parts[i]);
+    a -= f.x;
+    b -= f.y;
+  }
+}
+
 
 // 2^x in one SFU instruction; results below 2^-126 flush to 0 (p that small
 // adds nothing at f32 or 16-bit precision)

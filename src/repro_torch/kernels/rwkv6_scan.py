@@ -3,9 +3,9 @@
 ``csrc/wkv6_scan.cu`` replaces the TPU kernel
 ``repro/kernels/rwkv6_scan.py::_wkv6_kernel``; the source note there says what
 bounds it on the card and what the design does about it. This module checks
-what the kernel takes, allocates the outputs, picks how many blocks share the
-value columns of one (batch, head), launches on PyTorch's current stream and
-counts the launches. For a tensor on the CPU, and only then, it computes the
+what the kernel takes, copies an input whose rows do not start on 16 bytes,
+allocates the outputs, picks how many blocks share the value columns of one
+(batch, head), launches on PyTorch's current stream and counts the launches. For a tensor on the CPU, and only then, it computes the
 same function with the plain version ``kernels/ref.py::wkv6_reference``.
 The kernel has no backward: on the card a call that autograd would have to
 differentiate raises.
@@ -57,6 +57,16 @@ def n_splits(B: int, H: int, n_sm: int) -> int:
         if B * H * n >= n_sm:
             return n
     return 4
+
+
+def aligned_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a contiguous copy of it where it or one of its rows (a step
+    of its first three dims) does not start on 16 bytes: the kernel loads
+    rows by 16-byte ``cp.async``."""
+    e = x.element_size()
+    if x.data_ptr() % 16 == 0 and all(st * e % 16 == 0 for st in x.stride()[:3]):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _check(r, k, v, logw, u, state0) -> None:
@@ -123,6 +133,7 @@ def wkv6_scan(
         )
 
     _check_cuda(r, k, v, logw, u, state0)
+    r, k, v, logw = (aligned_rows(x) for x in (r, k, v, logw))
     B, T, H, K = r.shape
     out = torch.empty((B, T, H, K), dtype=torch.float32, device=r.device)
     state = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)

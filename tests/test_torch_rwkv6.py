@@ -155,6 +155,23 @@ def test_wkv6_scan_checks_shapes():
         rk.wkv6_scan(r, k[:, :8], v, logw, u, s0)
 
 
+@pytest.mark.parametrize("dtype,width,offset,copied", [
+    (torch.bfloat16, 64, 0, False),  # contiguous
+    (torch.bfloat16, 65, 0, True),   # rows 130 bytes apart
+    (torch.float32, 65, 0, True),    # 260 bytes apart
+    (torch.float32, 68, 0, False),   # 272 bytes apart: a view the kernel reads in place
+    (torch.bfloat16, 64, 1, True),   # contiguous, but starting 2 bytes past 16
+])
+def test_rows_off_16_bytes_are_copied_for_the_kernel(dtype, width, offset, copied):
+    flat = torch.randn(offset + 2 * 96 * 3 * width + 8, generator=torch.Generator().manual_seed(0)).to(dtype)
+    x = flat[offset: offset + 2 * 96 * 3 * width].view(2, 96, 3, width)[..., :64]
+    got = rk.aligned_rows(x)
+    assert (got is not x) == copied
+    assert got.data_ptr() % 16 == 0
+    assert all(st * got.element_size() % 16 == 0 for st in got.stride()[:3])
+    assert got.stride(-1) == 1 and torch.equal(got, x)
+
+
 @pytest.mark.parametrize("bh,n_sm,want", [(256, 132, 1), (96, 132, 2), (32, 132, 4), (1, 132, 4), (132, 132, 1)])
 def test_value_columns_are_split_only_to_fill_the_card(bh, n_sm, want):
     assert rk.n_splits(bh, 1, n_sm) == want
