@@ -4,16 +4,23 @@
 
 Builds the CUDA kernels from the sources in this checkout and holds each
 against its plain PyTorch version on the card, at the shape its main path
-gives it and at ragged small shapes. Then it drives granite-3-2b and
-rwkv6-1.6b at their full size through the port's entry points, random weights
-from a seed:
+gives it and at ragged small shapes: K1-K4 at head_dim 64 (granite-3-2b) and
+at head_dim 160 (stablelm-12b, with a guard case on the first 160 columns of
+buffers 192 wide), K5 at rwkv6-1.6b's. Then it drives the port's entry points
+at full size, random weights from a seed:
 
-  * serving, both -- batch 8, prompt 2048, 32 new tokens; held against the
-    same requests on the non-kernel PyTorch path;
-  * training, granite-3-2b -- batch 2, seq 4096, remat on: one step's loss and gradients
-    against the non-kernel path, then TRAIN_STEPS steps through
+  * serving, granite-3-2b, stablelm-12b and rwkv6-1.6b -- batch 8, prompt
+    2048, 32 new tokens; held against the same requests on the non-kernel
+    PyTorch path;
+  * training, granite-3-2b -- batch 2, seq 4096, remat on: one step's loss and
+    gradients against the non-kernel path, then TRAIN_STEPS steps through
     ``repro_torch.launch.train.run``, then a run cut at half way and resumed
-    (at depth 2) against an uninterrupted one.
+    (at depth 2) against an uninterrupted one; stablelm-12b at full width and
+    depth 2 -- the same one-step check;
+  * training, the paper's ResNet trio -- batch 32 at full image size,
+    RESNET_STEPS steps each through ``repro_torch.launch.train.run``; one
+    step of resnet_small and resnet_medium against the same step on the CPU
+    in float64, sound and with symmetric padding planted.
 
 Each path checks that it went through its kernels (launch counts, set to 0
 just before the path and read just after).
@@ -51,6 +58,7 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import torch.nn.functional as F  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 from repro_torch.configs.base import ShapeSuite  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
@@ -59,10 +67,12 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rk  # noqa: E402
-from repro_torch.models import attention, rwkv6, transformer  # noqa: E402
+from repro_torch.models import attention, resnet, rwkv6, transformer  # noqa: E402
 from repro_torch.models.model_api import build_model  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
-from repro_torch.models.module import param_bytes, param_count, tree_leaves, tree_paths  # noqa: E402
+from repro_torch.models.module import (  # noqa: E402
+    param_bytes, param_count, tree_leaves, tree_map, tree_paths, tree_unflatten,
+)
 from repro_torch.runtime import train_step  # noqa: E402
 from repro_torch.runtime.serve_step import pad_cache  # noqa: E402
 from repro_torch.sharding.plan import make_plan  # noqa: E402
@@ -78,6 +88,17 @@ PEAK_BYTES_PER_S = 3.35e12
 ARCH, BATCH, PROMPT, NEW = "granite-3-2b", 8, 2048, 32
 # the training shape: batch 2 at the sequence length of the TRAIN_4K suite
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6
+# head_dim 160: stablelm-12b, served at the same batch, prompt and new tokens,
+# and its one-step training check at full width and this depth
+STABLELM_ARCH, STABLELM_TRAIN_LAYERS = "stablelm-12b", 2
+# the guard cases' buffers: D = 160 columns, then 32 of NaN (inputs) or of
+# SENTINEL (outputs)
+GUARD_WIDTH, SENTINEL = 192, 7.0
+# the paper's workload trio: batch 32, steps through the launcher, and the
+# samples of an epoch (launch/collocate.py: CIFAR-10's 45,000 training images,
+# ImageNet's 1,281,167)
+RESNET_ARCHS, RESNET_BATCH, RESNET_STEPS = ("resnet_small", "resnet_medium", "resnet_large"), 32, 20
+RESNET_EPOCH_SAMPLES = {"resnet_small": 45_000, "resnet_medium": 1_281_167, "resnet_large": 1_281_167}
 # the attention-free family, served at the same batch, prompt and new tokens
 RWKV_ARCH = "rwkv6-1.6b"
 # the long WKV6 case: one sequence of 512 chunks, 32 (batch, head) pairs
@@ -138,6 +159,22 @@ TOL_GRAD_ATTN = 0.1
 TOL_GRAD_OTHER = 0.06
 ATTN_LEAVES = "layers/attn/"
 TOL_RESUME = 1e-5  # the reference's resume tolerance (tests/test_train_integration.py)
+# stablelm-12b's one-step check (head_dim 160, full width, depth 2): loss,
+# attention leaves, other leaves. The loss keeps the reference's tolerance;
+# each gradient limit is the geometric mean, rounded down, of two readings on
+# an H100, set as above: the sound kernels 0.0119 (attention) and 0.0116 (the
+# rest), and `dq_skip_diag` planted in K3 0.245 and 0.106
+# (examples/profile_flash_bwd_torch.py --variants sound dq_skip_diag).
+STABLELM_TOL = (TOL_LOSS, 0.053, 0.035)
+# One ResNet step on the card (f32, cuDNN TF32 off) against the same step on
+# the CPU in float64: the loss's relative error and the largest relative L2
+# error of a gradient leaf. Each limit is the geometric mean, rounded down, of
+# the worse sound reading and the nearer planted one on an H100 (resnet_small,
+# resnet_medium; batch 32): sound loss 4.1e-8, 4.2e-7, worst leaf 0.0068,
+# 0.018 (a BatchNorm bias in both; the median leaf 0.0050, 0.014);
+# symmetric padding planted, loss 1.1e-3, 4.1e-3, worst leaf 1.79, 1.73.
+TOL_RESNET_LOSS = 2e-5
+TOL_RESNET_GRAD = 0.17
 # The WKV6 kernel against its plain version (token by token) run in float64 on
 # the same inputs, out and final state: atol = rtol = 5e-5, the reference's own
 # wkv6 tolerance (tests/test_kernels.py). The kernel's products run on the
@@ -460,7 +497,7 @@ def phase_build(strict: bool = True) -> None:
          resources=resources)
     if not strict:
         return
-    for lib, n_inst in (("flash_attention_fwd", 4), ("flash_attention_bwd", 8), ("decode_attention", 4),
+    for lib, n_inst in (("flash_attention_fwd", 6), ("flash_attention_bwd", 12), ("decode_attention", 6),
                         ("wkv6_scan", 6)):
         if _build.ptxas_log.get(lib):  # compiled in this process: ptxas spoke of every kernel
             found = [k for k in resources[lib]["kernels"] if k.startswith(TMA_KERNELS + HMMA_KERNELS)]
@@ -510,6 +547,42 @@ def flash_case(gen, B, Sq, Skv, H, KVH, D, causal, q_offset=0, dtype=torch.bfloa
             "max_abs_err": err_o, "lse_max_abs_err": err_lse, **rows}
 
 
+def flash_fwd_timed(gen, B, S, H, KVH, D) -> dict:
+    """K1 at one causal bf16 shape, through the model-layout wrapper: its time
+    beside the plain version's, one library call's (with the backend it ran)
+    and the bound."""
+    G = H // KVH
+    q = randn(gen, (B, S, H, D))
+    k = randn(gen, (B, S, KVH, D))
+    v = randn(gen, (B, S, KVH, D))
+    kernel_ms = gpu_ms(lambda: ops.flash_attention(q, k, v, causal=True), iters=10)
+    plain_ms = gpu_ms(lambda: ref.mha_reference(q, k, v, causal=True), iters=2, reps=3)
+    # yardstick only: one library call on the same work (K/V heads expanded beforehand)
+    ql = q.permute(0, 2, 1, 3)
+    kl = k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    vl = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+
+    def lib():
+        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+
+    lib_err = max_err(lib().permute(0, 2, 1, 3), ops.flash_attention(q, k, v, causal=True))
+    library_ms = gpu_ms(lib, iters=10)
+    backend = sdpa_backend(lib)
+
+    flops = 2 * 2 * B * H * S * S * D / 2  # causal: half of the full square
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S  # q, o, k, v, lse
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {
+        "shape": f"q ({B},{KVH},{S},{G},{D}) k/v ({B},{KVH},{S},{D}) bf16 causal",
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_call": "F.scaled_dot_product_attention(is_causal=True), K/V heads expanded beforehand",
+        "library_backend": backend, "library_vs_kernel_max_abs_err": lib_err,
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_reckoned": f"max({flops:.4g} FLOP / 989 TFLOP/s, {nbytes:.4g} B / 3.35 TB/s)",
+        "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12,
+    }
+
+
 def phase_flash(cfg) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(1)
     H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -525,91 +598,57 @@ def phase_flash(cfg) -> dict:
         flash_case(gen, 1, 5, 40, 130, 1, 64, True, q_offset=35),       # G=130: one position a tile, rows zeroed
     ]
     require(fa.launch_count - launches0 == len(cases), "the flash wrapper did not count its launches")
-
-    # timings at the serving shape, through the model-layout wrapper
-    q = randn(gen, (BATCH, PROMPT, H, D))
-    k = randn(gen, (BATCH, PROMPT, KVH, D))
-    v = randn(gen, (BATCH, PROMPT, KVH, D))
-    kernel_ms = gpu_ms(lambda: ops.flash_attention(q, k, v, causal=True), iters=10)
-    plain_ms = gpu_ms(lambda: ref.mha_reference(q, k, v, causal=True), iters=2, reps=3)
-    # yardstick only: one library call on the same work (K/V heads expanded beforehand)
-    G = H // KVH
-    ql = q.permute(0, 2, 1, 3)
-    kl = k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
-    vl = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
-    o_lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True).permute(0, 2, 1, 3)
-    lib_err = max_err(o_lib, ops.flash_attention(q, k, v, causal=True))
-    library_ms = gpu_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True), iters=10)
-
-    flops = 2 * 2 * BATCH * H * PROMPT * PROMPT * D / 2  # causal: half of the full square
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * BATCH * H * PROMPT  # q, o, k, v, lse
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     out = {
-        "name": "flash_attention_fwd", "shape": f"q ({BATCH},{KVH},{PROMPT},{G},{D}) k/v ({BATCH},{KVH},{PROMPT},{D}) bf16 causal",
+        "name": "flash_attention_fwd",
         "tolerance": {"o": f"{TOL_ROW_RMS} * rms(row) + 1 ulp at this shape, {TOL_BF16} at the small ones",
                       "lse": TOL_LSE},
         "max_abs_err": cases[0]["max_abs_err"], "lse_max_abs_err": cases[0]["lse_max_abs_err"],
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "library_call": "F.scaled_dot_product_attention(is_causal=True), K/V heads expanded beforehand",
-        "library_vs_kernel_max_abs_err": lib_err,
-        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "bound_reckoned": f"max({flops:.4g} FLOP / 989 TFLOP/s, {nbytes:.4g} B / 3.35 TB/s)",
-        "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12,
+        **flash_fwd_timed(gen, BATCH, PROMPT, H, KVH, D),
         "cases": cases,
     }
     emit("kernel", **out)
     return out
 
 
-def phase_decode(cfg) -> dict:
-    gen = torch.Generator(device=DEV).manual_seed(2)
-    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    smax = PROMPT + NEW
-    launches0 = da.launch_count
-    compiles0 = _build.n_compiles
+def decode_case(gen, B, Smax, H, KVH, D, lens, dtype=torch.bfloat16, by_rows=False) -> list:
+    """K4 against its plain version at one shape, at each kv_len of ``lens``
+    (one device scalar, changed in place between launches: no host sync, no
+    rebuild); then the last length again as a Python int, which must give
+    the same bits. Returns one record a length."""
+    q = randn(gen, (B, H, D), dtype)
+    kc = randn(gen, (B, Smax, KVH, D), dtype)
+    vc = randn(gen, (B, Smax, KVH, D), dtype)
+    kv_len = torch.zeros(1, dtype=torch.int32, device=DEV)
     cases = []
+    for n in lens:
+        kv_len.fill_(n)
+        got = da.decode_attention(q, kc, vc, kv_len)
+        torch.cuda.synchronize()
+        want = ref.decode_attention_reference(q, kc, vc, kv_len=n)
+        label = f"decode B{B} Smax{Smax} H{H} KVH{KVH} D{D} kv_len={n} {dtype}"
+        if by_rows:
+            rows = check_rows(label, got, want)
+            err = rows.pop("max_abs_err")
+        else:
+            rows = {}
+            err = check(label, got, want, TOL_BF16)
+        cases.append({"B": B, "Smax": Smax, "H": H, "KVH": KVH, "D": D, "kv_len": n,
+                      "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, **rows})
+    # a Python int is wrapped by the wrapper: same launch, same bits
+    got_int = da.decode_attention(q, kc, vc, lens[-1])
+    require(torch.equal(got_int, got), "decode: kv_len as an int and as a device tensor disagree")
+    return cases
 
-    def case(B, Smax, Hh, KVHh, Dh, lens, dtype=torch.bfloat16, by_rows=False):
-        q = randn(gen, (B, Hh, Dh), dtype)
-        kc = randn(gen, (B, Smax, KVHh, Dh), dtype)
-        vc = randn(gen, (B, Smax, KVHh, Dh), dtype)
-        # one device scalar, changed in place between launches: no host sync, no rebuild
-        kv_len = torch.zeros(1, dtype=torch.int32, device=DEV)
-        for n in lens:
-            kv_len.fill_(n)
-            got = da.decode_attention(q, kc, vc, kv_len)
-            torch.cuda.synchronize()
-            want = ref.decode_attention_reference(q, kc, vc, kv_len=n)
-            label = f"decode B{B} Smax{Smax} H{Hh} KVH{KVHh} D{Dh} kv_len={n} {dtype}"
-            if by_rows:
-                rows = check_rows(label, got, want)
-                err = rows.pop("max_abs_err")
-            else:
-                rows = {}
-                err = check(label, got, want, TOL_BF16)
-            cases.append({"B": B, "Smax": Smax, "H": Hh, "KVH": KVHh, "D": Dh, "kv_len": n,
-                          "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, **rows})
-        # a Python int is wrapped by the wrapper: same launch, same bits
-        got_int = da.decode_attention(q, kc, vc, lens[-1])
-        require(torch.equal(got_int, got), "decode: kv_len as an int and as a device tensor disagree")
-        return len(lens) + 1
 
-    n = case(BATCH, smax, H, KVH, D, [PROMPT + 1, PROMPT + 17, smax], by_rows=True)  # the serving shape
-    main_err = max(c["max_abs_err"] for c in cases)
-    n += case(2, 333, 8, 2, 64, [1, 77, 200, 333])                      # ragged Smax, mid-block lengths
-    n += case(3, 97, 6, 1, 128, [50, 97])                               # MQA, G=6, D=128
-    n += case(1, 515, 16, 2, 64, [300], dtype=torch.float16)            # G=8, f16
-    require(da.launch_count - launches0 == n, "the decode wrapper did not count its launches")
-    require(_build.n_compiles == compiles0, "a new kv_len rebuilt the kernel")
-
-    # timings at the serving shape. As in the model, every layer has its own
-    # cache, so a launch finds its 34 MB cold: cycle over more layers than the
-    # 50 MB L2 holds.
+def decode_timed(gen, B, smax, H, KVH, D, kv_n) -> dict:
+    """K4 at one bf16 shape and kv_len: its time beside the plain version's,
+    one library call's (with the backend it ran) and the bound. As in the
+    model, every layer has its own cache, so a launch finds its cache cold:
+    the launches cycle over more layers than the 50 MB L2 holds."""
     layers = 8
-    q = randn(gen, (BATCH, H, D))
-    kc = randn(gen, (layers, BATCH, smax, KVH, D))
-    vc = randn(gen, (layers, BATCH, smax, KVH, D))
-    kv_n = PROMPT + NEW // 2
+    q = randn(gen, (B, H, D))
+    kc = randn(gen, (layers, B, smax, KVH, D))
+    vc = randn(gen, (layers, B, smax, KVH, D))
     kv_len = torch.tensor([kv_n], dtype=torch.int32, device=DEV)
     state = {"i": 0}
 
@@ -642,20 +681,40 @@ def phase_decode(cfg) -> dict:
 
     lib_err = max_err(lib(kc[0], vc[0])[:, :, 0], da.decode_attention(q, kc[0], vc[0], kv_len))
     library_ms = gpu_ms(cycle(lib), iters=40)
+    backend = sdpa_backend(lambda: lib(kc[0], vc[0]))
 
-    nbytes = 2 * (2 * BATCH * kv_n * KVH * D) + 2 * 2 * q.numel()  # K and V up to kv_len, q, out
-    flops = 2 * 2 * BATCH * H * kv_n * D
+    nbytes = 2 * (2 * B * kv_n * KVH * D) + 2 * 2 * q.numel()  # K and V up to kv_len, q, out
+    flops = 2 * 2 * B * H * kv_n * D
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    out = {
-        "name": "decode_attention", "shape": f"q ({BATCH},{H},{D}) caches ({BATCH},{smax},{KVH},{D}) bf16 kv_len {kv_n}",
-        "tolerance": {"o": f"{TOL_ROW_RMS} * rms(row) + 1 ulp at this shape, {TOL_BF16} at the small ones"},
-        "max_abs_err": main_err,
-        "kv_splits": da.n_splits(BATCH, KVH, H // KVH, smax, _build.sm_count(0)),
+    return {
+        "shape": f"q ({B},{H},{D}) caches ({B},{smax},{KVH},{D}) bf16 kv_len {kv_n}",
+        "kv_splits": da.n_splits(B, KVH, H // KVH, smax, _build.sm_count(0)),
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "library_call": library_call, "library_vs_kernel_max_abs_err": lib_err,
+        "library_call": library_call, "library_backend": backend, "library_vs_kernel_max_abs_err": lib_err,
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "bound_reckoned": f"max({flops:.4g} FLOP / 989 TFLOP/s, {nbytes:.4g} B / 3.35 TB/s)",
         "achieved_gb_per_s": nbytes / (kernel_ms * 1e-3) / 1e9,
+    }
+
+
+def phase_decode(cfg) -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    smax = PROMPT + NEW
+    launches0 = da.launch_count
+    compiles0 = _build.n_compiles
+    cases = decode_case(gen, BATCH, smax, H, KVH, D, [PROMPT + 1, PROMPT + 17, smax], by_rows=True)  # serving
+    main_err = max(c["max_abs_err"] for c in cases)
+    cases += decode_case(gen, 2, 333, 8, 2, 64, [1, 77, 200, 333])                      # ragged Smax, mid-block lengths
+    cases += decode_case(gen, 3, 97, 6, 1, 128, [50, 97])                               # MQA, G=6, D=128
+    cases += decode_case(gen, 1, 515, 16, 2, 64, [300], dtype=torch.float16)            # G=8, f16
+    require(da.launch_count - launches0 == len(cases) + 4, "the decode wrapper did not count its launches")
+    require(_build.n_compiles == compiles0, "a new kv_len rebuilt the kernel")
+    out = {
+        "name": "decode_attention",
+        "tolerance": {"o": f"{TOL_ROW_RMS} * rms(row) + 1 ulp at this shape, {TOL_BF16} at the small ones"},
+        "max_abs_err": main_err,
+        **decode_timed(gen, BATCH, smax, H, KVH, D, PROMPT + NEW // 2),
         "cases": cases,
     }
     emit("kernel", **out)
@@ -737,24 +796,12 @@ def sdpa_backend(fn) -> str:
     return ", ".join(found) or "unknown"
 
 
-def phase_flash_bwd(cfg) -> list:
-    """K2 (dk/dv) and K3 (dq) at the training shape and at ragged small shapes."""
-    gen = torch.Generator(device=DEV).manual_seed(3)
-    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    B, S, G = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads // cfg.n_kv_heads
-    cases = [
-        flash_bwd_case(gen, B, S, S, H, KVH, D, True, by_rows=True, repeat=True),  # the training shape, twice
-        flash_bwd_case(gen, 1, 100, 100, 4, 4, 64, True),                # G=1, ragged
-        flash_bwd_case(gen, 2, 100, 100, 6, 2, 64, True),                # G=3
-        flash_bwd_case(gen, 1, 100, 100, 16, 2, 64, False),              # G=8, non-causal
-        flash_bwd_case(gen, 2, 100, 100, 8, 2, 64, True, q_offset=64),   # q_offset > 0
-        flash_bwd_case(gen, 1, 100, 100, 8, 2, 128, True),               # head_dim 128
-        flash_bwd_case(gen, 1, 100, 100, 6, 2, 64, True, dtype=torch.float16),  # f16
-        flash_bwd_case(gen, 1, 100, 100, 4, 1, 128, False, q_offset=64, dtype=torch.float16),
-    ]
-    torch.cuda.empty_cache()
-
-    # timings at the training shape
+def flash_bwd_timed(gen, B, S, H, KVH, D) -> tuple:
+    """K2 and K3 at one causal bf16 shape: each one's time beside the plain
+    version's, the backward of one library call (with the backend it ran)
+    and the bound; K3's delta against the plain sum. Returns (K2's record,
+    K3's record)."""
+    G = H // KVH
     q = randn(gen, (B, S, H, D))
     k = randn(gen, (B, S, KVH, D))
     v = randn(gen, (B, S, KVH, D))
@@ -771,7 +818,7 @@ def phase_flash_bwd(cfg) -> list:
     run_fwd = lambda: fa.flash_attention_fwd(qf, kf, vf, **kw)  # noqa: E731
     # K3's delta against the plain sum of the same f32 products
     run_dq()
-    delta_err = check("flash bwd delta (dq kernel) at the training shape", delta,
+    delta_err = check(f"flash bwd delta (dq kernel) at ({B},{S},{H},{KVH},{D})", delta,
                       (o.float() * dof.float()).sum(dim=-1), TOL_DELTA)
     dq_ms = gpu_ms(run_dq, iters=10)
     dkv_ms = gpu_ms(run_dkv, iters=10)
@@ -815,14 +862,9 @@ def phase_flash_bwd(cfg) -> list:
     ):
         flops, nbytes = pairs * flop_per_pair, in_bytes + out_bytes
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-        main = cases[0]
-        errs = {"dkv": {"dk": main["dk_max_abs_err"], "dv": main["dv_max_abs_err"]},
-                "dq": {"dq": main["dq_max_abs_err"]}}[name.rsplit("_", 1)[1]]
-        out = {
+        outs.append({
             "name": name, "replaces": replaces,
             "shape": f"q/do ({B},{KVH},{S},{G},{D}) k/v ({B},{KVH},{S},{D}) bf16 causal",
-            "tolerance": f"{TOL_ROW_RMS} * rms(row) + 1 ulp at this shape, {TOL_BF16} at the small ones",
-            "max_abs_err": max(errs.values()), "errors": errs,
             "kernel_ms": ms, "plain_ms": plain_ms,
             "plain_call": "ref.flash_attention_bwd_reference (dq, dk and dv in one call)",
             "wrapper_ms": wrapper_ms, "wrapper_call": "fa.flash_attention_bwd: both kernels (delta in the dq kernel)",
@@ -830,7 +872,6 @@ def phase_flash_bwd(cfg) -> list:
             "host_us_per_launch": host_us,
             "host_us_reckoned": "host clock over 50 launches queued behind a spin kernel, Python wrapper included",
             "forward_kernel_ms": fwd_ms,
-            "forward_max_abs_err": {"o": main["o_max_abs_err"], "lse": main["lse_max_abs_err"]},
             "library_ms": library_ms,
             "library_call": "backward of F.scaled_dot_product_attention(is_causal=True, enable_gqa=True), "
                             "its forward subtracted (dq, dk and dv in one call)",
@@ -840,11 +881,159 @@ def phase_flash_bwd(cfg) -> list:
             "bound_reckoned": f"max({flops:.4g} FLOP ({flop_per_pair} x {pairs} live pairs) / 989 TFLOP/s, "
                               f"{nbytes:.4g} B / 3.35 TB/s)",
             "achieved_tflops": flops / (ms * 1e-3) / 1e12,
-            "cases": cases if not outs else "as above",
-        }
+        })
+    return tuple(outs)
+
+
+def bwd_records(timed_: tuple, main: dict, cases) -> list:
+    """K2's and K3's records: ``timed_`` from ``flash_bwd_timed`` with the
+    errors of ``main`` (the ``flash_bwd_case`` at the same shape)."""
+    errs = ({"dk": main["dk_max_abs_err"], "dv": main["dv_max_abs_err"]}, {"dq": main["dq_max_abs_err"]})
+    return [dict(rec, max_abs_err=max(e.values()), errors=e,
+                 tolerance=f"{TOL_ROW_RMS} * rms(row) + 1 ulp at this shape, {TOL_BF16} at the small ones",
+                 forward_max_abs_err={"o": main["o_max_abs_err"], "lse": main["lse_max_abs_err"]},
+                 cases=cases if i == 0 else "as above")
+            for i, (rec, e) in enumerate(zip(timed_, errs))]
+
+
+def phase_flash_bwd(cfg) -> list:
+    """K2 (dk/dv) and K3 (dq) at the training shape and at ragged small shapes."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    cases = [
+        flash_bwd_case(gen, B, S, S, H, KVH, D, True, by_rows=True, repeat=True),  # the training shape, twice
+        flash_bwd_case(gen, 1, 100, 100, 4, 4, 64, True),                # G=1, ragged
+        flash_bwd_case(gen, 2, 100, 100, 6, 2, 64, True),                # G=3
+        flash_bwd_case(gen, 1, 100, 100, 16, 2, 64, False),              # G=8, non-causal
+        flash_bwd_case(gen, 2, 100, 100, 8, 2, 64, True, q_offset=64),   # q_offset > 0
+        flash_bwd_case(gen, 1, 100, 100, 8, 2, 128, True),               # head_dim 128
+        flash_bwd_case(gen, 1, 100, 100, 6, 2, 64, True, dtype=torch.float16),  # f16
+        flash_bwd_case(gen, 1, 100, 100, 4, 1, 128, False, q_offset=64, dtype=torch.float16),
+    ]
+    torch.cuda.empty_cache()
+    outs = bwd_records(flash_bwd_timed(gen, B, S, H, KVH, D), cases[0], cases)
+    for out in outs:
         emit("kernel", **out)
-        outs.append(out)
     return outs
+
+
+def padded(gen, shape, dtype, fill) -> torch.Tensor:
+    """A (..., D) tensor that is the first D columns of a buffer GUARD_WIDTH
+    wide whose other columns hold ``fill``: random values, or ``fill`` too
+    where ``gen`` is None."""
+    buf = torch.full((*shape[:-1], GUARD_WIDTH), fill, dtype=dtype, device=DEV)
+    if gen is not None:
+        buf[..., : shape[-1]] = randn(gen, shape, dtype)
+    return buf[..., : shape[-1]]
+
+
+def pad_intact(name: str, view: torch.Tensor) -> None:
+    """The columns of ``view``'s buffer past its last one still hold SENTINEL."""
+    D = view.shape[-1]
+    buf = view.as_strided((*view.shape[:-1], GUARD_WIDTH), view.stride())
+    require(bool((buf[..., D:] == SENTINEL).all()), f"{name}: the kernel wrote past column {D}")
+
+
+def guard_case(gen, B=2, S=77, H=8, KVH=2, D=160, Smax=131, kv_n=100) -> dict:
+    """K1-K4 on the first D columns of buffers GUARD_WIDTH wide: every input's
+    other columns hold NaN, every output's a sentinel. Each output is held to
+    its plain version at TOL_BF16 and its buffer's other columns must still
+    hold the sentinel: a kernel that reads past D gives NaN, one that writes
+    past D changes the sentinel."""
+    nan, dt = float("nan"), torch.bfloat16
+    q, k, v, do = (padded(gen, shape, dt, nan) for shape in ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D),
+                                                             (B, S, H, D)))
+    o, dq, dk, dv = (padded(None, x.shape, dt, SENTINEL) for x in (q, q, k, v))
+    qf, kf, vf, dof, of = ops._fold(q, KVH), ops._kv_fold(k), ops._kv_fold(v), ops._fold(do, KVH), ops._fold(o, KVH)
+    kw = dict(causal=True, scale=D**-0.5)
+    label = f"guard B{B} S{S} H{H} KVH{KVH} D{D} in buffers {GUARD_WIDTH} wide"
+    _, lse = fa.flash_attention_fwd(qf, kf, vf, out=of, **kw)
+    delta = torch.empty_like(lse)
+    fa.launch_bwd_dq(qf, kf, vf, of, dof, lse, delta, ops._fold(dq, KVH), **kw)
+    fa.launch_bwd_dkv(qf, kf, vf, dof, lse, delta, ops._kv_fold(dk), ops._kv_fold(dv), **kw)
+    qd, kc, vc = (padded(gen, shape, dt, nan) for shape in ((B, H, D), (B, Smax, KVH, D), (B, Smax, KVH, D)))
+    od = padded(None, qd.shape, dt, SENTINEL)
+    da.decode_attention(qd, kc, vc, kv_n, out=od)
+    torch.cuda.synchronize()
+
+    o_ref, lse_ref = ref.mha_reference_with_lse(q, k, v, **kw)
+    want = ref.flash_attention_bwd_reference(qf, kf, vf, of, lse, dof, **kw)
+    out = {"B": B, "S": S, "H": H, "KVH": KVH, "D": D, "buffer_width": GUARD_WIDTH, "decode_Smax": Smax,
+           "decode_kv_len": kv_n,
+           "flash_attention_fwd": check(f"{label} K1 o", o, o_ref, TOL_BF16),
+           "flash_attention_fwd_lse": check(f"{label} K1 lse", lse.permute(0, 2, 1, 3).reshape(B, S, H), lse_ref,
+                                            TOL_LSE),
+           "flash_attention_bwd_dq": check(f"{label} K3 dq", dq, ops._unfold(want[0]), TOL_BF16),
+           "flash_attention_bwd_dkv": max(check(f"{label} K2 dk", dk, want[1].permute(0, 2, 1, 3), TOL_BF16),
+                                          check(f"{label} K2 dv", dv, want[2].permute(0, 2, 1, 3), TOL_BF16)),
+           "decode_attention": check(f"{label} K4", od, ref.decode_attention_reference(qd, kc, vc, kv_len=kv_n),
+                                     TOL_BF16)}
+    for name, x in (("K1 o", o), ("K3 dq", dq), ("K2 dk", dk), ("K2 dv", dv), ("K4 out", od)):
+        pad_intact(f"{label} {name}", x)
+    return out
+
+
+def stablelm_train_config():
+    """stablelm-12b at full width and STABLELM_TRAIN_LAYERS layers: the
+    one-step check at head_dim 160."""
+    return dataclasses.replace(get_config(STABLELM_ARCH), n_layers=STABLELM_TRAIN_LAYERS)
+
+
+def phase_d160(cfg) -> dict:
+    """K1-K4 at head_dim 160 (stablelm-12b): each at the shape its main path
+    gives it (timed beside its bound and the library call for the same
+    function) and at ragged small shapes, then the guard case. Returns each
+    kernel's record by name."""
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    require(D == 160, f"{cfg.name} has head_dim {D}")
+    f16 = torch.float16
+    fa0, da0 = fa.launch_count, da.launch_count
+    fwd_cases = [
+        flash_case(gen, BATCH, PROMPT, PROMPT, H, KVH, D, True, by_rows=True),  # the serving shape
+        flash_case(gen, 2, 77, 77, 8, 2, D, True),                              # ragged, causal, G=4
+        flash_case(gen, 1, 50, 131, 4, 4, D, False),                            # ragged, non-causal, G=1
+        flash_case(gen, 2, 33, 97, 8, 2, D, True, q_offset=64),                 # q_offset > 0
+        flash_case(gen, 1, 130, 130, 6, 2, D, True, dtype=f16),              # G=3, f16
+        flash_case(gen, 1, 5, 40, 130, 1, D, True, q_offset=35),                # G=130: one position a tile
+    ]
+    require(fa.launch_count - fa0 == len(fwd_cases), "the flash wrapper did not count its launches")
+    smax = PROMPT + NEW
+    dec_cases = decode_case(gen, BATCH, smax, H, KVH, D, [PROMPT + 1, PROMPT + 17, smax], by_rows=True)
+    dec_main = max(c["max_abs_err"] for c in dec_cases)
+    dec_cases += decode_case(gen, 2, 333, 8, 2, D, [1, 77, 333])                # ragged Smax, G=4
+    dec_cases += decode_case(gen, 3, 97, 6, 1, D, [50, 97], dtype=f16)       # MQA, G=6, f16
+    dec_cases += decode_case(gen, 1, 515, 4, 4, D, [300])                       # G=1
+    require(da.launch_count - da0 == len(dec_cases) + 4, "the decode wrapper did not count its launches")
+    bwd_cases = [
+        flash_bwd_case(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, H, KVH, D, True, by_rows=True, repeat=True),
+        flash_bwd_case(gen, 1, 100, 100, 4, 4, D, True),                        # G=1, ragged
+        flash_bwd_case(gen, 2, 77, 77, 8, 2, D, False),                         # non-causal
+        flash_bwd_case(gen, 2, 100, 100, 8, 2, D, True, q_offset=64),           # q_offset > 0
+        flash_bwd_case(gen, 1, 100, 100, 6, 2, D, True, dtype=f16),          # G=3, f16
+        flash_bwd_case(gen, 1, 130, 130, 8, 2, D, True),                        # three dk/dv blocks of 64 rows
+    ]
+    torch.cuda.empty_cache()
+    guard = guard_case(gen)
+    tol = f"{TOL_ROW_RMS} * rms(row) + 1 ulp at this shape, {TOL_BF16} at the small ones and the guard case"
+    recs = {
+        "flash_attention_fwd": {"name": "flash_attention_fwd", "tolerance": tol,
+                                "max_abs_err": fwd_cases[0]["max_abs_err"],
+                                "lse_max_abs_err": fwd_cases[0]["lse_max_abs_err"],
+                                **flash_fwd_timed(gen, BATCH, PROMPT, H, KVH, D), "cases": fwd_cases},
+        "decode_attention": {"name": "decode_attention", "tolerance": tol, "max_abs_err": dec_main,
+                             **decode_timed(gen, BATCH, smax, H, KVH, D, PROMPT + NEW // 2), "cases": dec_cases},
+    }
+    torch.cuda.empty_cache()
+    for rec in bwd_records(flash_bwd_timed(gen, TRAIN_BATCH, TRAIN_SEQ, H, KVH, D), bwd_cases[0], bwd_cases):
+        recs[rec["name"]] = dict(rec, tolerance=tol)
+    for name, rec in recs.items():
+        rec["guard_max_abs_err"] = guard[name]
+        emit("kernel_d160", arch=cfg.name, **rec)
+    emit("guard_d160", **guard)
+    torch.cuda.empty_cache()
+    return recs
 
 
 @contextlib.contextmanager
@@ -1154,10 +1343,12 @@ def train_args(**overrides):
     return args
 
 
-def one_step(cfg, model, plan) -> dict:
+def one_step(cfg, model, plan, tol=(TOL_LOSS, TOL_GRAD_ATTN, TOL_GRAD_OTHER)) -> dict:
     """One step's loss and gradients, kernels against the non-kernel path, from
     one seeded init and one batch, no optimizer. Emits its readings before it
-    holds them to the limits, so that a failing run still shows them."""
+    holds them to the limits ``tol`` (loss, attention leaves, other leaves),
+    so that a failing run still shows them."""
+    tol_loss, tol_attn, tol_other = tol
     L = cfg.n_layers
     params = model.init(torch.Generator(device=DEV).manual_seed(0), DEV)
     suite = ShapeSuite("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
@@ -1187,10 +1378,11 @@ def one_step(cfg, model, plan) -> dict:
     attn = {n: e for n, e in whole.items() if n.startswith(ATTN_LEAVES)}
     other = {n: e for n, e in whole.items() if not n.startswith(ATTN_LEAVES)}
     out = {
+        "arch": cfg.name, "layers": L,
         "loss_kernels": loss_k, "loss_torch_path": loss_t, "loss_abs_err": abs(loss_k - loss_t),
-        "loss_tolerance": TOL_LOSS, "launches": launches,
-        "grad_rel_l2_attention_max": max(attn.values()), "grad_rel_l2_attention_tolerance": TOL_GRAD_ATTN,
-        "grad_rel_l2_other_max": max(other.values()), "grad_rel_l2_other_tolerance": TOL_GRAD_OTHER,
+        "loss_tolerance": tol_loss, "launches": launches,
+        "grad_rel_l2_attention_max": max(attn.values()), "grad_rel_l2_attention_tolerance": tol_attn,
+        "grad_rel_l2_other_max": max(other.values()), "grad_rel_l2_other_tolerance": tol_other,
         "grad_rel_l2": whole,
         "grad_rel_l2_attention_by_layer": {n: [min(per), statistics.median(per), max(per)]
                                            for n, per in by_layer.items()},
@@ -1200,10 +1392,10 @@ def one_step(cfg, model, plan) -> dict:
     require(launches == (2 * L, L, L), f"one remat step launched (K1, K2, K3) = {launches}, expected {(2 * L, L, L)}")
     require(kernel_free, "the non-kernel run launched a kernel")
     require(not finite, f"non-finite grads of {finite}")
-    require(out["loss_abs_err"] <= TOL_LOSS, f"train loss {loss_k} (kernels) vs {loss_t} (torch path)")
-    for group, errs, tol in (("attention", attn, TOL_GRAD_ATTN), ("other", other, TOL_GRAD_OTHER)):
-        bad = {n: e for n, e in errs.items() if e > tol}
-        require(not bad, f"{group} gradient leaves beyond relative L2 {tol}: {bad}")
+    require(out["loss_abs_err"] <= tol_loss, f"train loss {loss_k} (kernels) vs {loss_t} (torch path)")
+    for group, errs, limit in (("attention", attn, tol_attn), ("other", other, tol_other)):
+        bad = {n: e for n, e in errs.items() if e > limit}
+        require(not bad, f"{group} gradient leaves beyond relative L2 {limit}: {bad}")
     return out
 
 
@@ -1436,23 +1628,200 @@ def phase_serve(cfg, counters: dict, expected: dict, torch_path, cache_shapes: d
     return out
 
 
+@contextlib.contextmanager
+def step_times(times: list):
+    """Inside the block every train step that ``launch.train.run`` builds
+    appends its (host ms, device ms) to ``times`` (as ``timed`` takes them);
+    a rebinding made by this script only."""
+    saved = train_step.build_train_step
+
+    def build(*args, **kwargs):
+        step = saved(*args, **kwargs)
+
+        def clocked(state, batch):
+            out, host_ms, device_ms = timed(lambda: step(state, batch))
+            times.append((host_ms, device_ms))
+            return out
+
+        return clocked
+
+    train_step.build_train_step = build
+    try:
+        yield
+    finally:
+        train_step.build_train_step = saved
+
+
+@contextlib.contextmanager
+def symmetric_padding():
+    """Inside the block the ResNet pads every window symmetrically, k // 2 a
+    side, as PyTorch's ``padding=k // 2`` would: the same shapes as XLA's
+    "SAME", other windows where its total padding is odd. The planted fault
+    of the card-vs-float64 check; a rebinding made by this script only."""
+    saved = resnet.same_pads
+    resnet.same_pads = lambda size, k, stride: (k // 2, k // 2)
+    try:
+        yield
+    finally:
+        resnet.same_pads = saved
+
+
+@contextlib.contextmanager
+def nchw_convolutions():
+    """Inside the block every ResNet convolution takes an NCHW-contiguous copy
+    of its input and weight (the explicit permute) instead of the
+    channels_last views; timing only, a rebinding made by this script only."""
+    saved = resnet.conv_apply
+
+    def conv_apply(p, x, stride=1):
+        w = p["w"].to(x.dtype)
+        k = w.shape[0]
+        (hl, hh), (wl, wh) = resnet.same_pads(x.shape[1], k, stride), resnet.same_pads(x.shape[2], k, stride)
+        y = F.conv2d(F.pad(x, (0, 0, wl, wh, hl, hh)).permute(0, 3, 1, 2).contiguous(),
+                     w.permute(3, 2, 0, 1).contiguous(), stride=stride)
+        return y.permute(0, 2, 3, 1)
+
+    resnet.conv_apply = conv_apply
+    try:
+        yield
+    finally:
+        resnet.conv_apply = saved
+
+
+def resnet_batch(cfg, device) -> dict:
+    suite = ShapeSuite("paper", cfg.img_size**2, RESNET_BATCH, "train")
+    return {k: torch.from_numpy(v).to(device) for k, v in synthetic.batch_for(cfg, suite, seed=0).items()}
+
+
+def resnet_grads(model, params, batch) -> tuple:
+    """(loss, grads) of one step, no optimizer, in the parameters' type."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = model.loss(tree_unflatten(params, leaves), batch, None)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def resnet_vs_float64(arch) -> dict:
+    """One step of ``arch`` at full size and batch RESNET_BATCH on the card (f32,
+    TF32 off, as the launcher runs it), sound and with symmetric padding
+    planted, against the same step on the CPU in float64: the loss's
+    relative error and the largest relative L2 error of a gradient leaf."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0), DEV)
+    batch = resnet_batch(cfg, DEV)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False):
+        sound = resnet_grads(model, params, batch)
+        with symmetric_padding():
+            planted = resnet_grads(model, params, batch)
+    params64 = tree_map(lambda x: x.detach().cpu().double(), params)
+    batch64 = {"images": batch["images"].cpu().double(), "labels": batch["labels"].cpu()}
+    want = resnet_grads(model, params64, batch64)
+    names = ["/".join(path) for path, _ in tree_paths(params)]
+    out = {"arch": arch, "batch": RESNET_BATCH}
+    for name, (loss, grads) in (("sound", sound), ("planted_symmetric_padding", planted)):
+        errs = {n: rel_l2(g.cpu(), w)[0] for n, g, w in zip(names, grads, want[1])}
+        worst = max(errs, key=errs.get)
+        out[name] = {
+            "loss": loss.item(), "loss_float64": want[0].item(),
+            "loss_rel_err": abs(loss.item() - want[0].item()) / abs(want[0].item()),
+            "grad_rel_l2_max": errs[worst], "grad_rel_l2_worst_leaf": worst,
+            "grad_rel_l2_median": statistics.median(errs.values()),
+        }
+    return out
+
+
+def resnet_train(arch) -> dict:
+    """RESNET_STEPS steps of ``arch`` at full size and batch RESNET_BATCH
+    through ``launch.train.run``; the step by both clocks after the
+    launcher's warm-up, images/s, peak memory, the reckoned epoch, and the
+    FLOPs of one step (forward and backward) by FlopCounterMode."""
+    cfg = get_config(arch)
+    times: list = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", arch, "--steps", str(RESNET_STEPS), "--batch", str(RESNET_BATCH), "--warmup", "2",
+            "--log-every", str(RESNET_STEPS), "--device", "cuda"]
+    with step_times(times):
+        result = train.run(train.build_argparser().parse_args(argv))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(result["steps"] == RESNET_STEPS and len(times) == RESNET_STEPS, f"{arch}: {result}")
+    require(all(np.isfinite(result[k]) for k in ("first_loss", "final_loss")), f"{arch}: non-finite loss {result}")
+
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0), DEV)
+    batch = resnet_batch(cfg, DEV)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False, allow_tf32=False):
+        with FlopCounterMode(display=False) as counter:
+            resnet_grads(model, params, batch)
+        step_flops = counter.get_total_flops()
+        # the convolutions' layout: channels_last views against NCHW copies, one step each
+        layout_ms = {"channels_last_views": gpu_ms(lambda: resnet_grads(model, params, batch), iters=3, reps=3)}
+        with nchw_convolutions():
+            layout_ms["nchw_copies"] = gpu_ms(lambda: resnet_grads(model, params, batch), iters=3, reps=3)
+    del params, batch
+    warm = times[3:]  # the launcher's mean leaves out the first three steps too
+    step_ms = statistics.median(t[0] for t in warm)
+    samples = RESNET_EPOCH_SAMPLES[arch]
+    return {
+        "arch": arch, "image_size": cfg.img_size, "batch": RESNET_BATCH, "steps": result["steps"],
+        "params": model.param_count(),
+        "losses": {k: result[k] for k in ("first_loss", "final_loss")},
+        "median_step_ms": step_ms, "median_step_device_ms": statistics.median(t[1] for t in warm),
+        "mean_step_ms": result["mean_step_ms"],
+        "step_ms_runs": [t[0] for t in times], "step_device_ms_runs": [t[1] for t in times],
+        "images_per_s": RESNET_BATCH / (step_ms * 1e-3), "peak_memory_gb": peak_gb,
+        "epoch_samples": samples,
+        "epoch_s_reckoned": -(-samples // RESNET_BATCH) * step_ms * 1e-3,
+        "epoch_reckoned": "ceil(samples / batch) x median step (repro/core/metrics.py::epoch_time_s)",
+        "flops_per_step": step_flops,
+        "flop_share_of_f32_peak": step_flops / (step_ms * 1e-3) / PEAK_F32_FLOPS,
+        "precision": "f32 convolutions (cuDNN TF32 off), f32 head",
+        "fwd_bwd_ms_by_conv_layout": layout_ms,
+        "pipeline": result["pipeline"],
+    }
+
+
+def phase_resnet() -> dict:
+    """The paper's trio at full size and batch 32 through the launcher, then
+    the card-vs-float64 step check of resnet_small and resnet_medium with its
+    planted fault. Emits its readings before it holds them to the limits."""
+    runs = [resnet_train(arch) for arch in RESNET_ARCHS]
+    for run in runs:
+        emit("resnet_train", **run)
+    torch.cuda.empty_cache()
+    checks = [resnet_vs_float64(arch) for arch in ("resnet_small", "resnet_medium")]
+    limits = {"loss_rel_err": TOL_RESNET_LOSS, "grad_rel_l2_max": TOL_RESNET_GRAD}
+    emit("resnet_vs_float64", limits=limits, checks=checks)
+    for c in checks:
+        sound, planted = c["sound"], c["planted_symmetric_padding"]
+        require(all(sound[k] <= v for k, v in limits.items()),
+                f"{c['arch']}: the card's step against float64 {sound}, limits {limits}")
+        require(any(planted[k] > v for k, v in limits.items()),
+                f"{c['arch']}: symmetric padding planted passed the limits {limits}: {planted}")
+    return {"runs": runs, "checks": checks}
+
+
 def main() -> None:
     t0 = time.perf_counter()
     device = phase_device()
     cfg = get_config(ARCH)
+    slm_cfg = get_config(STABLELM_ARCH)
     phase_build()
     flash = phase_flash(cfg)
     decode = phase_decode(cfg)
     dkv, dq = phase_flash_bwd(cfg)
+    d160 = phase_d160(slm_cfg)
     rwkv_cfg = get_config(RWKV_ARCH)
     wkv = phase_wkv6(rwkv_cfg)
     torch.cuda.empty_cache()
-    L, kvh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
-    served = phase_serve(
-        cfg, {"flash_attention_fwd": fa, "decode_attention": da},
-        {"flash_attention_fwd": L, "decode_attention": L * (NEW - 1)}, torch_attention_path,
-        {name: (L, BATCH, PROMPT + NEW, kvh, hd) for name in ("k", "v")})
-    torch.cuda.empty_cache()
+    attn_counters = {"flash_attention_fwd": fa, "decode_attention": da}
+    served = {}
+    for c in (cfg, slm_cfg):
+        L = c.n_layers
+        served[c.name] = phase_serve(
+            c, attn_counters, {"flash_attention_fwd": L, "decode_attention": L * (NEW - 1)}, torch_attention_path,
+            {name: (L, BATCH, PROMPT + NEW, c.n_kv_heads, c.resolved_head_dim) for name in ("k", "v")})
+        torch.cuda.empty_cache()
     L, d, K = rwkv_cfg.n_layers, rwkv_cfg.d_model, rwkv_cfg.ssm.head_dim
     served_rwkv = phase_serve(
         rwkv_cfg, {"wkv6_scan": rk}, {"wkv6_scan": L}, torch_wkv_path,
@@ -1462,6 +1831,11 @@ def main() -> None:
          reckoned="launches x the kernel's time at this shape (phase kernel wkv6_scan) / median prefill device ms")
     torch.cuda.empty_cache()
     trained = phase_train(cfg)
+    torch.cuda.empty_cache()
+    slm_train = stablelm_train_config()
+    slm_step = one_step(slm_train, build_model(slm_train), make_plan(slm_train, None), STABLELM_TOL)
+    torch.cuda.empty_cache()
+    phase_resnet()
 
     def row(k, source, replaces, launches):
         return {
@@ -1471,20 +1845,33 @@ def main() -> None:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         }
 
-    # launches: K1 and K4 on the serving path, K2 and K3 on the training path
-    # (TRAIN_STEPS steps), K5 on rwkv6's serving path; K1's count on the
-    # training path beside its own
+    def at160(name, launches):
+        k = d160[name]
+        return {"shape": k["shape"], "ms": k["kernel_ms"], "bound_ms": k["bound_ms"], "library_ms": k["library_ms"],
+                "library_backend": k["library_backend"], "launches": launches, "max_abs_err": k["max_abs_err"],
+                "guard_max_abs_err": k["guard_max_abs_err"]}
+
+    # launches: K1 and K4 on granite's serving path, K2 and K3 on its
+    # training path (TRAIN_STEPS steps), K5 on rwkv6's serving path; K1's
+    # count on the training path beside its own. At head_dim 160 (d160):
+    # K1 and K4 on stablelm-12b's serving path, K2 and K3 on its one step.
     bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    slm_served = served[slm_cfg.name]["launches"]
+    slm_k1, slm_k2, slm_k3 = slm_step["launches"]
     emit("wall", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": [
         dict(row(flash, "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
-                 "src/repro/kernels/flash_attention.py:159", served["launches"]["flash_attention_fwd"]),
+                 "src/repro/kernels/flash_attention.py:159", served[cfg.name]["launches"]["flash_attention_fwd"]),
              launches_train=trained["launches"]["flash_attention_fwd"],
-             max_abs_err_train=dkv["forward_max_abs_err"]),
-        row(decode, "src/repro_torch/kernels/csrc/decode_attention.cu",
-            "src/repro/kernels/decode_attention.py:126", served["launches"]["decode_attention"]),
-        row(dkv, bwd_src, dkv["replaces"], trained["launches"]["flash_attention_bwd_dkv"]),
-        row(dq, bwd_src, dq["replaces"], trained["launches"]["flash_attention_bwd_dq"]),
+             max_abs_err_train=dkv["forward_max_abs_err"],
+             d160=dict(at160("flash_attention_fwd", slm_served["flash_attention_fwd"]), launches_train=slm_k1)),
+        dict(row(decode, "src/repro_torch/kernels/csrc/decode_attention.cu",
+                 "src/repro/kernels/decode_attention.py:126", served[cfg.name]["launches"]["decode_attention"]),
+             d160=at160("decode_attention", slm_served["decode_attention"])),
+        dict(row(dkv, bwd_src, dkv["replaces"], trained["launches"]["flash_attention_bwd_dkv"]),
+             d160=at160("flash_attention_bwd_dkv", slm_k2)),
+        dict(row(dq, bwd_src, dq["replaces"], trained["launches"]["flash_attention_bwd_dq"]),
+             d160=at160("flash_attention_bwd_dq", slm_k3)),
         dict(row(wkv, "src/repro_torch/kernels/csrc/wkv6_scan.cu", wkv["replaces"],
                  served_rwkv["launches"]["wkv6_scan"]),
              pytorch_yardstick_ms=wkv["chunked_ms"], pytorch_yardstick="models.rwkv6.wkv_chunked"),

@@ -11,7 +11,8 @@ Each variant edits ``csrc/flash_attention_bwd.cu`` (or the header
                   (and every other exp2_ftz of the header)
   nosecond        without the products that take p or ds from registers:
                   dq += ds.k in K3, dv += p^T.do and dk += ds^T.q in K2 (p
-                  and ds are still computed and packed)
+                  and ds are still computed and packed; K2 at D = 64 and 128
+                  only, the shape timed)
 
 Every variant but ``full`` computes wrong results: these are timings only.
 
@@ -23,7 +24,9 @@ Checked variants, each with one planted fault:
 
 Each runs ``chip_smoke.flash_bwd_case`` at the training shape and at two
 ragged causal shapes, then ``chip_smoke.one_step`` (granite-3-2b at full
-size, one step's loss and gradients against the non-kernel path). It prints
+size, one step's loss and gradients against the non-kernel path), then the
+same at head_dim 160: the case at stablelm-12b's training shape and its
+one-step check at full width and depth 2 (``chip_smoke.STABLELM_TOL``). It prints
 what each check found: every one should fail. ``one_step`` prints its
 readings (the gradients' relative L2 errors) before it holds them to their
 limits, so the output also gives the faults' readings from which
@@ -46,8 +49,9 @@ EDITS = {
     "full": [],
     "noexp": [(kv.HEADER, *EXP2)],
     "nosecond": [(r"kk < NK / 16; \+\+kk\) mma_rs<T, D>\(dq,", "kk < 0; ++kk) mma_rs<T, D>(dq,"),
-                 (r"kk < 4; \+\+kk\) mma_rs<T, D>\(dv,", "kk < 0; ++kk) mma_rs<T, D>(dv,"),
-                 (r"kk < 4; \+\+kk\) mma_rs<T, D>\(dk,", "kk < 0; ++kk) mma_rs<T, D>(dk,")],
+                 (r"^          for \(int kk = 0; kk < 4; \+\+kk\) mma_rs<T, D>\(acc, pf",
+                  "          for (int kk = 0; kk < 0; ++kk) mma_rs<T, D>(acc, pf"),
+                 (r"kk < 4; \+\+kk\) mma_rs<T, D>\(dk_acc,", "kk < 0; ++kk) mma_rs<T, D>(dk_acc,")],
     "sound": [],
     "dq_skip_diag": [(r"const bool dead = wg_rows <= 0 \|\| \(p\.causal && kv0 > wg_last\);",
                       "const bool dead = wg_rows <= 0 || (p.causal && (kv0 > wg_last || it == n_kt - 1));")],
@@ -95,6 +99,14 @@ def check_here(name: str) -> None:
                   lambda: c.flash_bwd_case(gen, B, S, S, Hh, KVHh, Dh, True, **kw))
         torch.cuda.empty_cache()
     kv.report(name, "one_step granite-3-2b", lambda: c.one_step(cfg, c.build_model(cfg), c.make_plan(cfg, None)))
+    torch.cuda.empty_cache()
+    # head_dim 160: stablelm-12b's backward shape, and its one-step check at full width and depth 2
+    kv.report(name, "flash_bwd_case B2 S4096 H32 KVH8 D160 causal",
+              lambda: c.flash_bwd_case(gen, c.TRAIN_BATCH, c.TRAIN_SEQ, c.TRAIN_SEQ, 32, 8, 160, True, by_rows=True))
+    torch.cuda.empty_cache()
+    slm = c.stablelm_train_config()
+    kv.report(name, "one_step stablelm-12b depth 2",
+              lambda: c.one_step(slm, c.build_model(slm), c.make_plan(slm, None), c.STABLELM_TOL))
 
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ twice over):
                   instead of three
   noturns         the consumer warpgroups issue their products without
                   taking turns
-  stages4         a ring of 4 (K, V) stages instead of 3
+  stages4         a ring of 4 (K, V) stages instead of 3 (at D = 64 and 128)
   exp2fma         a quarter of the softmax's exp2 by a polynomial on the FMA
                   pipe instead of the SFU
 
@@ -56,8 +56,7 @@ EDITS = {
                 (r"^      named_barrier_arrive\(2 \+ \(wg \+ 1\) % NC, 256\);\n", ""),
                 (r"^      if \(j >= 1\) \{\n        named_barrier\(2 \+ wg, 256\);\n"
                  r"        named_barrier_arrive\(2 \+ \(wg \+ 1\) % NC, 256\);\n      \}\n", "")],
-    "stages4": [(r"^constexpr int STAGES = 3;  // depth of the ring of \(K, V\) tiles$",
-                 "constexpr int STAGES = 4;  // depth of the ring of (K, V) tiles")],
+    "stages4": [(r"return D == 160 \? 2 : 3;", "return D == 160 ? 2 : 4;")],
     # a quarter of the softmax's exp2 on the FMA pipe: 2^x = 2^round(x) * 2^f,
     # f in [-0.5, 0.5], 2^f by its degree-5 Taylor polynomial (relative error
     # about 2.4e-6), 2^round(x) added into the exponent bits

@@ -1,9 +1,10 @@
 """Reference parameters -> port parameters.
 
 The reference keeps its parameters as a nested dict of arrays with layer
-parameters stacked on a leading ``L`` dim. The port keeps the same tree and
-the same stacking, so conversion is leaf by leaf: names, shapes and types
-are kept. The caller hands over numpy arrays (``jax.device_get`` of the
+parameters stacked on a leading ``L`` dim (the ResNet's blocks are a list of
+dicts, its conv weights HWIO). The port keeps the same tree, the same
+stacking and the same layouts, so conversion is leaf by leaf: names, shapes
+and types are kept. The caller hands over numpy arrays (``jax.device_get`` of the
 reference tree); nothing here imports the reference or its framework.
 ``from_jax_train_state`` does the same for a whole train state
 ``{"params", "opt": AdamWState(step, m, v)}``.
@@ -30,7 +31,7 @@ def _leaf(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def from_jax_params(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """Nested dict of numpy arrays -> the same nested dict of tensors on ``device``.
+    """Nested dicts (and lists) of numpy arrays -> the same tree of tensors on ``device``.
 
     bfloat16 leaves stay bfloat16, bit for bit; float32 leaves (norm scales)
     stay float32.
@@ -40,6 +41,8 @@ def from_jax_params(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
         return _leaf(node, dev)
 
     return walk(tree)

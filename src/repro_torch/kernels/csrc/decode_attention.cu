@@ -39,6 +39,9 @@
 //     memory: each block merges its warps in shared memory, the cluster
 //     synchronizes, and each block combines a share of the outputs from all
 //     CL partials. One launch, no scratch in device memory;
+//   * D = 160 (stablelm-12b): a row is three 64-element column blocks, the
+//     last 32 columns past the tensor map's extent of D (zeros, and never
+//     read: s = q.k^T takes 10 k16 steps and p.v 10 column pairs of 16);
 //   * slots at or past kv_len are never used: tiles past it are not loaded,
 //     the tail of the last one is masked (p = 0). Smax need not divide
 //     anything.
@@ -60,9 +63,10 @@ constexpr int HEADS = 8;        // query heads of one kv head a block takes: row
 constexpr int R = 16 * NWARPS;  // cache rows a tile: 16 a warp
 
 struct DecodeParams {
-  const void* q;      // (B, H, D) contiguous
+  const void* q;      // (B, H, D), rows q_sb, q_sh elements apart, D contiguous
   const int* kv_len;  // 1 element, device
-  void* out;          // (B, H, D) contiguous
+  void* out;          // (B, H, D), rows o_sb, o_sh elements apart, D contiguous
+  long long q_sb, q_sh, o_sb, o_sh;
   int H, G, Smax, n_gt;
   float scale;
 };
@@ -87,17 +91,19 @@ struct Cvt<__half> {
   static __device__ __forceinline__ __half from_float(float x) { return __float2half(x); }
 };
 
-// Shared memory: STAGES x (K tile, V tile) of R x D (the warps' partials take
-// their place once the sweep is done), then the block's partial (acc of
-// HEADS x D, m and l of HEADS) that the cluster reads, then the barriers.
+// Shared memory: STAGES x (K tile, V tile) of R rows, each row col_blocks<D>
+// swizzled 128-byte blocks (the warps' partials take their place once the
+// sweep is done), then the block's partial (acc of HEADS x D, m and l of
+// HEADS) that the cluster reads, then the barriers.
 template <int D>
 struct DecodeSmem {
-  static constexpr int TILE = R * D * 2;
+  static constexpr int TILE = R * col_blocks<D>() * ATOM;
   static constexpr int RING = STAGES * 2 * TILE;
   static constexpr int RES = RING;
   static constexpr int BAR = RES + (HEADS * D + 2 * HEADS) * 4;
   static constexpr int BYTES = BAR + STAGES * 8;
   static constexpr int ALLOC = BYTES + 1024;  // room to align the base for the swizzle
+  static_assert(ALLOC <= 232448, "more shared memory than a block may use");
 };
 
 // One block: the tiles of rank j of the cluster, of one (batch, kv head, tile
@@ -109,7 +115,7 @@ __global__ void __launch_bounds__(NTHREADS, D == 64 ? 4 : 2)
 decode_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
               const DecodeParams p) {
   using L = DecodeSmem<D>;
-  constexpr int NCB = D / 64;  // 64-element column blocks of a row
+  constexpr int NCB = col_blocks<D>();  // 64-element column blocks of a row
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* const smem = align1024(smem_raw);
@@ -163,7 +169,7 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ 
   uint32_t qa[D / 16][2];
   {
     const bool live = g0 + g < p.G;
-    const T* qrow = static_cast<const T*>(p.q) + (static_cast<long long>(b) * p.H + kvh * p.G + g0 + g) * D;
+    const T* qrow = static_cast<const T*>(p.q) + b * p.q_sb + (kvh * p.G + g0 + g) * p.q_sh;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       qa[kk][0] = live ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 2 * t) : 0u;
@@ -298,8 +304,7 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ 
         at += w * cluster.map_shared_rank(res_acc, j)[idx];
       }
     }
-    const long long head = static_cast<long long>(b) * p.H + kvh * p.G + g0 + h;
-    static_cast<T*>(p.out)[head * D + d] = Cvt<T>::from_float(at / fmaxf(lt, 1e-30f));
+    static_cast<T*>(p.out)[b * p.o_sb + (kvh * p.G + g0 + h) * p.o_sh + d] = Cvt<T>::from_float(at / fmaxf(lt, 1e-30f));
   }
   cluster.sync();  // no block leaves while another still reads its partial
 }
@@ -361,7 +366,9 @@ int occupancy(int n_split, int* clusters) {
 
 // (B, Smax, KVH, D) through strides s = (b, s, kvh) as a 4-D map (D, KVH,
 // Smax, B) with a box of (64, 1, R, 1): R rows of one (batch, kv head), one
-// 64-element column block of them, in the 128-byte swizzle
+// 64-element column block of them, in the 128-byte swizzle. The innermost
+// extent is D: at D = 160 the third block's last 32 columns read as zeros,
+// never as the next kv head's
 int map_cache(CUtensorMap* map, const void* base, int dtype, const long long* s, int B, int Smax, int KVH, int D) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(KVH),
                               static_cast<cuuint64_t>(Smax), static_cast<cuuint64_t>(B)};
@@ -372,7 +379,7 @@ int map_cache(CUtensorMap* map, const void* base, int dtype, const long long* s,
 
 }  // namespace
 
-// Cache strides are in elements: k b,s,kvh | v b,s,kvh. dtype: 0 = bf16,
+// Strides are in elements: k b,s,kvh | v b,s,kvh | q b,h | out b,h. dtype: 0 = bf16,
 // 1 = f16. A block takes 8 query heads of one kv head (a group of more takes
 // several blocks). n_split = blocks of the cluster that share one sweep (1 to
 // 16). Launches one kernel and returns cudaGetLastError(), or one of the
@@ -382,9 +389,10 @@ extern "C" int decode_attention_launch(
     int B, int H, int KVH, int D, int Smax, int n_split, float scale, int dtype, void* stream) {
   DecodeParams p;
   p.q = q; p.kv_len = kv_len; p.out = out;
+  p.q_sb = strides[6]; p.q_sh = strides[7]; p.o_sb = strides[8]; p.o_sh = strides[9];
   p.H = H; p.G = H / KVH; p.Smax = Smax; p.n_gt = (p.G + HEADS - 1) / HEADS;
   p.scale = scale;
-  if (!((D == 64 || D == 128) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
+  if (!((D == 64 || D == 128 || D == 160) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
   if (n_split < 1 || n_split > MAX_CLUSTER) return ERR_PLAN;
   CUtensorMap m[2];
   int r;
@@ -394,7 +402,9 @@ extern "C" int decode_attention_launch(
   if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64>(m, p, B, KVH, n_split, st);
   if (dtype == 0 && D == 128) return launch<__nv_bfloat16, 128>(m, p, B, KVH, n_split, st);
   if (dtype == 1 && D == 64) return launch<__half, 64>(m, p, B, KVH, n_split, st);
-  return launch<__half, 128>(m, p, B, KVH, n_split, st);
+  if (dtype == 1 && D == 128) return launch<__half, 128>(m, p, B, KVH, n_split, st);
+  if (dtype == 0) return launch<__nv_bfloat16, 160>(m, p, B, KVH, n_split, st);
+  return launch<__half, 160>(m, p, B, KVH, n_split, st);
 }
 
 // Blocks of the kernel for (D, dtype) that one SM holds at once, and in
@@ -406,5 +416,7 @@ extern "C" int decode_attention_occupancy(int D, int dtype, int n_split, int* cl
   if (dtype == 0 && D == 128) return occupancy<__nv_bfloat16, 128>(n_split, clusters);
   if (dtype == 1 && D == 64) return occupancy<__half, 64>(n_split, clusters);
   if (dtype == 1 && D == 128) return occupancy<__half, 128>(n_split, clusters);
+  if (dtype == 0 && D == 160) return occupancy<__nv_bfloat16, 160>(n_split, clusters);
+  if (dtype == 1 && D == 160) return occupancy<__half, 160>(n_split, clusters);
   return ERR_NO_KERNEL;
 }

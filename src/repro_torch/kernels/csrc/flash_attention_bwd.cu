@@ -37,9 +37,16 @@
 //   * larger tiles, so that every fetched tile serves more work: the dk/dv
 //     kernel owns 128 KV rows a block (64 a consumer warpgroup) against q tiles
 //     of 64 folded rows, and the dq kernel 128 folded q rows against KV tiles
-//     of 128 (64 at D = 128). dk and dv (dq) stay in registers for the whole
-//     sweep, and each kernel writes its outputs once: no atomics, no second
-//     pass, and two runs give the same bits;
+//     of 128 (64 at D = 128 and 160). dk and dv (dq) stay in registers for the
+//     whole sweep, and each kernel writes its outputs once: no atomics, no
+//     second pass, and two runs give the same bits;
+//   * at D = 160 (stablelm-12b) a row is two and a half swizzle atoms: three
+//     64-element column blocks, the last 32 columns past the tensor maps'
+//     extent of D, so TMA zero-fills them and no product reads them (the
+//     s and dp products take 10 k16 steps; dv, dk and dq are m64n160k16
+//     wgmma). dk and dv of 64 rows would take 160 registers a thread, so
+//     there a dk/dv block owns 64 KV rows, warpgroup 0 holding their dv and
+//     warpgroup 1 their dk (dkv_split), and the dq kernel's ring is 2 deep;
 //   * the softmax costs few instructions, since each step's tensor work waits
 //     for it: one ex2.approx.ftz an element, and the mask test outside the
 //     element loop (a tile that needs no mask runs a loop without one);
@@ -77,17 +84,42 @@ namespace {
 
 constexpr int NCONSUMER = 2;                      // consumer warpgroups a block
 constexpr int NTHREADS = (NCONSUMER + 1) * 128;   // + one producer warpgroup
-constexpr int OWN_ROWS = 128;   // rows a block owns: KV rows (dk/dv), folded q rows (dq)
+constexpr int DQ_ROWS = 128;   // folded q rows a block of the dq kernel owns
 constexpr int SWEEP_ROWS = 64;  // folded q rows of a swept tile of the dk/dv kernel
-constexpr int STAGES = 3;       // depth of the ring of swept tiles
 constexpr int CONSUMER_REGS = 240;
 constexpr int PRODUCER_REGS = 24;
 
 // KV rows of a swept tile of the dq kernel: 128 at D = 64 (s, dp and dq then
-// take 160 of a consumer's 240 registers), 64 at D = 128 (dq alone takes 64).
+// take 160 of a consumer's 240 registers), 64 at D = 128 and 160 (dq alone
+// takes 64 and 80).
 template <int D>
 __host__ __device__ constexpr int dq_kv_rows() {
   return D == 64 ? 128 : 64;
+}
+
+// Depth of the dq kernel's ring of (K, V) tiles: 3, and 2 at D = 160, where
+// three would not fit beside the q and do tiles (48 KB each, 24 KB a K or V
+// tile). The dk/dv kernel keeps 3 (its resident K and V tiles are 24 KB each
+// at D = 160).
+template <int D>
+__host__ __device__ constexpr int dq_stages() {
+  return D == 160 ? 2 : 3;
+}
+constexpr int DKV_STAGES = 3;
+
+// How the dk/dv kernel splits its work. At D = 64 and 128 each consumer
+// warpgroup owns 64 KV rows and holds their dk and dv (a block owns 128). At
+// D = 160 dk and dv would take 160 of a thread's registers before s and dp
+// (the most is 255): there the block owns 64 KV rows, warpgroup 0 holds their
+// dv and warpgroup 1 their dk. Both compute s = k.q^T (one product more per
+// pair, 5 * 2D FLOP instead of 4 * 2D); only warpgroup 1 computes dp.
+template <int D>
+__host__ __device__ constexpr bool dkv_split() {
+  return D == 160;
+}
+template <int D>
+__host__ __device__ constexpr int dkv_own_rows() {
+  return dkv_split<D>() ? 64 : 128;
 }
 
 struct DqParams {
@@ -118,34 +150,76 @@ struct DkvParams {
   float scale;
 };
 
-// Shared memory of the dq kernel: the resident q and do tiles (OWN_ROWS x D
-// each), STAGES x (K, V) tiles (dq_kv_rows x D each), then the barriers.
-// Every tile starts on a 1024-byte boundary, as the 128-byte swizzle needs.
+// Shared memory of the dq kernel: the resident q and do tiles (DQ_ROWS
+// rows each), STAGES x (K, V) tiles (dq_kv_rows rows each), each row
+// col_blocks<D> swizzled 128-byte blocks, then the barriers. Every tile
+// starts on a 1024-byte boundary, as the 128-byte swizzle needs.
 template <int D>
 struct DqSmem {
-  static constexpr int OWN = OWN_ROWS * D * 2;
-  static constexpr int SWEEP = dq_kv_rows<D>() * D * 2;
+  static constexpr int STAGES = dq_stages<D>();
+  static constexpr int OWN = DQ_ROWS * col_blocks<D>() * ATOM;
+  static constexpr int SWEEP = dq_kv_rows<D>() * col_blocks<D>() * ATOM;
   static constexpr int Q = 0, DO = OWN, STAGE = 2 * OWN;
   static constexpr int BAR = STAGE + STAGES * 2 * SWEEP;  // full[STAGES], empty[STAGES], q
   static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8;
   static constexpr int ALLOC = BYTES + 1024;  // room to align the base
+  static_assert(ALLOC <= 232448, "more shared memory than a block may use");
 };
 
-// Shared memory of the dk/dv kernel: the resident K and V tiles (OWN_ROWS x D
-// each), STAGES x (q, do) tiles (SWEEP_ROWS x D each), STAGES x (-lse log2 e,
+// Shared memory of the dk/dv kernel: the resident K and V tiles
+// (dkv_own_rows rows each), STAGES x (q, do) tiles (SWEEP_ROWS rows each),
+// each row col_blocks<D> swizzled 128-byte blocks, STAGES x (-lse log2 e,
 // delta) of SWEEP_ROWS floats, the position of each row of a q tile, then the
 // barriers.
 template <int D>
 struct DkvSmem {
-  static constexpr int OWN = OWN_ROWS * D * 2;
-  static constexpr int SWEEP = SWEEP_ROWS * D * 2;
+  static constexpr int STAGES = DKV_STAGES;
+  static constexpr int OWN = dkv_own_rows<D>() * col_blocks<D>() * ATOM;
+  static constexpr int SWEEP = SWEEP_ROWS * col_blocks<D>() * ATOM;
   static constexpr int K = 0, V = OWN, STAGE = 2 * OWN;
   static constexpr int STATS = STAGE + STAGES * 2 * SWEEP;
   static constexpr int POS = STATS + STAGES * 2 * SWEEP_ROWS * 4;
   static constexpr int BAR = POS + SWEEP_ROWS * 4;  // full[STAGES], empty[STAGES], kv
   static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8;
   static constexpr int ALLOC = BYTES + 1024;
+  static_assert(ALLOC <= 232448, "more shared memory than a block may use");
 };
+
+// p^T = exp(scale * s^T - lse) of one (64 kv rows x 64 folded q rows) tile in
+// place, masked to 0 on a diagonal tile only (``masked``): this thread's kv
+// rows are kv_a and kv_b, its columns' -lse log2 e are ``nlc``, and the
+// position of column c is first + qpos[c].
+__device__ __forceinline__ void dkv_probs(float (&sacc)[32], const float2 (&nlc)[8], const int* qpos, int first,
+                                          bool masked, int kv_a, int kv_b, float c2, int t) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int2 qp = *reinterpret_cast<const int2*>(qpos + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool live = first + ((e & 1) ? qp.y : qp.x) >= ((e >> 1) ? kv_b : kv_a);
+        sacc[4 * j + e] = live ? exp2_ftz(fmaf(sacc[4 * j + e], c2, (e & 1) ? nlc[j].y : nlc[j].x)) : 0.f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sacc[4 * j + e] = exp2_ftz(fmaf(sacc[4 * j + e], c2, (e & 1) ? nlc[j].y : nlc[j].x));
+    }
+  }
+}
+
+// ds^T = p^T o (dp^T - delta) in place, the columns' delta at ``dl``
+__device__ __forceinline__ void dkv_ds(float (&sacc)[32], const float (&dpacc)[32], const float* dl, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sacc[4 * j + e] *= dpacc[4 * j + e] - ((e & 1) ? d2.y : d2.x);
+  }
+}
 
 
 // ---------------------------------------------------------------------------
@@ -158,8 +232,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
                     const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                     const DqParams p) {
   using L = DqSmem<D>;
-  constexpr int NCB = D / 64;  // 64-element column blocks of a row
+  constexpr int NCB = col_blocks<D>();  // 64-element column blocks of a row
   constexpr int NK = dq_kv_rows<D>();
+  constexpr int STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* const smem = align1024(smem_raw);
   const uint32_t sbase = smem_u32(smem);
@@ -190,9 +265,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (rows_tile < OWN_ROWS) {
-    zero_rows<D, NTHREADS>(smem + L::Q, OWN_ROWS, rows_tile, tid);
-    zero_rows<D, NTHREADS>(smem + L::DO, OWN_ROWS, rows_tile, tid);
+  if (rows_tile < DQ_ROWS) {
+    zero_rows<D, NTHREADS>(smem + L::Q, DQ_ROWS, rows_tile, tid);
+    zero_rows<D, NTHREADS>(smem + L::DO, DQ_ROWS, rows_tile, tid);
     fence_proxy_async();
   }
   __syncthreads();
@@ -208,8 +283,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
       mbar_arrive_expect_tx(qbar, 2 * NCB * rows_tile * ATOM);
 #pragma unroll
       for (int cb = 0; cb < NCB; ++cb) {
-        tma_load_5d(sbase + L::Q + cb * OWN_ROWS * ATOM, &tm_q, qbar, cb * 64, g0, pos0, h, b);
-        tma_load_5d(sbase + L::DO + cb * OWN_ROWS * ATOM, &tm_do, qbar, cb * 64, g0, pos0, h, b);
+        tma_load_5d(sbase + L::Q + cb * DQ_ROWS * ATOM, &tm_q, qbar, cb * 64, g0, pos0, h, b);
+        tma_load_5d(sbase + L::DO + cb * DQ_ROWS * ATOM, &tm_do, qbar, cb * 64, g0, pos0, h, b);
       }
       for (int it = 0; it < n_kt; ++it) {
         const int s = it % STAGES;
@@ -296,11 +371,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          mma_ss<T, NK>(sacc, desc_k(sq, OWN_ROWS, 64 * wg, kk), desc_k(sk, NK, 0, kk), kk > 0);
+          mma_ss<T, NK>(sacc, desc_k(sq, DQ_ROWS, 64 * wg, kk), desc_k(sk, NK, 0, kk), kk > 0);
         wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          mma_ss<T, NK>(dpacc, desc_k(sdo, OWN_ROWS, 64 * wg, kk), desc_k(sv, NK, 0, kk), kk > 0);
+          mma_ss<T, NK>(dpacc, desc_k(sdo, DQ_ROWS, 64 * wg, kk), desc_k(sv, NK, 0, kk), kk > 0);
         wgmma_commit();
         wgmma_wait<1>();
         pin(sacc);
@@ -368,7 +443,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
                      const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                      const DkvParams p) {
   using L = DkvSmem<D>;
-  constexpr int NCB = D / 64;
+  constexpr int NCB = col_blocks<D>();
+  constexpr int STAGES = L::STAGES;
+  constexpr int OWN = dkv_own_rows<D>();
+  constexpr bool SPLIT = dkv_split<D>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* const smem = align1024(smem_raw);
   const uint32_t sbase = smem_u32(smem);
@@ -381,7 +459,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
   const TilePlan tp = p.tp;
   const int rows_tile = tp.P * tp.Gt;
   // heaviest first: under the causal mask KV tile 0 meets every q tile
-  const int kv0 = blockIdx.z * OWN_ROWS;
+  const int kv0 = blockIdx.z * OWN;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
@@ -422,11 +500,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
         prefetch_map(&tm_do);
         prefetch_map(&tm_k);
         prefetch_map(&tm_v);
-        mbar_arrive_expect_tx(kvbar, 2 * NCB * OWN_ROWS * ATOM);
+        mbar_arrive_expect_tx(kvbar, 2 * NCB * OWN * ATOM);
 #pragma unroll
         for (int cb = 0; cb < NCB; ++cb) {
-          tma_load_4d(sbase + L::K + cb * OWN_ROWS * ATOM, &tm_k, kvbar, cb * 64, kv0, h, b);
-          tma_load_4d(sbase + L::V + cb * OWN_ROWS * ATOM, &tm_v, kvbar, cb * 64, kv0, h, b);
+          tma_load_4d(sbase + L::K + cb * OWN * ATOM, &tm_k, kvbar, cb * 64, kv0, h, b);
+          tma_load_4d(sbase + L::V + cb * OWN * ATOM, &tm_v, kvbar, cb * 64, kv0, h, b);
         }
       }
       const long long stat0 = (static_cast<long long>(b) * p.KVH + h) * p.Sq * p.G;
@@ -458,121 +536,139 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
         mbar_arrive(&full[s]);
       }
     }
-  } else {
-    // ---- consumers: 64 kv rows each, dk and dv in registers for the whole sweep
-    setmaxnreg_inc<CONSUMER_REGS>();
-    const int wg = tid >> 7;
-    const int wl = (tid >> 5) & 3;
-    const int lane = tid & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    const int kv_w = kv0 + 64 * wg;  // this warpgroup's first kv row
-    const int kv_a = kv_w + 16 * wl + g;
-    const int kv_b = kv_a + 8;
-    const float c2 = p.scale * LOG2E;
-    const uint32_t sk = sbase + L::K;
-    const uint32_t sv = sbase + L::V;
+    return;
+  }
 
-    float dk[D / 2], dv[D / 2];
-    zero(dk);
-    zero(dv);
-    if (n_iter > 0) mbar_wait(kvbar, 0);
+  // ---- consumers: 64 kv rows each (SPLIT: the same 64 for both), their dk
+  // and dv (SPLIT: dv in warpgroup 0, dk in warpgroup 1) in registers for the
+  // whole sweep
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = tid >> 7;
+  const int wl = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int krow = SPLIT ? 0 : 64 * wg;  // this warpgroup's first row of the K and V tiles
+  const int kv_w = kv0 + krow;           // and its kv position
+  const int kv_a = kv_w + 16 * wl + g;
+  const int kv_b = kv_a + 8;
+  const float c2 = p.scale * LOG2E;
+  const uint32_t sk = sbase + L::K;
+  const uint32_t sv = sbase + L::V;
 
-    for (int it = 0; it < n_iter; ++it) {
-      const int s = it % STAGES;
-      const int tile = tile_begin + it;
-      const int first = p.q_offset + (tile / tp.gchunks) * tp.P;  // first position of the q tile
-      mbar_wait(&full[s], (it / STAGES) & 1);
-      // every position of the tile before this warpgroup's first kv row: all masked
-      const bool dead = p.causal && first + tp.P - 1 < kv_w;
-      if (!dead) {
-        const uint32_t sq = sbase + L::STAGE + s * 2 * L::SWEEP;
-        const uint32_t sdo = sq + L::SWEEP;
-        const float* nl = stats + s * 2 * SWEEP_ROWS;
-        const float* dl = nl + SWEEP_ROWS;
-        float2 nlc[8];  // -lse log2 e of this thread's columns 8 j + 2 t, + 1
+  float dk[SPLIT ? 1 : D / 2], acc[D / 2];  // acc: dv, or (SPLIT) this warpgroup's dk or dv
+  zero(dk);
+  zero(acc);
+  if (n_iter > 0) mbar_wait(kvbar, 0);
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % STAGES;
+    const int tile = tile_begin + it;
+    const int first = p.q_offset + (tile / tp.gchunks) * tp.P;  // first position of the q tile
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    // every position of the tile before this warpgroup's first kv row: all masked
+    const bool dead = p.causal && first + tp.P - 1 < kv_w;
+    if (!dead) {
+      const uint32_t sq = sbase + L::STAGE + s * 2 * L::SWEEP;
+      const uint32_t sdo = sq + L::SWEEP;
+      const float* nl = stats + s * 2 * SWEEP_ROWS;
+      const float* dl = nl + SWEEP_ROWS;
+      float2 nlc[8];  // -lse log2 e of this thread's columns 8 j + 2 t, + 1
 #pragma unroll
-        for (int j = 0; j < 8; ++j) nlc[j] = *reinterpret_cast<const float2*>(nl + 8 * j + 2 * t);
-        float sacc[32], dpacc[32];
-        // s^T = k.q^T and dp^T = v.do^T, 64 kv rows x 64 folded rows a warpgroup
+      for (int j = 0; j < 8; ++j) nlc[j] = *reinterpret_cast<const float2*>(nl + 8 * j + 2 * t);
+      const bool masked = p.causal && first < kv_w + 63;
+      // the accumulator that dk += ds^T.q adds to
+      float(&dk_acc)[D / 2] = [&]() -> float(&)[D / 2] {
+        if constexpr (SPLIT) return acc;
+        else return dk;
+      }();
+      float sacc[32], dpacc[32];
+      // Each path issues, commits and waits for its own products: with a
+      // wgmma group left open across paths that differ, ptxas serializes
+      // every wgmma of the kernel (its message C7520).
+      if (SPLIT && wg == 0) {
+        // s^T = k.q^T, 64 kv rows x 64 folded rows, then dv += p^T.do (do
+        // read transposed: its rows are the k dim)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          mma_ss<T, 64>(sacc, desc_k(sk, OWN_ROWS, 64 * wg, kk), desc_k(sq, SWEEP_ROWS, 0, kk), kk > 0);
+          mma_ss<T, 64>(sacc, desc_k(sk, OWN, krow, kk), desc_k(sq, SWEEP_ROWS, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(sacc);
+        dkv_probs(sacc, nlc, qpos, first, masked, kv_a, kv_b, c2, t);
+        uint32_t pf[4][4];
+        to_a_frags<T, 64>(pf, sacc);
+        wgmma_fence();
+        pin(acc);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma_rs<T, D>(acc, pf[kk], desc_mn(sdo, SWEEP_ROWS, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(acc);
+        pin(pf);
+      } else {
+        // s^T = k.q^T and dp^T = v.do^T, 64 kv rows x 64 folded rows
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_ss<T, 64>(sacc, desc_k(sk, OWN, krow, kk), desc_k(sq, SWEEP_ROWS, 0, kk), kk > 0);
         wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          mma_ss<T, 64>(dpacc, desc_k(sv, OWN_ROWS, 64 * wg, kk), desc_k(sdo, SWEEP_ROWS, 0, kk), kk > 0);
+          mma_ss<T, 64>(dpacc, desc_k(sv, OWN, krow, kk), desc_k(sdo, SWEEP_ROWS, 0, kk), kk > 0);
         wgmma_commit();
         wgmma_wait<1>();
         pin(sacc);
-
-        // p^T = exp(scale * s^T - lse), masked to 0 on a diagonal tile only
-        if (p.causal && first < kv_w + 63) {
+        dkv_probs(sacc, nlc, qpos, first, masked, kv_a, kv_b, c2, t);
+        uint32_t pf[4][4];  // (not SPLIT) p, read by the dv product until the last wait
+        if constexpr (!SPLIT) {
+          // dv += p^T.do
+          to_a_frags<T, 64>(pf, sacc);
+          wgmma_fence();
+          pin(acc);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int2 qp = *reinterpret_cast<const int2*>(qpos + 8 * j + 2 * t);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const bool live = first + ((e & 1) ? qp.y : qp.x) >= ((e >> 1) ? kv_b : kv_a);
-              sacc[4 * j + e] = live ? exp2_ftz(fmaf(sacc[4 * j + e], c2, (e & 1) ? nlc[j].y : nlc[j].x)) : 0.f;
-            }
-          }
+          for (int kk = 0; kk < 4; ++kk) mma_rs<T, D>(acc, pf[kk], desc_mn(sdo, SWEEP_ROWS, kk));
+          wgmma_commit();
+          wgmma_wait<1>();
         } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              sacc[4 * j + e] = exp2_ftz(fmaf(sacc[4 * j + e], c2, (e & 1) ? nlc[j].y : nlc[j].x));
-          }
+          wgmma_wait<0>();
         }
-        uint32_t pf[4][4];
-        to_a_frags<T, 64>(pf, sacc);
-
-        // dv += p^T.do (do read transposed: its rows are the k dim)
-        wgmma_fence();
-        pin(dv);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) mma_rs<T, D>(dv, pf[kk], desc_mn(sdo, SWEEP_ROWS, kk));
-        wgmma_commit();
-
-        // ds^T = p^T o (dp^T - delta)
-        wgmma_wait<1>();
+        // ds^T = p^T o (dp^T - delta), then dk += ds^T.q (times scale at the end)
         pin(dpacc);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sacc[4 * j + e] *= dpacc[4 * j + e] - ((e & 1) ? d2.y : d2.x);
-        }
+        dkv_ds(sacc, dpacc, dl, t);
         uint32_t dsf[4][4];
         to_a_frags<T, 64>(dsf, sacc);
-
-        // dk += ds^T.q (times scale at the end)
         wgmma_fence();
-        pin(dk);
+        pin(dk_acc);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) mma_rs<T, D>(dk, dsf[kk], desc_mn(sq, SWEEP_ROWS, kk));
+        for (int kk = 0; kk < 4; ++kk) mma_rs<T, D>(dk_acc, dsf[kk], desc_mn(sq, SWEEP_ROWS, kk));
         wgmma_commit();
         wgmma_wait<0>();
-        pin(dv);
-        pin(dk);
-        pin(pf);
+        pin(acc);
+        pin(dk_acc);
         pin(dsf);
+        if constexpr (!SPLIT) pin(pf);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
 
-    T* dkb = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-    T* dvb = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
-    if (kv_a < p.Skv) {
-      store_row<T, D>(dkb + static_cast<long long>(kv_a) * p.dk_ss, dk, 0, p.scale, t);
-      store_row<T, D>(dvb + static_cast<long long>(kv_a) * p.dv_ss, dv, 0, 1.f, t);
-    }
-    if (kv_b < p.Skv) {
-      store_row<T, D>(dkb + static_cast<long long>(kv_b) * p.dk_ss, dk, 1, p.scale, t);
-      store_row<T, D>(dvb + static_cast<long long>(kv_b) * p.dv_ss, dv, 1, 1.f, t);
+  T* dkb = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  T* dvb = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kv = i ? kv_b : kv_a;
+    if (kv >= p.Skv) continue;
+    T* const dk_row = dkb + static_cast<long long>(kv) * p.dk_ss;
+    T* const dv_row = dvb + static_cast<long long>(kv) * p.dv_ss;
+    if constexpr (SPLIT) {
+      if (wg == 1) store_row<T, D>(dk_row, acc, i, p.scale, t);
+      else store_row<T, D>(dv_row, acc, i, 1.f, t);
+    } else {
+      store_row<T, D>(dk_row, dk, i, p.scale, t);
+      store_row<T, D>(dv_row, acc, i, 1.f, t);
     }
   }
 }
@@ -595,7 +691,7 @@ int launch_dkv(const CUtensorMap (&m)[4], const DkvParams& p, int B, cudaStream_
   const cudaError_t err =
       cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.KVH, B, (p.Skv + OWN_ROWS - 1) / OWN_ROWS);
+  const dim3 grid(p.KVH, B, (p.Skv + dkv_own_rows<D>() - 1) / dkv_own_rows<D>());
   flash_bwd_dkv_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(m[0], m[1], m[2], m[3], p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -622,20 +718,22 @@ extern "C" int flash_attention_bwd_dq_launch(
   p.KVH = KVH; p.Sq = Sq; p.Skv = Skv; p.G = G;
   p.tp = TilePlan{P, Gt, gchunks};
   p.causal = causal; p.q_offset = q_offset; p.scale = scale;
-  if (!plan_ok(p.tp, G, OWN_ROWS)) return ERR_PLAN;
-  if (!((D == 64 || D == 128) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
+  if (!plan_ok(p.tp, G, DQ_ROWS)) return ERR_PLAN;
+  if (!((D == 64 || D == 128 || D == 160) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
   CUtensorMap m[4];
   int r;
   if ((r = map_folded(&m[0], q, dtype, s, B, KVH, Sq, G, D, p.tp)) != 0) return r;
   if ((r = map_folded(&m[1], dout, dtype, s + 14, B, KVH, Sq, G, D, p.tp)) != 0) return r;
-  const int nk = D == 64 ? dq_kv_rows<64>() : dq_kv_rows<128>();
+  const int nk = D == 64 ? dq_kv_rows<64>() : D == 128 ? dq_kv_rows<128>() : dq_kv_rows<160>();
   if ((r = map_kv(&m[2], k, dtype, s + 4, B, KVH, Skv, D, nk)) != 0) return r;
   if ((r = map_kv(&m[3], v, dtype, s + 7, B, KVH, Skv, D, nk)) != 0) return r;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64) return launch_dq<__nv_bfloat16, 64>(m, p, B, st);
   if (dtype == 0 && D == 128) return launch_dq<__nv_bfloat16, 128>(m, p, B, st);
   if (dtype == 1 && D == 64) return launch_dq<__half, 64>(m, p, B, st);
-  return launch_dq<__half, 128>(m, p, B, st);
+  if (dtype == 1 && D == 128) return launch_dq<__half, 128>(m, p, B, st);
+  if (dtype == 0) return launch_dq<__nv_bfloat16, 160>(m, p, B, st);
+  return launch_dq<__half, 160>(m, p, B, st);
 }
 
 extern "C" int flash_attention_bwd_dkv_launch(
@@ -650,16 +748,19 @@ extern "C" int flash_attention_bwd_dkv_launch(
   p.tp = TilePlan{P, Gt, gchunks};
   p.causal = causal; p.q_offset = q_offset; p.scale = scale;
   if (!plan_ok(p.tp, G, SWEEP_ROWS)) return ERR_PLAN;
-  if (!((D == 64 || D == 128) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
+  if (!((D == 64 || D == 128 || D == 160) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
+  const int own = D == 160 ? dkv_own_rows<160>() : dkv_own_rows<64>();
   CUtensorMap m[4];
   int r;
   if ((r = map_folded(&m[0], q, dtype, s, B, KVH, Sq, G, D, p.tp)) != 0) return r;
   if ((r = map_folded(&m[1], dout, dtype, s + 10, B, KVH, Sq, G, D, p.tp)) != 0) return r;
-  if ((r = map_kv(&m[2], k, dtype, s + 4, B, KVH, Skv, D, OWN_ROWS)) != 0) return r;
-  if ((r = map_kv(&m[3], v, dtype, s + 7, B, KVH, Skv, D, OWN_ROWS)) != 0) return r;
+  if ((r = map_kv(&m[2], k, dtype, s + 4, B, KVH, Skv, D, own)) != 0) return r;
+  if ((r = map_kv(&m[3], v, dtype, s + 7, B, KVH, Skv, D, own)) != 0) return r;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64) return launch_dkv<__nv_bfloat16, 64>(m, p, B, st);
   if (dtype == 0 && D == 128) return launch_dkv<__nv_bfloat16, 128>(m, p, B, st);
   if (dtype == 1 && D == 64) return launch_dkv<__half, 64>(m, p, B, st);
-  return launch_dkv<__half, 128>(m, p, B, st);
+  if (dtype == 1 && D == 128) return launch_dkv<__half, 128>(m, p, B, st);
+  if (dtype == 0) return launch_dkv<__nv_bfloat16, 160>(m, p, B, st);
+  return launch_dkv<__half, 160>(m, p, B, st);
 }

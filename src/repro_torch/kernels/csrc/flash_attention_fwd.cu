@@ -22,13 +22,20 @@
 //   * a block owns the folded q rows of a work item (q tile, kv head,
 //     batch), 64 a consumer warpgroup: three warpgroups (192 rows) at D = 64,
 //     so that while one runs its softmax two others keep the tensor cores
-//     busy; two (128 rows) at D = 128, where o takes 64 registers a thread.
-//     One producer warp feeds them: the q tile, then K and V tiles of 128
-//     rows at D = 64 (64 at D = 128) by TMA into a ring of STAGES buffers, K
-//     and V behind separate barriers. The consumers take the producer's
+//     busy; two (128 rows) at D = 128 and 160, where o takes 64 and 80
+//     registers a thread. One producer warp feeds them: the q tile, then K
+//     and V tiles of 128 rows at D = 64 (64 at D = 128 and 160) by TMA into a
+//     ring of 3 buffers (2 at D = 160), K and V behind separate barriers. The consumers take the producer's
 //     registers (setmaxnreg). q, o are read and written through a 5-D tensor
 //     map (D, G, S, KVH, B) whose box is a tile of whole positions, so the
 //     GQA fold stays a view; k, v through a 4-D map (D, S, KVH, B);
+//   * D = 160 (stablelm-12b) is two and a half swizzle atoms: a row lies in
+//     three 64-element column blocks whose last 32 columns are past the
+//     tensor maps' extent of D, so TMA zero-fills them on a load and clips
+//     them on the store of o, and never touches the next head's columns of a
+//     GQA fold view. s = q.k^T takes 10 k16 steps, which stop at column 160;
+//     o += p.v is one m64n160k16 wgmma, which reads two whole column blocks
+//     of V and half of the third;
 //   * the kernel is persistent: one block an SM walks over the work items,
 //     heaviest first (item w is q tile n_tiles - 1 - w / (KVH B)), block i
 //     taking items i, i + gridDim.x, ... The next item's q tile loads while
@@ -71,15 +78,22 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int STAGES = 3;  // depth of the ring of (K, V) tiles
 constexpr int PRODUCER_REGS = 24;
 
 // Consumer warpgroups a block, 64 folded q rows each: 3 at D = 64, where a
 // consumer thread holds s (64 registers), p (32) and o (32) within 160; 2 at
-// D = 128, where o alone takes 64.
+// D = 128 and 160, where o alone takes 64 and 80.
 template <int D>
 __host__ __device__ constexpr int n_consumers() {
   return D == 64 ? 3 : 2;
+}
+
+// Depth of the ring of (K, V) tiles: 3, and 2 at D = 160, where a row takes
+// three column blocks and three stages would not fit beside the q and o
+// tiles in 227 KB (48 KB each, 24 KB a K or V tile).
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return D == 160 ? 2 : 3;
 }
 
 // Registers of a consumer thread after setmaxnreg: the SM's 64 K registers
@@ -89,7 +103,7 @@ __host__ __device__ constexpr int consumer_regs() {
   return NC == 3 ? 160 : 240;
 }
 
-// KV rows of a swept tile: 128 at D = 64, 64 at D = 128.
+// KV rows of a swept tile: 128 at D = 64, 64 at D = 128 and 160.
 template <int D>
 __host__ __device__ constexpr int kv_rows() {
   return D == 64 ? 128 : 64;
@@ -104,20 +118,23 @@ struct FwdParams {
   float scale;
 };
 
-// Shared memory: the q tile and the o tile (QR x D each), STAGES x (K, V)
-// tiles (kv_rows x D each), then the barriers. Every tile starts on a
-// 1024-byte boundary, as the 128-byte swizzle needs.
+// Shared memory: the q tile and the o tile (QR rows each), STAGES x (K, V)
+// tiles (kv_rows rows each), each row col_blocks<D> swizzled 128-byte
+// blocks, then the barriers. Every tile starts on a 1024-byte boundary, as
+// the 128-byte swizzle needs.
 template <int D>
 struct FwdSmem {
   static constexpr int NC = n_consumers<D>();
+  static constexpr int STAGES = stages<D>();
   static constexpr int QR = 64 * NC;  // folded q rows a block owns
-  static constexpr int QT = QR * D * 2;
-  static constexpr int KV = kv_rows<D>() * D * 2;
+  static constexpr int QT = QR * col_blocks<D>() * ATOM;
+  static constexpr int KV = kv_rows<D>() * col_blocks<D>() * ATOM;
   static constexpr int Q = 0, O = QT, STAGE = 2 * QT;
   // full_k[STAGES], full_v[STAGES], empty[STAGES], q_full, q_empty
   static constexpr int BAR = STAGE + STAGES * 2 * KV;
   static constexpr int BYTES = BAR + (3 * STAGES + 2) * 8;
   static constexpr int ALLOC = BYTES + 1024;  // room to align the base
+  static_assert(ALLOC <= 232448, "more shared memory than a block may use");
 };
 
 // One work item: the q tile ``tile`` of (kv head h, batch b). Items are
@@ -222,8 +239,9 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)
 }
 
 // The o accumulator (64 x D of one warpgroup) times the row factors, rounded
-// to T, into the 128-byte-swizzled tile ``tile`` (QR rows, D / 64 column
-// blocks) at rows [r0, r0 + 64): the layout TMA read q in and writes o from.
+// to T, into the 128-byte-swizzled tile ``tile`` (QR rows, col_blocks<D>
+// column blocks) at rows [r0, r0 + 64): the layout TMA read q in and writes o
+// from (the columns past D, where D = 160, are neither written nor stored).
 // Row r's 16-byte chunk c lies at chunk c ^ (r % 8) of its 128-byte row.
 template <typename T, int D, int QR>
 __device__ __forceinline__ void o_to_smem(unsigned char* tile, int r0, const float (&o)[D / 2], const float (&f)[2],
@@ -254,8 +272,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   constexpr int NC = L::NC;
   constexpr int QR = L::QR;
   constexpr int NTHREADS = (NC + 1) * 128;
-  constexpr int NCB = D / 64;  // 64-element column blocks of a row
+  constexpr int NCB = col_blocks<D>();  // 64-element column blocks of a row
   constexpr int NK = kv_rows<D>();
+  constexpr int STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* const smem = align1024(smem_raw);
   const uint32_t sbase = smem_u32(smem);
@@ -503,12 +522,14 @@ extern "C" int flash_attention_fwd_blocks_per_sm(int D, int dtype) {
   if (dtype == 0 && D == 128) return blocks_per_sm<__nv_bfloat16, 128>();
   if (dtype == 1 && D == 64) return blocks_per_sm<__half, 64>();
   if (dtype == 1 && D == 128) return blocks_per_sm<__half, 128>();
+  if (dtype == 0 && D == 160) return blocks_per_sm<__nv_bfloat16, 160>();
+  if (dtype == 1 && D == 160) return blocks_per_sm<__half, 160>();
   return ERR_NO_KERNEL;
 }
 
 // Strides in elements: q b,kvh,s,g | k b,kvh,s | v b,kvh,s | o b,kvh,s,g
 // (14). (P, Gt, gchunks) is the tile plan of a block's folded q rows
-// (FwdSmem<D>::QR: 192 at D = 64, 128 at D = 128). dtype: 0 = bf16, 1 = f16. Launches one
+// (FwdSmem<D>::QR: 192 at D = 64, 128 at D = 128 and 160). dtype: 0 = bf16, 1 = f16. Launches one
 // kernel, one block an SM, and returns cudaGetLastError(), or one of the
 // negative ERR_ codes of hopper.cuh without launching.
 extern "C" int flash_attention_fwd_launch(
@@ -521,10 +542,11 @@ extern "C" int flash_attention_fwd_launch(
   p.tp = TilePlan{P, Gt, gchunks};
   p.n_tiles = ((Sq + P - 1) / P) * gchunks;
   p.causal = causal; p.q_offset = q_offset; p.scale = scale;
-  if (!((D == 64 || D == 128) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
-  if (!plan_ok(p.tp, G, D == 64 ? FwdSmem<64>::QR : FwdSmem<128>::QR)) return ERR_PLAN;
+  if (!((D == 64 || D == 128 || D == 160) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
+  if (!plan_ok(p.tp, G, D == 64 ? FwdSmem<64>::QR : D == 128 ? FwdSmem<128>::QR : FwdSmem<160>::QR))
+    return ERR_PLAN;
   CUtensorMap m[4];
-  const int nk = D == 64 ? kv_rows<64>() : kv_rows<128>();
+  const int nk = D == 64 ? kv_rows<64>() : D == 128 ? kv_rows<128>() : kv_rows<160>();
   int r;
   if ((r = map_folded(&m[0], q, dtype, s, B, KVH, Sq, G, D, p.tp)) != 0) return r;
   if ((r = map_kv(&m[1], k, dtype, s + 4, B, KVH, Skv, D, nk)) != 0) return r;
@@ -534,5 +556,7 @@ extern "C" int flash_attention_fwd_launch(
   if (dtype == 0 && D == 64) return launch<__nv_bfloat16, 64>(m, p, st);
   if (dtype == 0 && D == 128) return launch<__nv_bfloat16, 128>(m, p, st);
   if (dtype == 1 && D == 64) return launch<__half, 64>(m, p, st);
-  return launch<__half, 128>(m, p, st);
+  if (dtype == 1 && D == 128) return launch<__half, 128>(m, p, st);
+  if (dtype == 0) return launch<__nv_bfloat16, 160>(m, p, st);
+  return launch<__half, 160>(m, p, st);
 }

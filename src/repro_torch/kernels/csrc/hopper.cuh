@@ -21,6 +21,15 @@ namespace {
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int ATOM = 128;  // bytes of a swizzled row: 64 16-bit elements
 
+// 64-element column blocks of a row of D elements in a tile: D / 64 at
+// D = 64 and 128, three at D = 160, where the third block's last 32 columns
+// lie past the tensor map's extent of D: TMA fills them with zeros on a load
+// and clips them on a store, and no product reads them.
+template <int D>
+__host__ __device__ constexpr int col_blocks() {
+  return (D + 63) / 64;
+}
+
 // ---------------------------------------------------------------------------
 // shared memory, barriers, TMA
 // ---------------------------------------------------------------------------
@@ -118,8 +127,9 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// K-major operand (rows x D, D contiguous; a tile of ``cap`` rows holds D/64
-// column blocks of cap x 64): rows [r0, r0 + 8 m) and the k16 slice ``kk``.
+// K-major operand (rows x D, D contiguous; a tile of ``cap`` rows holds
+// col_blocks<D> column blocks of cap x 64): rows [r0, r0 + 8 m) and the k16
+// slice ``kk``.
 // Within a 128-byte row the slice starts 32 bytes further per step; 8-row
 // groups are 1024 bytes apart (SBO); LBO is unused for this layout.
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int cap, int r0, int kk) {
@@ -164,6 +174,9 @@ struct Mma {
   // d[64 x 64] or d[64 x 128] (+)= A . B, A from registers, B MN-major in shared memory
   static __device__ void rs_n64_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc);
   static __device__ void rs_n128_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc);
+  // d[64 x 160] (+)= A . B: N = 160 spans two whole column blocks of B and the
+  // first half of a third
+  static __device__ void rs_n160_tb(float (&d)[80], const uint32_t (&a)[4], uint64_t db, int acc);
   static __device__ uint32_t pack(float lo, float hi);
 };
 
@@ -259,6 +272,26 @@ __device__ __forceinline__ void Mma<__half>::rs_n128_tb(float (&d)[64], const ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+template <>
+__device__ __forceinline__ void Mma<__nv_bfloat16>::rs_n160_tb(float (&d)[80], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void Mma<__half>::rs_n160_tb(float (&d)[80], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 template <typename T, int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
   if constexpr (N == 64) {
@@ -270,10 +303,13 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t 
 
 template <typename T, int D>
 __device__ __forceinline__ void mma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  static_assert(D == 64 || D == 128 || D == 160, "no wgmma for this head_dim");
   if constexpr (D == 64) {
     Mma<T>::rs_n64_tb(d, a, db, 1);
-  } else {
+  } else if constexpr (D == 128) {
     Mma<T>::rs_n128_tb(d, a, db, 1);
+  } else {
+    Mma<T>::rs_n160_tb(d, a, db, 1);
   }
 }
 
@@ -436,7 +472,7 @@ __device__ __forceinline__ void store_row(T* row, const float (&acc)[D / 2], int
 // (NT threads share the work.)
 template <int D, int NT>
 __device__ __forceinline__ void zero_rows(unsigned char* tile, int cap, int r_begin, int tid) {
-  const int n = (cap - r_begin) * (D / 64) * (ATOM / 16);
+  const int n = (cap - r_begin) * col_blocks<D>() * (ATOM / 16);
   for (int i = tid; i < n; i += NT) {
     const int c = i % (ATOM / 16);
     const int r = r_begin + (i / (ATOM / 16)) % (cap - r_begin);
@@ -508,7 +544,10 @@ int make_map(CUtensorMap* map, const void* base, int dtype, int rank, const cuui
   return r == CUDA_SUCCESS ? 0 : ERR_MAP;
 }
 
-// (B, KVH, S, G, D) through strides s = (b, kvh, s, g), a box of (64, Gt, P, 1, 1)
+// (B, KVH, S, G, D) through strides s = (b, kvh, s, g), a box of (64, Gt, P, 1, 1).
+// The innermost extent is D, not the row stride: a box that reaches past D
+// (the third of D = 160) reads zeros there and writes nothing, never the
+// columns of the next head that a GQA fold view has beside a row.
 int map_folded(CUtensorMap* map, const void* base, int dtype, const long long* s, int B, int KVH, int S, int G,
                int D, const TilePlan& tp) {
   const cuuint64_t dims[5] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(G), static_cast<cuuint64_t>(S),
@@ -518,7 +557,8 @@ int map_folded(CUtensorMap* map, const void* base, int dtype, const long long* s
   return make_map(map, base, dtype, 5, dims, st, box);
 }
 
-// (B, KVH, S, D) through strides s = (b, kvh, s), a box of (64, rows, 1, 1)
+// (B, KVH, S, D) through strides s = (b, kvh, s), a box of (64, rows, 1, 1),
+// the innermost extent D as in map_folded
 int map_kv(CUtensorMap* map, const void* base, int dtype, const long long* s, int B, int KVH, int S, int D,
            int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),

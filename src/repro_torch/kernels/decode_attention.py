@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 160)
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 #: cache rows below which a further split of the sweep is not worth a block:
 #: at batch 1 of granite-3-2b splits of 4 tiles (64 rows each) were faster
@@ -93,18 +93,20 @@ def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor) -> Non
         raise ValueError("q and the caches lie on different devices")
 
 
-def _check_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor) -> None:
+def _check_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, out: torch.Tensor) -> None:
     D = q.shape[-1]
     if q.dtype not in _DTYPES:
         raise TypeError(f"the decode attention kernel takes bfloat16 or float16, not {q.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"the decode attention kernel is built for head_dim {HEAD_DIMS}, not {D}")
-    if not q.is_contiguous() or q.data_ptr() % 16:
-        raise ValueError(f"q must be contiguous and 16-byte aligned; strides {q.stride()}")
-    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
-        # TMA reads the cache where it lies: last dim contiguous, every other
-        # stride a positive multiple of 8 elements (16 bytes) where its dim
-        # has more than one entry, storage 16-byte aligned
+    if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} must have q's shape, type and device")
+    for name, x in (("q", q), ("out", out), ("k_cache", k_cache), ("v_cache", v_cache)):
+        # TMA reads the cache where it lies, and q and out are read and
+        # written where they lie: last dim contiguous, every other stride a
+        # positive multiple of 8 elements (16 bytes) where its dim has more
+        # than one entry, storage 16-byte aligned. So the first D columns of a
+        # wider buffer are taken as they are.
         if (x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16
                 or any(s <= 0 for s, n in zip(x.stride(), x.shape) if n > 1)):
             raise ValueError(
@@ -120,12 +122,15 @@ def decode_attention(
     kv_len: Union[torch.Tensor, int],  # valid cache entries: int, or 1-element int32 tensor
     *,
     scale: Optional[float] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Returns (B, H, D) attention output in q's type.
 
     On the card ``kv_len`` reaches the kernel as a 1-element int32 device
     tensor; pass one to change the length between launches with no host sync.
-    A Python int is wrapped into one.
+    A Python int is wrapped into one. ``out``, if given, is the (B, H, D)
+    tensor the kernel writes and returns (it may be a view into a wider
+    buffer); on the CPU it is filled with the plain version's result.
     """
     global launch_count
     _check(q, k_cache, v_cache)
@@ -139,11 +144,13 @@ def decode_attention(
     scale = D**-0.5 if scale is None else scale
 
     if q.device.type == "cpu":
-        return ref.decode_attention_reference(q, k_cache, v_cache, kv_len=kv_len, scale=scale)
+        o = ref.decode_attention_reference(q, k_cache, v_cache, kv_len=kv_len, scale=scale)
+        return o if out is None else out.copy_(o)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu tensors, not {q.device}")
 
-    _check_cuda(q, k_cache, v_cache)
+    out = torch.empty_like(q) if out is None else out
+    _check_cuda(q, k_cache, v_cache, out)
     if isinstance(kv_len, torch.Tensor):
         if kv_len.numel() != 1 or kv_len.dtype != torch.int32 or kv_len.device != q.device:
             raise ValueError(
@@ -154,12 +161,11 @@ def decode_attention(
         kv_len = torch.tensor([int(kv_len)], dtype=torch.int32, device=q.device)
 
     ns = n_splits(B, KVH, H // KVH, Smax, _build.sm_count(q.device.index))
-    out = torch.empty_like(q)
-    strides = (*k_cache.stride()[:3], *v_cache.stride()[:3])
+    strides = (*k_cache.stride()[:3], *v_cache.stride()[:3], *q.stride()[:2], *out.stride()[:2])
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-            (ctypes.c_longlong * 6)(*strides),
+            (ctypes.c_longlong * 10)(*strides),
             B, H, KVH, D, Smax, ns, float(scale), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )

@@ -15,13 +15,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 160)
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 
 #: launches of the forward kernel since import (or since the caller reset it)
@@ -62,16 +62,24 @@ def _bwd_kernels():
 
 
 #: the backward kernels' tiles: the dq kernel owns 128 folded q rows a block;
-#: the dk/dv kernel owns 128 KV rows a block and sweeps q tiles of 64 folded rows
-DQ_TILE_ROWS, DKV_TILE_ROWS, DKV_KV_ROWS = 128, 64, 128
+#: the dk/dv kernel sweeps q tiles of 64 folded rows (the KV rows it owns are
+#: ``dkv_kv_rows(D)``)
+DQ_TILE_ROWS, DKV_TILE_ROWS = 128, 64
 
 
 def fwd_tile_rows(D: int) -> int:
     """Folded q rows a block of the forward kernel owns at head_dim D: 64 a
-    consumer warpgroup, three of them at D = 64 and two at D = 128
+    consumer warpgroup, three of them at D = 64 and two at D = 128 and 160
     (``FwdSmem<D>::QR`` in the source; a launch whose plan disagrees fails
     with ERR_PLAN)."""
     return 192 if D == 64 else 128
+
+
+def dkv_kv_rows(D: int) -> int:
+    """KV rows a block of the dk/dv kernel owns at head_dim D
+    (``dkv_own_rows<D>`` in the source): 128, 64 a consumer warpgroup; 64 at
+    D = 160, where one warpgroup holds their dv and the other their dk."""
+    return 64 if D == 160 else 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,8 +87,10 @@ class TilePlan:
     """Which folded rows make one q tile of a flash kernel.
 
     A tile is ``positions`` query positions x ``groups`` query heads of one KV
-    head, row = position * groups + group, read by one TMA box of
-    ``box`` = (64, groups, positions, 1, 1) elements over (D, G, S, KVH, B).
+    head, row = position * groups + group, read by ceil(D / 64) TMA boxes of
+    ``box`` = (64, groups, positions, 1, 1) elements over (D, G, S, KVH, B),
+    one a 64-element column block; the tensor map's extent of D clips the
+    last box where 64 does not divide D (160).
     With G <= rows a tile holds whole positions (``groups`` = G); with
     G > rows it holds one position and the G heads span ``g_chunks`` tiles.
     The ``rows_masked`` rows past positions x groups are never loaded and
@@ -175,13 +185,17 @@ def flash_attention_fwd(
     causal: bool,
     scale: float,
     q_offset: int = 0,
+    out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (o (B,KVH,Sq,G,D) in q's type, lse (B,KVH,Sq,G) f32).
 
     ``q_offset`` is the absolute position of ``q[:, :, 0]`` for the causal
     mask. The tensors may be strided views (the GQA fold of a (B,S,H,D)
     tensor is one) as long as the last dim is contiguous; ``o`` comes back
-    with q's strides, so unfolding it is a view too.
+    with q's strides, so unfolding it is a view too. ``out``, if given, is
+    the tensor (shaped like q, any layout the kernel takes) that o is
+    written to and returned as; on the CPU it is filled with the plain
+    version's o.
     """
     global launch_count
     _check(q, k, v)
@@ -196,16 +210,18 @@ def flash_attention_fwd(
         )
         o = o.reshape(B, Sq, KVH, G, D).permute(0, 2, 1, 3, 4)
         lse = lse.reshape(B, Sq, KVH, G).permute(0, 2, 1, 3).contiguous()
-        return o, lse
+        return (o if out is None else out.copy_(o)), lse
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu tensors, not {q.device}")
 
-    _check_cuda(q, k, v)
-    _check_tma(q=q, k=k, v=v)
+    o = torch.empty_strided(q.shape, q.stride(), dtype=q.dtype, device=q.device) if out is None else out
+    if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device:
+        raise ValueError(f"out {tuple(o.shape)} {o.dtype} must have q's shape, type and device")
+    _check_cuda(q, k, v, o=o)
+    _check_tma(q=q, k=k, v=v, o=o)
     plan = tile_plan(G, fwd_tile_rows(D))
     if plan.n_tiles(Sq) * KVH * B >= 2**31:
         raise ValueError("the flash forward kernel numbers its work items (q tile, kv head, batch) with int32")
-    o = torch.empty_strided(q.shape, q.stride(), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, KVH, Sq, G), dtype=torch.float32, device=q.device)
     strides = (
         *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *o.stride()[:4],
@@ -296,7 +312,7 @@ def _bwd_args(q, k, v, lse, delta, named, rows, causal, scale, q_offset):
     for name, x in (("lse", lse), ("delta", delta)):
         if x.shape != (B, KVH, Sq, G) or x.dtype != torch.float32 or not x.is_contiguous() or x.device != q.device:
             raise ValueError(f"{name} must be a contiguous float32 (B,KVH,Sq,G) tensor on q's device")
-    if plan.n_tiles(Sq) > 65535 or -(-Skv // DKV_KV_ROWS) > 65535 or B > 65535:
+    if plan.n_tiles(Sq) > 65535 or -(-Skv // dkv_kv_rows(D)) > 65535 or B > 65535:
         raise ValueError("the flash backward kernels put the tile index on a grid axis of at most 65535")
     if q.device.type != "cuda":
         raise ValueError(f"the flash backward launches take CUDA tensors, not {q.device}")

@@ -10,6 +10,13 @@ CPU use ``--reduced`` for a runnable config.
       --steps 12 --batch 4 --seq 32 --warmup 3 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --steps 6 --batch 2 --seq 4096
+  PYTHONPATH=src python -m repro_torch.launch.train --arch resnet_large \\
+      --steps 20 --batch 32
+
+The ResNet trio (``--arch resnet_small|resnet_medium|resnet_large``) trains on
+f32 images of its dataset's size; ``--seq`` is ignored for it, as in the
+reference. Convolutions run in f32: cuDNN's TF32 rounding is off while the
+steps run (and its autotuner on, the shapes being fixed).
 
 Prints the reference's result keys as JSON. ``--mesh host`` is refused: the
 multi-device substrate is ROADMAP Queue 1 item 11.
@@ -112,23 +119,25 @@ def run(args) -> dict:
     _sync(device)
     t_train0 = time.perf_counter()
     try:
-        for step in range(start_step, args.steps):
-            batch = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in pipeline.get().items()}
-            t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch)
-            loss = float(metrics["loss"])  # waits for the step's work on the device
-            step_times.append(time.perf_counter() - t0)
-            losses.append(loss)
-            if np.isnan(loss):
-                raise FloatingPointError(f"NaN loss at step {step}")
-            if (step + 1) % args.log_every == 0:
-                print(
-                    f"[train] step {step + 1}/{args.steps} loss={loss:.4f} "
-                    f"step_time={np.mean(step_times[-args.log_every:]) * 1e3:.1f}ms",
-                    flush=True,
-                )
-            if store and (step + 1) % args.ckpt_every == 0:
-                store.save(step + 1, state, extra={"loss": loss}, async_save=True)
+        # f32 convolutions (no TF32 rounding), cuDNN's autotuner on: the shapes are fixed
+        with torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False, allow_tf32=False):
+            for step in range(start_step, args.steps):
+                batch = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in pipeline.get().items()}
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                loss = float(metrics["loss"])  # waits for the step's work on the device
+                step_times.append(time.perf_counter() - t0)
+                losses.append(loss)
+                if np.isnan(loss):
+                    raise FloatingPointError(f"NaN loss at step {step}")
+                if (step + 1) % args.log_every == 0:
+                    print(
+                        f"[train] step {step + 1}/{args.steps} loss={loss:.4f} "
+                        f"step_time={np.mean(step_times[-args.log_every:]) * 1e3:.1f}ms",
+                        flush=True,
+                    )
+                if store and (step + 1) % args.ckpt_every == 0:
+                    store.save(step + 1, state, extra={"loss": loss}, async_save=True)
     finally:
         pipeline.stop()
     if store:

@@ -10,8 +10,8 @@ architecture:
   cache_spec(batch, seq)          -> dict of (shape, dtype)
   input_specs(suite)              -> dict[str, (shape, dtype)]
 
-The port builds the ``dense``, ``vlm`` and ``rwkv`` families; any other
-family raises ``KeyError`` as an unknown family does.
+The port builds the ``dense``, ``vlm``, ``rwkv`` and ``resnet`` families;
+any other family raises ``KeyError`` as an unknown family does.
 """
 from __future__ import annotations
 
@@ -145,11 +145,15 @@ register_family("vlm")(_build_dense)  # llava backbone = dense + patch stub
 
 
 def build_model(cfg: ModelConfig) -> Model:
+    # late imports, as the reference's: these modules import this one
     if cfg.family == "rwkv" and "rwkv" not in _BUILDERS:
-        # late import, as the reference's: rwkv6 imports this module
         from repro_torch.models import rwkv6
 
         register_family("rwkv")(rwkv6._build_rwkv)
+    if cfg.family == "resnet" and "resnet" not in _BUILDERS:
+        from repro_torch.models import resnet
+
+        register_family("resnet")(resnet._build_resnet)
     if cfg.family not in _BUILDERS:
         raise KeyError(f"unknown family {cfg.family!r}")
     return _BUILDERS[cfg.family](cfg)

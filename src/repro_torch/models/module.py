@@ -1,7 +1,7 @@
 """Minimal functional module substrate (PyTorch twin of ``repro.models.module``).
 
-Parameters are nested dicts of tensors, built by pure ``init`` functions and
-consumed by pure ``apply`` functions. Where the reference stacks layer
+Parameters are nested dicts (and, as the ResNet's blocks, lists) of tensors,
+built by pure ``init`` functions and consumed by pure ``apply`` functions. Where the reference stacks layer
 parameters on a leading ``L`` dim and scans over them, the port keeps the
 same stacked leaves (so a converted reference tree needs no re-layout) and
 loops over ``L`` in Python, over views of each leaf.
@@ -49,6 +49,17 @@ def fan_in_init(
 def zeros_init(_gen: Optional[torch.Generator], shape: Sequence[int], dtype, device) -> torch.Tensor:
     """Zeros; takes (and ignores) a generator, as the reference's takes a key."""
     return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+
+def dense_init(
+    gen: torch.Generator, d_in: int, d_out: int, *, device, dtype=torch.bfloat16, bias: bool = False,
+    scale: float = 1.0,
+) -> Params:
+    """``{"w": (d_in, d_out)}`` by ``fan_in_init`` (and ``"b"`` of zeros), as the reference's."""
+    p: Params = {"w": fan_in_init(gen, (d_in, d_out), dtype, device, scale)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -145,17 +156,23 @@ def apply_rope(
 
 
 def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
-    """Apply ``fn`` to every tensor leaf of a nested dict."""
+    """Apply ``fn`` to every tensor leaf of nested dicts and lists."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
 def tree_paths(tree: Any, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
-    """(path of dict keys, leaf) of every leaf of a nested dict, in insertion order."""
+    """(path of dict keys and list indices, leaf) of every leaf of nested
+    dicts and lists, in insertion order."""
     if isinstance(tree, dict):
         for key, val in tree.items():
             yield from tree_paths(val, prefix + (str(key),))
+    elif isinstance(tree, list):
+        for i, val in enumerate(tree):
+            yield from tree_paths(val, prefix + (str(i),))
     else:
         yield prefix, tree
 

@@ -12,14 +12,15 @@ from repro_torch.configs.registry import get_config
 from repro_torch.convert import from_jax_params
 from repro_torch.models.model_api import build_model
 
-ARCHS = ["granite-3-2b", "qwen2-72b", "stablelm-12b", "llava-next-34b"]
+ARCHS = ["granite-3-2b", "qwen2-72b", "stablelm-12b", "llava-next-34b", "resnet_small"]
 
 
 def _flatten(tree, prefix=""):
     out = {}
-    for key, val in tree.items():
-        path = f"{prefix}/{key}" if prefix else key
-        if isinstance(val, dict):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, val in items:
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(val, (dict, list)):
             out.update(_flatten(val, path))
         else:
             out[path] = val
@@ -41,6 +42,10 @@ def test_from_jax_params_keeps_every_leaf(arch):
         np.testing.assert_array_equal(t.float().numpy(), np.asarray(leaf, dtype=np.float32), err_msg=path)
     if arch == "qwen2-72b":
         assert "layers/attn/bq" in got
+    if arch == "resnet_small":  # a list of blocks, HWIO conv weights, all f32
+        assert isinstance(params["blocks"], list) and got["blocks/0/conv2/w"].shape[:2] == (3, 3)
+        assert all(t.dtype == torch.float32 for t in got.values())
+        return
     # norm scales stay f32, matrices stay bf16
     assert got["final_norm/scale"].dtype == torch.float32
     assert got["layers/attn/wq"].dtype == torch.bfloat16

@@ -26,6 +26,8 @@ BWD_CASES = [
     (1, 64, 4, 4, 16, True, "float32"),
     (1, 64, 4, 2, 32, False, "float32"),
     (2, 64, 8, 4, 64, True, "bfloat16"),
+    (1, 64, 8, 2, 160, True, "float32"),   # head_dim 160 (stablelm-12b), G=4
+    (1, 64, 4, 1, 160, False, "bfloat16"),
 ]
 
 
@@ -154,19 +156,24 @@ REGISTRY_G_D = sorted({(c.n_heads // c.n_kv_heads, c.resolved_head_dim) for c in
 
 
 def test_registry_g_d_pairs_cover_the_issue_list():
-    assert {g for g, _ in REGISTRY_G_D} >= {1, 4, 7, 8} and {d for _, d in REGISTRY_G_D} == {64, 128}
+    # stablelm-12b's head_dim 160 is built since the kernels take three column blocks a row
+    assert {g for g, _ in REGISTRY_G_D} >= {1, 4, 7, 8} and {d for _, d in REGISTRY_G_D} == {64, 128, 160}
 
 
 @pytest.mark.parametrize("rows", [tfa.DQ_TILE_ROWS, tfa.DKV_TILE_ROWS])
-@pytest.mark.parametrize("g_d", REGISTRY_G_D + [(3, 64), (130, 64)])
+@pytest.mark.parametrize("g_d", REGISTRY_G_D + [(3, 64), (130, 64), (130, 160)])
 def test_tile_plan_gives_a_legal_tma_box(g_d, rows):
     """The box a tensor map takes: every dim 1..256, 64 16-bit elements (one
     128-byte swizzle atom) innermost, at most ``rows`` rows, and as many whole
-    positions as fit."""
+    positions as fit. A row of D takes ceil(D / 64) boxes; where 64 does not
+    divide D (160) the last box reaches past D, and the tensor map's extent
+    of D clips it, by at most half a box."""
     G, D = g_d
     plan = tfa.tile_plan(G, rows)
     assert plan == tfa.tile_plan(G, rows)  # a function of the shapes alone
-    assert all(1 <= n <= 256 for n in plan.box) and plan.box[0] * 2 == 128 and D % plan.box[0] == 0
+    assert all(1 <= n <= 256 for n in plan.box) and plan.box[0] * 2 == 128
+    n_boxes = -(-D // plan.box[0])
+    assert 0 <= n_boxes * plan.box[0] - D <= plan.box[0] // 2
     assert plan.rows_used == plan.positions * plan.groups <= rows
     assert plan.rows_masked == rows - plan.rows_used
     if G <= rows:
@@ -190,6 +197,90 @@ def test_tile_plan_covers_every_folded_row_once(G, Sq, rows):
             if lr < plan.rows_used and pos < Sq and g < G:
                 seen.append((pos, g))
     assert sorted(seen) == [(p, g) for p in range(Sq) for g in range(G)]
+
+
+def dkv_by_blocks(q, k, v, o, lse, do, *, causal, scale, q_offset):
+    """K2's sweep in float64: q, o, do (B,KVH,Sq,G,D), k, v (B,KVH,Skv,D). A
+    block owns ``dkv_kv_rows(D)`` KV rows and sweeps the q tiles of
+    ``DKV_TILE_ROWS`` folded rows from the first one that reaches it. Its two
+    warpgroups take 64 rows each, or (D = 160) the same 64 rows, one their dv
+    and the other their dk. A warpgroup skips a tile wholly before its rows
+    and masks one only where it meets the diagonal. Returns (dk, dv, writes
+    of dk, writes of dv)."""
+    B, KVH, Sq, G, D = q.shape
+    Skv = k.shape[2]
+    plan = tfa.tile_plan(G, tfa.DKV_TILE_ROWS)
+    own = tfa.dkv_kv_rows(D)
+    split = own == 64
+    delta = (o * do).sum(-1)
+    n_pad = -(-Skv // own) * own
+    kp, vp = np.zeros((B, KVH, n_pad, D)), np.zeros((B, KVH, n_pad, D))
+    kp[:, :, :Skv], vp[:, :, :Skv] = k, v
+    dk, dv = np.full(k.shape, np.nan), np.full(v.shape, np.nan)
+    wk, wv = np.zeros(Skv, dtype=int), np.zeros(Skv, dtype=int)
+    n_pt = -(-Sq // plan.positions)
+    for kv0 in range(0, Skv, own):
+        pt_begin = min(n_pt, (kv0 - q_offset) // plan.positions) if causal and kv0 > q_offset else 0
+        for wg in range(2):
+            kv_w = kv0 + (0 if split else 64 * wg)
+            rows = kv_w + np.arange(64)
+            acc_k, acc_v = np.zeros((B, KVH, 64, D)), np.zeros((B, KVH, 64, D))
+            for tile in range(pt_begin * plan.g_chunks, n_pt * plan.g_chunks):
+                pos0, g0 = (tile // plan.g_chunks) * plan.positions, (tile % plan.g_chunks) * plan.groups
+                first = q_offset + pos0
+                if causal and first + plan.positions - 1 < kv_w:
+                    continue
+                for lr in range(plan.rows_used):
+                    pos, g = pos0 + lr // plan.groups, g0 + lr % plan.groups
+                    if pos >= Sq or g >= G:
+                        continue
+                    s = np.einsum("bhkd,bhd->bhk", kp[:, :, rows], q[:, :, pos, g]) * scale
+                    p = np.exp(s - lse[:, :, pos, g, None])
+                    if causal and first < kv_w + 63:
+                        p = np.where(q_offset + pos >= rows, p, 0.0)
+                    dp = np.einsum("bhkd,bhd->bhk", vp[:, :, rows], do[:, :, pos, g])
+                    ds = p * (dp - delta[:, :, pos, g, None])
+                    acc_v += p[..., None] * do[:, :, pos, g, None, :]
+                    acc_k += ds[..., None] * q[:, :, pos, g, None, :]
+            live = rows < Skv
+            if not split or wg == 1:
+                dk[:, :, rows[live]] = scale * acc_k[:, :, live]
+                wk[rows[live]] += 1
+            if not split or wg == 0:
+                dv[:, :, rows[live]] = acc_v[:, :, live]
+                wv[rows[live]] += 1
+    return dk, dv, wk, wv
+
+
+@pytest.mark.parametrize("case", [
+    # (G, Sq, Skv, D, causal, q_offset)
+    (4, 77, 77, 160, True, 0),     # three blocks of 64 kv rows, split between the warpgroups
+    (1, 130, 131, 160, False, 0),
+    (2, 40, 100, 160, True, 60),   # q_offset: blocks before the first position skip nothing
+    (4, 77, 150, 64, True, 0),     # blocks of 128 kv rows, 64 a warpgroup
+    (3, 50, 200, 128, True, 150),
+])
+def test_dkv_block_sweep_matches_plain_version(case):
+    """Every kv row's dk and dv are written once, and the blocks' sweeps (the
+    q tiles each visits, skips and masks) give the plain version's dk, dv."""
+    G, Sq, Skv, D, causal, q_offset = case
+    B, KVH = 1, 2
+    rng = np.random.default_rng(11)
+    q, do, o = (rng.standard_normal((B, KVH, Sq, G, D)) for _ in range(3))
+    k, v = (rng.standard_normal((B, KVH, Skv, D)) for _ in range(2))
+    scale = D**-0.5
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    _, lse = tref.mha_reference_with_lse(qt.permute(0, 2, 1, 3, 4).reshape(B, Sq, KVH * G, D),
+                                         kt.permute(0, 2, 1, 3), vt.permute(0, 2, 1, 3),
+                                         causal=causal, q_offset=q_offset, scale=scale)
+    lse = lse.reshape(B, Sq, KVH, G).permute(0, 2, 1, 3).double()
+    dk, dv, wk, wv = dkv_by_blocks(q, k, v, o, lse.numpy(), do, causal=causal, scale=scale, q_offset=q_offset)
+    assert (wk == 1).all() and (wv == 1).all()
+    _, dk_ref, dv_ref = tref.flash_attention_bwd_reference(qt, kt, vt, torch.from_numpy(o), lse,
+                                                           torch.from_numpy(do), causal=causal, scale=scale,
+                                                           q_offset=q_offset)
+    np.testing.assert_allclose(dk, dk_ref.numpy(), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(dv, dv_ref.numpy(), atol=2e-5, rtol=2e-5)
 
 
 def _bwd_tensors(D=64, dtype=torch.bfloat16):

@@ -4,8 +4,9 @@ the build cache of the kernels, on the CPU.
 The CUDA kernels run on the card only (``chip_smoke.py`` holds them against
 their plain versions there). What is held here is what decides which rows and
 keys each block visits, run in Python: the tile plan of K1's folded q rows a
-block (``fwd_tile_rows(D)``: 192 at D = 64, 128 at D = 128), the KV tiles each
-of its consumer warpgroups (64 rows each, three at D = 64 and two at D = 128)
+block (``fwd_tile_rows(D)``: 192 at D = 64, 128 at D = 128 and 160), the KV
+tiles each of its consumer warpgroups (64 rows each, three at D = 64 and two
+at D = 128 and 160)
 sweeps, which tiles skip the mask; the tiles of the cache each block of K4's cluster takes, and
 the combine of their partials. Each model is held against the plain version
 (``kernels/ref.py``), which computes in f32, at the reference's f32 tolerance
@@ -93,6 +94,9 @@ FWD_CASES = [
     (8, 33, 97, 64, True, 64),     # q_offset > 0
     (130, 5, 40, 64, True, 35),    # one position a tile, 62 rows zeroed
     (130, 5, 40, 128, True, 35),   # the heads of one position over two tiles
+    (4, 77, 77, 160, True, 0),     # head_dim 160: 64-row kv tiles, 32 positions a tile
+    (1, 130, 131, 160, False, 0),  # head_dim 160, G=1, non-causal, ragged Skv
+    (130, 5, 40, 160, True, 35),   # head_dim 160: the heads of one position over two tiles
 ]
 
 
@@ -119,7 +123,16 @@ def test_fwd_tile_sweep_matches_plain_version(case):
     np.testing.assert_allclose(lse, lse_ref, atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+def test_fwd_tiles_at_head_dim_160():
+    """D = 160 (stablelm-12b) takes D = 128's tiles: two consumer warpgroups,
+    128 folded rows a block, 64-row KV tiles; a row is three 64-element
+    column blocks, the last half past D."""
+    assert tfa.fwd_tile_rows(160) == tfa.fwd_tile_rows(128) == 128
+    assert kv_rows(160) == kv_rows(128) == 64
+    assert tfa.HEAD_DIMS == tda.HEAD_DIMS == (64, 128, 160)
+
+
+@pytest.mark.parametrize("D", [64, 128, 160])
 @pytest.mark.parametrize("G", [1, 3, 4, 8, 130, 200])
 def test_fwd_tile_plan_box_and_items(G, D):
     """The forward's plan: 64 rows a consumer warpgroup, whole positions (or
@@ -203,6 +216,7 @@ def decode_by_cluster(q, kc, vc, kv_len, *, scale, n_sm=132):
 
 DECODE_CASES = [
     # (B, Smax, H, KVH, D, kv_len): chip_smoke.py's cases, smaller where they are large
+    (2, 333, 8, 2, 160, 77),    # head_dim 160
     (2, 333, 8, 2, 64, 1),
     (2, 333, 8, 2, 64, 77),
     (2, 333, 8, 2, 64, 333),

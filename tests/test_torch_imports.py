@@ -41,6 +41,7 @@ import repro_torch.models.attention
 import repro_torch.models.losses
 import repro_torch.models.model_api
 import repro_torch.models.module
+import repro_torch.models.resnet
 import repro_torch.models.rwkv6
 import repro_torch.models.transformer
 import repro_torch.optim.adamw
@@ -81,6 +82,9 @@ with tempfile.TemporaryDirectory() as tmp:
     result = train.run(train.build_argparser().parse_args(argv))
     assert result["steps"] == 3 and result["final_loss"] == result["final_loss"]
     assert train.run(train.build_argparser().parse_args(argv))["steps"] == 0  # resumed at the end
+    argv = ["--arch", "resnet_small", "--reduced", "--steps", "2", "--batch", "2", "--warmup", "1",
+            "--device", "cpu"]
+    assert train.run(train.build_argparser().parse_args(argv))["steps"] == 2
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 print("PORT-STANDS-ALONE")
 """

@@ -63,6 +63,8 @@ FLASH_CASES = [
     (1, 96, 96, 4, 4, 16, True, "float32", 32, 32),    # non-pow2 seq
     (1, 64, 64, 4, 2, 32, False, "float32", 16, 32),   # non-causal
     (2, 64, 64, 8, 4, 64, True, "bfloat16", 32, 32),   # bf16 io
+    (1, 64, 64, 8, 2, 160, True, "float32", 32, 32),   # head_dim 160 (stablelm-12b), G=4
+    (1, 48, 48, 4, 1, 160, True, "bfloat16", 16, 16),  # head_dim 160, MQA, bf16
     # the calibration shape of benchmarks/kernel_bench.py
     (_cal["B"], _cal["S"], _cal["S"], _cal["H"], _cal["KVH"], _cal["D"], True, "float32",
      _cal["block_q"], _cal["block_k"]),
@@ -154,6 +156,7 @@ DECODE_CASES = [
     (2, 128, 8, 2, 32, 77, 32),    # partial cache, mid-block
     (1, 256, 4, 4, 64, 1, 64),     # single valid entry
     (3, 96, 6, 1, 16, 50, 32),     # MQA, odd sizes
+    (2, 96, 8, 2, 160, 77, 32),    # head_dim 160 (stablelm-12b), G=4
     (_dcal["B"], _dcal["Smax"], _dcal["H"], _dcal["KVH"], _dcal["D"], _dcal["kv_len"], _dcal["block_k"]),
 ]
 

@@ -25,8 +25,18 @@ from repro_torch.models.model_api import build_model
 from repro_torch.runtime import serve_step
 from repro_torch.sharding.plan import make_plan
 
-ARCHS = ["granite-3-2b", "qwen2-72b", "stablelm-12b"]
+ARCHS = ["granite-3-2b", "qwen2-72b", "stablelm-12b", "stablelm-12b-d160"]
 TOL = dict(atol=6e-2, rtol=6e-2)
+#: stablelm-shaped configs that keep its head_dim of 160 (the reduced ones
+#: have 16): 2 layers, d_model 640, 4 heads over 1 KV head (G = 4), vocab 256
+D160 = {"stablelm-12b-d160": ("stablelm-12b", dict(d_model=640, n_heads=4, n_kv_heads=1, head_dim=160,
+                                                   d_ff=256, vocab=256))}
+
+
+def reduced_configs(arch):
+    """(reference config, port config) of ``arch`` reduced, or of a D160 entry."""
+    name, overrides = D160.get(arch, (arch, {}))
+    return jax_get_config(name).reduced(**overrides), get_config(name).reduced(**overrides)
 B, S, EXTRA = 2, 16, 8
 
 
@@ -37,10 +47,9 @@ def _np(x) -> np.ndarray:
 
 
 def _setup(arch):
-    jcfg = jax_get_config(arch).reduced()
+    jcfg, cfg = reduced_configs(arch)
     jmodel = jax_build_model(jcfg)
     jparams = jmodel.init(jax.random.key(0))
-    cfg = get_config(arch).reduced()
     model = build_model(cfg)
     params = from_jax_params(jax.device_get(jparams), "cpu")
     tokens = np.random.default_rng(1).integers(0, cfg.vocab, (B, S + EXTRA), dtype=np.int32)
@@ -167,7 +176,7 @@ def test_greedy_generate_and_step_builders():
 
 
 def test_families_outside_the_slice_raise_key_error():
-    for arch in ("olmoe-1b-7b", "whisper-base", "resnet_small", "zamba2-7b"):
+    for arch in ("olmoe-1b-7b", "whisper-base", "zamba2-7b"):
         with pytest.raises(KeyError, match="unknown family"):
             build_model(get_config(arch))
     spec = build_model(get_config("granite-3-2b")).cache_spec(8, 2080)

@@ -35,21 +35,28 @@ from repro_torch.runtime import train_step as ts
 from repro_torch.sharding.plan import make_plan
 
 OPT = dict(lr_peak=1e-3, warmup_steps=2, total_steps=10)
+#: stablelm-12b reduced with its head_dim of 160 kept, as in test_torch_serve.py
+D160 = dict(d_model=640, n_heads=4, n_kv_heads=1, head_dim=160, d_ff=256, vocab=256)
+
+
+def reduced_configs(arch):
+    """(reference config, port config) of ``arch`` reduced; ``*-d160`` keeps head_dim 160."""
+    name, overrides = (arch[: -len("-d160")], D160) if arch.endswith("-d160") else (arch, {})
+    return jax_get_config(name).reduced(**overrides), get_config(name).reduced(**overrides)
 
 
 def _batch(cfg, step, batch=4, seq=32):
     return synthetic.batch_for(cfg, ShapeSuite("t", seq, batch, "train"), seed=0, step=step)
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen2-72b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen2-72b", "stablelm-12b-d160"])
 def test_first_steps_track_the_reference(arch):
-    jcfg = jax_get_config(arch).reduced()
+    jcfg, cfg = reduced_configs(arch)
     jmodel = jax_build_model(jcfg)
     jopt = jadamw.AdamWConfig(**OPT)
     jstate = jts.init_train_state(jmodel, jax.random.key(0), jopt)
     jstep = jax.jit(jts.build_train_step(jmodel, jax_make_plan(jcfg, None), jopt))
 
-    cfg = get_config(arch).reduced()
     model = build_model(cfg)
     opt = adamw.AdamWConfig(**OPT)
     state = from_jax_train_state(jax.device_get(jstate), "cpu")
