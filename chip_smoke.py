@@ -20,7 +20,14 @@ at full size, random weights from a seed:
   * training, the paper's ResNet trio -- batch 32 at full image size,
     RESNET_STEPS steps each through ``repro_torch.launch.train.run``; one
     step of resnet_small and resnet_medium against the same step on the CPU
-    in float64, sound and with symmetric padding planted.
+    in float64, sound and with symmetric padding planted;
+  * the paper's collocation characterization -- ``python -m repro_torch.
+    launch.collocate`` for the trio on the card's MIG tree, in a process of
+    its own (every cell OK, the solo steps against the training phase's, the
+    peaks and ``fits`` against the same jobs measured in this process and
+    each instance's budget), then naive collocation measured: k = 2, 4, 7
+    processes of resnet_small training together on the card, beside the
+    naive model's prediction.
 
 Each path checks that it went through its kernels (launch counts, set to 0
 just before the path and read just after).
@@ -40,11 +47,13 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -69,7 +78,9 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rk  # noqa: E402
 from repro_torch.models import attention, resnet, rwkv6, transformer  # noqa: E402
 from repro_torch.models.model_api import build_model  # noqa: E402
-from repro_torch.launch import train  # noqa: E402
+from repro_torch.core.device import get_sku  # noqa: E402
+from repro_torch.core.instance import JobSpec, measure_job  # noqa: E402
+from repro_torch.launch import collocate, train  # noqa: E402
 from repro_torch.models.module import (  # noqa: E402
     param_bytes, param_count, tree_leaves, tree_map, tree_paths, tree_unflatten,
 )
@@ -99,6 +110,35 @@ GUARD_WIDTH, SENTINEL = 192, 7.0
 # ImageNet's 1,281,167)
 RESNET_ARCHS, RESNET_BATCH, RESNET_STEPS = ("resnet_small", "resnet_medium", "resnet_large"), 32, 20
 RESNET_EPOCH_SAMPLES = {"resnet_small": 45_000, "resnet_medium": 1_281_167, "resnet_large": 1_281_167}
+# the paper's characterization (launch/collocate.py) of the trio on the card's
+# MIG tree: a solo step must lie within SOLO_LIMIT of phase_resnet's median
+# for the same arch (host-bound medians have moved 37% between runs)
+SOLO_LIMIT = 2.0
+# naive collocation measured: k processes of NAIVE_ARCH at batch RESNET_BATCH
+# on the one card, each warmed up (a 2-step run through the launcher: the CUDA
+# context, cuDNN's autotuner) and then released together for NAIVE_STEPS steps
+# through the launcher; the steady window starts once every process is past
+# its first NAIVE_SKIP steps and ends when the first one finishes
+NAIVE_KS, NAIVE_ARCH, NAIVE_STEPS, NAIVE_SKIP = (2, 4, 7), "resnet_small", 30, 2
+NAIVE_TIMEOUT_S = 300
+# the characterization's command, in a process of its own: its limit, and how
+# far its peaks may lie from the same jobs measured in this process
+COLLOCATE_TIMEOUT_S, PEAK_LIMIT = 300, 1.25
+# a step line of the launcher's log (``--log-every 1``): the step's host ms
+STEP_LINE = re.compile(r"\[train\] step (\d+)/\d+ loss=\S+ step_time=([0-9.]+)ms")
+# one process of the naive runs: warm-up, "ready", wait for the start file, train
+NAIVE_CHILD = """
+import sys, time
+from pathlib import Path
+from repro_torch.launch import train
+start, argv = Path(sys.argv[1]), sys.argv[2:]
+train.run(train.build_argparser().parse_args(argv + ["--steps", "2", "--log-every", "100", "--metrics-out", ""]))
+print("ready", flush=True)
+while not start.exists():
+    time.sleep(0.005)
+sys.argv = ["train"] + argv
+train.main()
+"""
 # the attention-free family, served at the same batch, prompt and new tokens
 RWKV_ARCH = "rwkv6-1.6b"
 # the long WKV6 case: one sequence of 512 chunks, 32 (batch, head) pairs
@@ -367,8 +407,12 @@ def find_cuobjdump():
 
 def kernel_name(mangled: str) -> str:
     """``kernel<args>`` of a mangled ``*_kernel`` symbol (template arguments
-    that are types or integer literals), else the symbol itself."""
-    for m in re.finditer(r"(?=(\d+))", mangled):  # every start, so "116" also tries "16" and "6"
+    that are types or integer literals), else the symbol itself. The
+    innermost name wins: a kernel in an anonymous namespace follows that
+    namespace's name, which holds a hash of the source's path whose digits
+    may themselves read as a length ending at ``_kernel``."""
+    # every start, so "116" also tries "16" and "6"; the last start first
+    for m in reversed(list(re.finditer(r"(?=(\d+))", mangled))):
         n, end = int(m.group(1)), m.start() + len(m.group(1))
         name = mangled[end:end + n]
         if len(name) < n or not name.endswith("_kernel"):
@@ -1801,6 +1845,171 @@ def phase_resnet() -> dict:
     return {"runs": runs, "checks": checks}
 
 
+def characterize(resnet_runs: list) -> dict:
+    """``python -m repro_torch.launch.collocate`` for the trio, in a process
+    of its own, into a temporary directory. Holds every cell to OK, each solo
+    step to SOLO_LIMIT of phase_resnet's median, each record's budget to the
+    card's memory and the profile's share of it, and each peak and ``fits``
+    to readings taken apart from the command: ``measure_job`` of the same job
+    in this process, which tuned the trio's shapes in phase_resnet (the peak
+    within PEAK_LIMIT, and ``fits`` as that peak against the budget), and
+    phase_resnet's own peak, which holds cuDNN's trials and the launcher's
+    batches besides (at least as large)."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [sys.executable, "-m", "repro_torch.launch.collocate", "--workloads", ",".join(RESNET_ARCHS),
+                "--out", tmp, "--device", "cuda"]
+        cli = subprocess.run(argv, capture_output=True, text=True, env=env, timeout=COLLOCATE_TIMEOUT_S)
+        cli_s = time.perf_counter() - t0
+        require(cli.returncode == 0, f"collocate exited {cli.returncode}: {cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+        summary = json.loads((Path(tmp) / "_summary.json").read_text())
+        cells = [json.loads(f.read_text()) for f in sorted(Path(tmp).glob("*.json")) if not f.name.startswith("_")]
+    sku = get_sku(collocate.SKU)
+    total = torch.cuda.get_device_properties(DEV).total_memory
+    for c in cells:
+        r = c["records"]
+        emit("collocate_cell", workload=c["workload"], group=c["group"], mode=c["mode"], status=c["status"],
+             instances=len(r), step_s=r[0]["step_s"], fits=all(x["fits"] for x in r),
+             peak_bytes=r[0]["peak_bytes_per_device"], hbm_budget_bytes=r[0]["hbm_budget_bytes"],
+             measured=c["measured"])
+    require(summary["failures"] == 0, f"collocate summary {summary}")
+    require(all(c["status"] == "OK" and c["measured"] for c in cells), "a cell is not OK or measured nothing")
+    by = {(c["workload"], c["group"]): c for c in cells}
+    run_of = {run["arch"]: run for run in resnet_runs}
+    peak_here = {}
+    for arch in RESNET_ARCHS:
+        suite, _ = collocate.PAPER_SUITES[arch]
+        peak_here[arch] = measure_job(JobSpec(f"{arch}#0", arch, suite), get_config(arch), DEV).peak_bytes
+    solos = {}
+    for arch in RESNET_ARCHS:
+        solo = by[(arch, "non-MIG")]["records"][0]
+        busy = max(solo["compute_s"], solo["memory_s"], solo["collective_s"])
+        unfit = sorted({c["group"].split()[0] for c in cells
+                        if c["workload"] == arch and c["mode"] == "mig" and not c["records"][0]["fits"]})
+        solos[arch] = {
+            "step_ms": solo["step_s"] * 1e3, "roofline_step_ms": busy * 1e3, "bound": solo["bound"],
+            "measured_over_roofline": solo["step_s"] / busy, "compute_ms": solo["compute_s"] * 1e3,
+            "memory_ms": solo["memory_s"] * 1e3, "peak_bytes": solo["peak_bytes_per_device"],
+            "peak_bytes_in_this_process": peak_here[arch],
+            "phase_resnet_peak_bytes": run_of[arch]["peak_memory_gb"] * 1e9,
+            "phase_resnet_median_ms": run_of[arch]["median_step_ms"], "mig_profiles_not_fitting": unfit,
+            "collocation_speedup_1g10gb_parallel_vs_7g80gb": (
+                7 * by[(arch, f"{sku.full_profile} one")]["records"][0]["step_s"]
+                / max(x["step_s"] for x in by[(arch, "1g.10gb parallel")]["records"])),
+        }
+    emit("collocate_solo", card_memory_bytes=total, solos=solos, command_s=cli_s, wall_s=time.perf_counter() - t0,
+         reckoned="measured_over_roofline = measured solo step / max(compute_s, memory_s, collective_s) "
+                  "on the card's peaks (f32 67 TFLOP/s, 3.35 TB/s); bytes are telemetry/counts.py's upper bound")
+    for arch, s in solos.items():
+        ratio = s["step_ms"] / s["phase_resnet_median_ms"]
+        require(1 / SOLO_LIMIT <= ratio <= SOLO_LIMIT,
+                f"{arch}: solo step {s['step_ms']:.2f} ms against phase_resnet's {s['phase_resnet_median_ms']:.2f}")
+        require(1 / PEAK_LIMIT <= s["peak_bytes"] / s["peak_bytes_in_this_process"] <= PEAK_LIMIT
+                and s["peak_bytes"] <= s["phase_resnet_peak_bytes"],
+                f"{arch}: the command's peak {s['peak_bytes']} against {s['peak_bytes_in_this_process']} in this "
+                f"process and phase_resnet's {s['phase_resnet_peak_bytes']}")
+    for c in cells:
+        for r in c["records"]:
+            units = sku.profile(r["profile"]).mem_units
+            if c["mode"] in ("naive", "mps"):
+                k = len(c["records"])
+                budget, need = total, k * peak_here[c["workload"]]
+            else:
+                budget, need = total * units // sku.n_units, peak_here[c["workload"]]
+            require(r["peak_bytes_per_device"] > 0 and r["hbm_budget_bytes"] == budget and r["fits"] == (need <= budget),
+                    f"{c['workload']} {c['group']}: fits {r['fits']} with budget {r['hbm_budget_bytes']} "
+                    f"(expected {budget}); this process's reading needs {need}")
+    return {"cells": by, "solos": solos}
+
+
+def _read_lines(proc, log: list) -> None:
+    for line in proc.stdout:
+        log.append((time.perf_counter(), line))
+
+
+def naive_run(k: int) -> dict:
+    """k processes of NAIVE_ARCH training together on the card (the paper's
+    naive collocation: no MPS daemon, the GPU time-slices their contexts),
+    NAIVE_STEPS steps each through ``launch/train.py`` once all k are warm
+    (NAIVE_CHILD). The parent stamps each process's step lines as they
+    arrive; the steady window runs from the moment every process is past
+    NAIVE_SKIP steps to the moment the first one ends. Returns the aggregate
+    images/s in that window and each process's median step in it."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    procs, logs, readers = [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        start = Path(tmp) / "start"
+        try:
+            for i in range(k):
+                argv = [sys.executable, "-c", NAIVE_CHILD, str(start), "--arch", NAIVE_ARCH,
+                        "--steps", str(NAIVE_STEPS), "--batch", str(RESNET_BATCH), "--warmup", "2",
+                        "--log-every", "1", "--seed", str(i), "--metrics-out", f"{tmp}/{i}.json", "--device", "cuda"]
+                proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+                procs.append(proc)
+                logs.append([])
+                readers.append(threading.Thread(target=_read_lines, args=(proc, logs[-1]), daemon=True))
+                readers[-1].start()
+            while not all(any(line == "ready\n" for _, line in log) for log in logs):
+                require(all(proc.poll() is None for proc in procs) and time.perf_counter() - t0 < NAIVE_TIMEOUT_S,
+                        f"naive x{k}: a process ended or stalled before its warm-up finished: "
+                        f"{[[line for _, line in log[-3:]] for log in logs]}")
+                time.sleep(0.05)
+            warm_s = time.perf_counter() - t0
+            start.touch()
+            codes = [proc.wait(timeout=NAIVE_TIMEOUT_S) for proc in procs]
+            for t in readers:
+                t.join(timeout=30)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        results = [json.loads(Path(f"{tmp}/{i}.json").read_text()) if codes[i] == 0 else None for i in range(k)]
+    require(all(c == 0 for c in codes), f"naive x{k}: exit codes {codes}; last lines "
+            f"{[[line for _, line in log[-3:]] for log in logs]}")
+    require(all(np.isfinite(r["final_loss"]) for r in results), f"naive x{k}: losses {[r['final_loss'] for r in results]}")
+    steps = [[(t, float(m[2])) for t, line in log if (m := STEP_LINE.search(line))] for log in logs]
+    require(all(len(s) == NAIVE_STEPS for s in steps), f"naive x{k}: step lines {[len(s) for s in steps]}")
+    begin = max(s[NAIVE_SKIP - 1][0] for s in steps)
+    end = min(s[-1][0] for s in steps)
+    inside = [[ms for t, ms in s if begin < t <= end] for s in steps]
+    require(end > begin and all(len(x) >= 5 for x in inside),
+            f"naive x{k}: the processes overlap in too few steps {[len(x) for x in inside]}")
+    return {
+        "k": k, "arch": NAIVE_ARCH, "batch": RESNET_BATCH, "steps": NAIVE_STEPS, "window_s": end - begin,
+        "steps_in_window": [len(x) for x in inside],
+        "median_step_ms": [statistics.median(x) for x in inside],
+        "aggregate_images_per_s": RESNET_BATCH * sum(len(x) for x in inside) / (end - begin),
+        "final_losses": [r["final_loss"] for r in results],
+        "warm_up_s": warm_s, "wall_s": time.perf_counter() - t0,
+    }
+
+
+def phase_collocate(resnet_runs: list) -> dict:
+    """The characterization on the card, then naive collocation measured at
+    k = 2, 4, 7 beside the naive model's cell (``naive x{k}``) built on this
+    call's measured solo step. No limit on measured / predicted: a reading."""
+    char = characterize(resnet_runs)
+    torch.cuda.empty_cache()
+    solo_ms = char["solos"][NAIVE_ARCH]["step_ms"]
+    readings = []
+    for k in NAIVE_KS:
+        run = naive_run(k)
+        predicted_s = char["cells"][(NAIVE_ARCH, f"naive x{k}")]["records"][0]["step_s"]
+        run.update(
+            solo_step_ms=solo_ms, solo_images_per_s=RESNET_BATCH / (solo_ms * 1e-3),
+            predicted_step_ms=predicted_s * 1e3,
+            predicted_aggregate_images_per_s=k * RESNET_BATCH / predicted_s,
+        )
+        run["measured_over_predicted_images_per_s"] = (
+            run["aggregate_images_per_s"] / run["predicted_aggregate_images_per_s"])
+        emit("collocate_naive", **run)
+        readings.append(run)
+    return {"solos": char["solos"], "naive": readings}
+
+
 def main() -> None:
     t0 = time.perf_counter()
     device = phase_device()
@@ -1835,7 +2044,9 @@ def main() -> None:
     slm_train = stablelm_train_config()
     slm_step = one_step(slm_train, build_model(slm_train), make_plan(slm_train, None), STABLELM_TOL)
     torch.cuda.empty_cache()
-    phase_resnet()
+    resnet_runs = phase_resnet()["runs"]
+    torch.cuda.empty_cache()
+    phase_collocate(resnet_runs)
 
     def row(k, source, replaces, launches):
         return {

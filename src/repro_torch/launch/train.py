@@ -70,6 +70,11 @@ def build_argparser():
     return ap
 
 
+def cudnn_flags():
+    """f32 convolutions (no TF32 rounding), cuDNN's autotuner on: the shapes are fixed."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False, allow_tf32=False)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -119,8 +124,7 @@ def run(args) -> dict:
     _sync(device)
     t_train0 = time.perf_counter()
     try:
-        # f32 convolutions (no TF32 rounding), cuDNN's autotuner on: the shapes are fixed
-        with torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False, allow_tf32=False):
+        with cudnn_flags():
             for step in range(start_step, args.steps):
                 batch = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in pipeline.get().items()}
                 t0 = time.perf_counter()

@@ -28,6 +28,24 @@ import repro_torch.configs.base
 import repro_torch.configs.registry
 import repro_torch.checkpoint.store
 import repro_torch.convert
+import repro_torch.core
+import repro_torch.core.collocation
+import repro_torch.core.device
+import repro_torch.core.gang
+import repro_torch.core.gang.comms
+import repro_torch.core.gang.parallelism
+import repro_torch.core.instance
+import repro_torch.core.interference
+import repro_torch.core.metrics
+import repro_torch.core.partitioner
+import repro_torch.core.planner
+import repro_torch.core.planner.costmodel
+import repro_torch.core.planner.enumerator
+import repro_torch.core.planner.optimizer
+import repro_torch.core.profiles
+import repro_torch.core.sharing
+import repro_torch.core.slice_unit
+import repro_torch.core.workload
 import repro_torch.data.pipeline
 import repro_torch.data.synthetic
 import repro_torch.kernels._build
@@ -36,6 +54,8 @@ import repro_torch.kernels.flash_attention
 import repro_torch.kernels.ops
 import repro_torch.kernels.ref
 import repro_torch.kernels.rwkv6_scan
+import repro_torch.launch.collocate
+import repro_torch.launch.lowering
 import repro_torch.launch.train
 import repro_torch.models.attention
 import repro_torch.models.losses
@@ -48,6 +68,9 @@ import repro_torch.optim.adamw
 import repro_torch.runtime.serve_step
 import repro_torch.runtime.train_step
 import repro_torch.sharding.plan
+import repro_torch.telemetry.constants
+import repro_torch.telemetry.counts
+import repro_torch.telemetry.roofline
 
 # importing built nothing and needs no compiler
 from repro_torch.kernels import _build
@@ -85,6 +108,9 @@ with tempfile.TemporaryDirectory() as tmp:
     argv = ["--arch", "resnet_small", "--reduced", "--steps", "2", "--batch", "2", "--warmup", "1",
             "--device", "cpu"]
     assert train.run(train.build_argparser().parse_args(argv))["steps"] == 2
+    # and characterizes a workload of the paper's grid
+    from repro_torch.launch import collocate
+    assert collocate.main(["--workloads", "resnet_small", "--device", "cpu", "--reduced", "--out", tmp]) == 0
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 print("PORT-STANDS-ALONE")
 """
