@@ -27,7 +27,15 @@ at full size, random weights from a seed:
     peaks and ``fits`` against the same jobs measured in this process and
     each instance's budget), then naive collocation measured: k = 2, 4, 7
     processes of resnet_small training together on the card, beside the
-    naive model's prediction.
+    naive model's prediction;
+  * the calibration loop -- each kernel family's calibration measurement
+    (``kernels/calibration.py``: K1, K4 and K5 at their calibration shapes,
+    timed between CUDA events) held against its plain version; then
+    ``repro_torch.launch.calibrate --backend kernels --skus h100-80gb`` in
+    this process (K1 times each of the catalog's 8 (arch, shape) pairs, whose
+    full-device records become ``measured``); then ``repro_torch.launch.
+    simulate --seed 0``, the event-driven cluster's default grid, with no
+    failed cell.
 
 Each path checks that it went through its kernels (launch counts, set to 0
 just before the path and read just after).
@@ -46,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -80,7 +89,9 @@ from repro_torch.models import attention, resnet, rwkv6, transformer  # noqa: E4
 from repro_torch.models.model_api import build_model  # noqa: E402
 from repro_torch.core.device import get_sku  # noqa: E402
 from repro_torch.core.instance import JobSpec, measure_job  # noqa: E402
-from repro_torch.launch import collocate, train  # noqa: E402
+from repro_torch.core.calib.records import CharDB  # noqa: E402
+from repro_torch.kernels import calibration  # noqa: E402
+from repro_torch.launch import calibrate, collocate, simulate, train  # noqa: E402
 from repro_torch.models.module import (  # noqa: E402
     param_bytes, param_count, tree_leaves, tree_map, tree_paths, tree_unflatten,
 )
@@ -139,6 +150,14 @@ while not start.exists():
 sys.argv = ["train"] + argv
 train.main()
 """
+# the calibration loop's kernels backend on the h100-80gb catalog: its MISO
+# probe plan holds CALIB_PAIRS (arch, shape) pairs, every one timed with K1
+# (kernels/calibration.py maps the dense archs, the ResNets and whisper-base to
+# flash attention); each measure_calibration_kernel call runs its kernel once
+# for the error, once to warm up and CALIB_N times timed (KernelBackend's
+# n_samples)
+CALIB_SKU, CALIB_PAIRS, CALIB_N = "h100-80gb", 8, 2
+CALIB_RUNS = 1 + 1 + CALIB_N
 # the attention-free family, served at the same batch, prompt and new tokens
 RWKV_ARCH = "rwkv6-1.6b"
 # the long WKV6 case: one sequence of 512 chunks, 32 (batch, head) pairs
@@ -2010,6 +2029,107 @@ def phase_collocate(resnet_runs: list) -> dict:
     return {"solos": char["solos"], "naive": readings}
 
 
+def calibration_kernel(kernel: str, counters: dict) -> dict:
+    """One family's calibration measurement on the card: its launches, and
+    the kernel's outputs held against the plain version on the same inputs,
+    in the form of the family's own phase (TOL_BF16 for K1 and K4 against f32;
+    TOL_WKV against float64 for K5, as phase_wkv6)."""
+    for mod in counters.values():
+        mod.launch_count = 0
+    meas = calibration.measure_calibration_kernel(ARCH, device=str(DEV), n=CALIB_N, kernel=kernel)
+    launches = {name: mod.launch_count for name, mod in counters.items()}
+    require(launches == {name: CALIB_RUNS if name == kernel else 0 for name in counters},
+            f"calibration {kernel}: launches {launches}, expected {CALIB_RUNS} of {kernel} alone")
+    run_it, oracle = calibration.calibration_inputs(kernel, DEV)
+    with torch.no_grad():
+        got, want = run_it(), oracle()
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    tol = TOL_WKV if kernel == "wkv6" else TOL_BF16
+    errs = [check(f"calibration {kernel} output {i}", g, w, tol) for i, (g, w) in enumerate(zip(got, want))]
+    if kernel != "wkv6":
+        require(meas["max_err_vs_ref"] <= TOL_BF16,
+                f"calibration {kernel}: max abs err {meas['max_err_vs_ref']} beyond {TOL_BF16}")
+    # readings beside the measurement's wall: the kernel's device time (calls
+    # queued behind a spin kernel) and the host's time to make one call
+    with torch.no_grad():
+        device_us, host_us = gpu_ms(run_it, iters=50) * 1e3, host_us_per_call(run_it)
+    out = {"kernel": kernel, "shape": calibration.CALIBRATION_SHAPES[kernel], "launches": launches[kernel],
+           "wall_us": meas["wall_s"] * 1e6, "device_us": device_us, "host_us_per_call": host_us,
+           "max_err_vs_ref": meas["max_err_vs_ref"], "check_max_abs_err": max(errs),
+           "tolerance": f"atol=rtol={tol}" + (" against float64" if kernel == "wkv6" else
+                                                f"; max abs err {TOL_BF16} against f32")}
+    emit("calibrate_kernel", **out)
+    return out
+
+
+def phase_calibrate() -> dict:
+    """The calibration loop on the card, then the cluster simulator.
+
+    (a) each family's calibration measurement; (b) ``calibrate --backend
+    kernels --skus h100-80gb`` in this process, its K1 launches counted from 0
+    (CALIB_PAIRS x CALIB_RUNS; K4 and K5 none) and every measurement it made
+    recorded through a wrapper of ``measure_calibration_kernel``; (c)
+    ``simulate --seed 0``, the default grid, 0 failures. The wall seconds and
+    the sha256 of its ``_summary.json`` are readings: byte identity with the
+    reference is held on the CPU (tests/test_torch_cluster.py)."""
+    counters = {"flash_attention": fa, "decode_attention": da, "wkv6": rk}
+    kernels = {k: calibration_kernel(k, counters) for k in counters}
+
+    measure, made = calibration.measure_calibration_kernel, []
+
+    def recording(arch, **kw):
+        made.append((arch, kw, measure(arch, **kw)))
+        return made[-1][2]
+
+    calibration.measure_calibration_kernel = recording
+    with tempfile.TemporaryDirectory() as tmp:
+        for mod in counters.values():
+            mod.launch_count = 0
+        try:
+            t0 = time.perf_counter()
+            rc = calibrate.main(["--backend", "kernels", "--skus", CALIB_SKU, "--out", tmp])
+            calib_s = time.perf_counter() - t0
+        finally:
+            calibration.measure_calibration_kernel = measure
+        launches = {name: mod.launch_count for name, mod in counters.items()}
+        db = CharDB.loads((Path(tmp) / f"calib_db__{CALIB_SKU}.json").read_text())
+    require(rc == 0, f"calibrate exited {rc}")
+    require(len(made) == CALIB_PAIRS and all(kw == {"device": "cuda", "n": CALIB_N} for _, kw, _ in made),
+            f"calibrate measured {[(a, kw) for a, kw, _ in made]}, expected {CALIB_PAIRS} pairs at n={CALIB_N}")
+    require(launches == {"flash_attention": CALIB_PAIRS * CALIB_RUNS, "decode_attention": 0, "wkv6": 0},
+            f"calibrate launched {launches}, expected {CALIB_PAIRS * CALIB_RUNS} of K1 alone")
+    bad = [(a, r["max_err_vs_ref"]) for a, _, r in made if r["kernel"] != "flash_attention"
+           or not r["max_err_vs_ref"] <= TOL_BF16]
+    require(not bad, f"calibrate's measurements beyond {TOL_BF16} or not of K1: {bad}")
+    sku = get_sku(CALIB_SKU)
+    counts = db.provenance_counts()
+    recs = sorted(db.records.values(), key=lambda r: (r.arch, r.shape, r.profile))
+    measured = [r for r in recs if r.provenance == "measured"]
+    predicted = [r for r in recs if r.provenance == "predicted"]
+    require(counts.get("measured") == CALIB_PAIRS and counts.get("predicted") == CALIB_PAIRS
+            and counts.get("refined") == len(db) - 2 * CALIB_PAIRS, f"calibrated DB provenance {counts}")
+    require({r.profile for r in measured} == {sku.full_profile} and {r.source for r in measured} == {"kernels"},
+            f"measured records at {sorted({r.profile for r in measured})} from {sorted({r.source for r in measured})}")
+    require({r.profile for r in predicted} == {sku.profile_order[0]},
+            f"predicted records at {sorted({r.profile for r in predicted})}")
+    err_of = {a: r["max_err_vs_ref"] for a, _, r in made}
+    pairs = [{"arch": r.arch, "shape": r.shape, "profile": r.profile, "compute_us": r.compute_s * 1e6,
+              "step_us": r.step_s * 1e6, "max_err_vs_ref": err_of[r.arch]} for r in measured]
+    emit("calibrate", sku=CALIB_SKU, launches=launches, provenance=counts, seconds=calib_s, pairs=pairs,
+         step_latency_us=sku.step_latency_s * 1e6)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc = simulate.main(["--seed", "0", "--out", tmp])
+        sim_s = time.perf_counter() - t0
+        summary_bytes = (Path(tmp) / "_summary.json").read_bytes()
+    summary = json.loads(summary_bytes)
+    require(rc == 0 and summary["failures"] == 0, f"simulate exited {rc} with {summary['failures']} failed cells")
+    emit("simulate", seed=0, cells=len(summary["cells"]), failures=summary["failures"], seconds=sim_s,
+         summary_sha256=hashlib.sha256(summary_bytes).hexdigest())
+    return {"kernels": kernels, "launches": launches, "pairs": pairs}
+
+
 def main() -> None:
     t0 = time.perf_counter()
     device = phase_device()
@@ -2047,6 +2167,8 @@ def main() -> None:
     resnet_runs = phase_resnet()["runs"]
     torch.cuda.empty_cache()
     phase_collocate(resnet_runs)
+    calib = phase_calibrate()
+    calib_k = calib["kernels"]
 
     def row(k, source, replaces, launches):
         return {
@@ -2066,6 +2188,9 @@ def main() -> None:
     # training path (TRAIN_STEPS steps), K5 on rwkv6's serving path; K1's
     # count on the training path beside its own. At head_dim 160 (d160):
     # K1 and K4 on stablelm-12b's serving path, K2 and K3 on its one step.
+    # On the calibration path: K1 in ``calibrate --backend kernels``
+    # (launches_calibrate), and K1, K4 and K5 in one calibration measurement
+    # each (launches_calibrate_kernel).
     bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     slm_served = served[slm_cfg.name]["launches"]
     slm_k1, slm_k2, slm_k3 = slm_step["launches"]
@@ -2075,9 +2200,12 @@ def main() -> None:
                  "src/repro/kernels/flash_attention.py:159", served[cfg.name]["launches"]["flash_attention_fwd"]),
              launches_train=trained["launches"]["flash_attention_fwd"],
              max_abs_err_train=dkv["forward_max_abs_err"],
+             launches_calibrate=calib["launches"]["flash_attention"],
+             launches_calibrate_kernel=calib_k["flash_attention"]["launches"],
              d160=dict(at160("flash_attention_fwd", slm_served["flash_attention_fwd"]), launches_train=slm_k1)),
         dict(row(decode, "src/repro_torch/kernels/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:126", served[cfg.name]["launches"]["decode_attention"]),
+             launches_calibrate_kernel=calib_k["decode_attention"]["launches"],
              d160=at160("decode_attention", slm_served["decode_attention"])),
         dict(row(dkv, bwd_src, dkv["replaces"], trained["launches"]["flash_attention_bwd_dkv"]),
              d160=at160("flash_attention_bwd_dkv", slm_k2)),
@@ -2085,6 +2213,7 @@ def main() -> None:
              d160=at160("flash_attention_bwd_dq", slm_k3)),
         dict(row(wkv, "src/repro_torch/kernels/csrc/wkv6_scan.cu", wkv["replaces"],
                  served_rwkv["launches"]["wkv6_scan"]),
+             launches_calibrate_kernel=calib_k["wkv6"]["launches"],
              pytorch_yardstick_ms=wkv["chunked_ms"], pytorch_yardstick="models.rwkv6.wkv_chunked"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -1,12 +1,8 @@
 # The paper's primary contribution — the scheduling system (PyTorch twin of
-# ``repro.core``). This package holds what the collocation characterization
-# needs: the device model, the shared-mode models, the workload API, the
-# placement planner, the instance runtime on the card and the isolation
-# checks. The reference's event-driven cluster (``cluster``, ``events``,
-# ``queueing``, ``elastic``) and ``forecast/``, ``obs/``, ``calib/`` and
-# ``gang/placement.py`` are not ported yet (ROADMAP.md, Queue 1 item 13), so
-# ``Cluster``, ``ClusterJob``, ``ClusterReport``, ``DeviceState``, ``Event``,
-# ``EventKind``, ``EventQueue`` and ``AdmissionQueue`` are not exported.
+# ``repro.core``): the device model, the shared-mode models, the workload
+# API, the placement planner, the instance runtime on the card, the
+# isolation checks, and the event-driven cluster with its queueing,
+# forecasting, tracing and calibration subsystems.
 
 # Device-model API: first-class GPU SKU descriptors (placement tree,
 # slice budgets, shared-mode knobs) + the registry of generations.
@@ -30,6 +26,19 @@ from repro_torch.core.sharing import (  # noqa: F401
     naive_contention,
     shared_mode_report,
 )
+
+# Event-driven cluster API (dynamic arrivals, per-device modes, live
+# reconfiguration). The cluster does no device work (only
+# core/instance.py's InstanceRuntime does), so the simulator runs on the
+# host alone.
+from repro_torch.core.cluster import (  # noqa: F401
+    Cluster,
+    ClusterJob,
+    ClusterReport,
+    DeviceState,
+)
+from repro_torch.core.events import Event, EventKind, EventQueue  # noqa: F401
+from repro_torch.core.queueing import AdmissionQueue  # noqa: F401
 
 # Workload API v2: phase-aware demand traces, TRAIN/SERVE objectives, and
 # the flat-JobSpec single-phase adapter.

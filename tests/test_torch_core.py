@@ -48,6 +48,11 @@ COPIED = (
     "core.sharing", "core.device", "core.profiles", "core.workload", "core.collocation",
     "core.metrics", "core.planner", "core.planner.costmodel", "core.planner.enumerator",
     "core.planner.optimizer", "core.gang", "core.gang.parallelism", "core.gang.comms",
+    # the event-driven cluster and its subsystems
+    "core.events", "core.queueing", "core.obs", "core.obs.recorder", "core.obs.perfetto",
+    "core.forecast", "core.forecast.estimator", "core.forecast.policy", "core.gang.placement",
+    "core.elastic", "core.calib.records", "core.calib.fit", "core.calib.online", "core.cluster",
+    "launch.traces",
 )
 # functions and classes copied into modules that are otherwise rewritten
 COPIED_PARTS = (

@@ -29,33 +29,53 @@ import repro_torch.configs.registry
 import repro_torch.checkpoint.store
 import repro_torch.convert
 import repro_torch.core
+import repro_torch.core.calib
+import repro_torch.core.calib.fit
+import repro_torch.core.calib.harness
+import repro_torch.core.calib.online
+import repro_torch.core.calib.records
+import repro_torch.core.cluster
 import repro_torch.core.collocation
 import repro_torch.core.device
+import repro_torch.core.elastic
+import repro_torch.core.events
+import repro_torch.core.forecast
+import repro_torch.core.forecast.estimator
+import repro_torch.core.forecast.policy
 import repro_torch.core.gang
 import repro_torch.core.gang.comms
 import repro_torch.core.gang.parallelism
+import repro_torch.core.gang.placement
 import repro_torch.core.instance
 import repro_torch.core.interference
 import repro_torch.core.metrics
+import repro_torch.core.obs
+import repro_torch.core.obs.perfetto
+import repro_torch.core.obs.recorder
 import repro_torch.core.partitioner
 import repro_torch.core.planner
 import repro_torch.core.planner.costmodel
 import repro_torch.core.planner.enumerator
 import repro_torch.core.planner.optimizer
 import repro_torch.core.profiles
+import repro_torch.core.queueing
 import repro_torch.core.sharing
 import repro_torch.core.slice_unit
 import repro_torch.core.workload
 import repro_torch.data.pipeline
 import repro_torch.data.synthetic
 import repro_torch.kernels._build
+import repro_torch.kernels.calibration
 import repro_torch.kernels.decode_attention
 import repro_torch.kernels.flash_attention
 import repro_torch.kernels.ops
 import repro_torch.kernels.ref
 import repro_torch.kernels.rwkv6_scan
 import repro_torch.launch.collocate
+import repro_torch.launch.calibrate
 import repro_torch.launch.lowering
+import repro_torch.launch.simulate
+import repro_torch.launch.traces
 import repro_torch.launch.train
 import repro_torch.models.attention
 import repro_torch.models.losses
@@ -111,6 +131,12 @@ with tempfile.TemporaryDirectory() as tmp:
     # and characterizes a workload of the paper's grid
     from repro_torch.launch import collocate
     assert collocate.main(["--workloads", "resnet_small", "--device", "cpu", "--reduced", "--out", tmp]) == 0
+    # and simulates a fleet, and calibrates the char DB from the kernels' plain versions
+    from repro_torch.launch import calibrate, simulate
+    assert simulate.main(["--steps", "6", "--scenarios", "train_serve_mix", "--policies", "best",
+                          "--out", tmp + "/sim"]) == 0
+    assert calibrate.main(["--backend", "kernels", "--device", "cpu", "--skus", "h100-80gb",
+                           "--out", tmp + "/calib"]) == 0
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 print("PORT-STANDS-ALONE")
 """
