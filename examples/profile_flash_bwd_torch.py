@@ -26,7 +26,11 @@ Each runs ``chip_smoke.flash_bwd_case`` at the training shape and at two
 ragged causal shapes, then ``chip_smoke.one_step`` (granite-3-2b at full
 size, one step's loss and gradients against the non-kernel path), then the
 same at head_dim 160: the case at stablelm-12b's training shape and its
-one-step check at full width and depth 2 (``chip_smoke.STABLELM_TOL``). It prints
+one-step check at full width and depth 2 (``chip_smoke.STABLELM_TOL``), then
+the one-query-head-a-KV-head configs: the case at whisper-base's cross
+attention in training (non-causal, 448 x 1500) and the one-step checks of
+olmoe-1b-7b at full width and depth 2 (``chip_smoke.OLMOE_TOL``) and of
+whisper-base at full size (``chip_smoke.WHISPER_TOL``). It prints
 what each check found: every one should fail. ``one_step`` prints its
 readings (the gradients' relative L2 errors) before it holds them to their
 limits, so the output also gives the faults' readings from which
@@ -107,6 +111,20 @@ def check_here(name: str) -> None:
     slm = c.stablelm_train_config()
     kv.report(name, "one_step stablelm-12b depth 2",
               lambda: c.one_step(slm, c.build_model(slm), c.make_plan(slm, None), c.STABLELM_TOL))
+    torch.cuda.empty_cache()
+    # G = 1: whisper-base's cross attention, and the one-step checks of olmoe-1b-7b and whisper-base
+    kv.report(name, "flash_bwd_case B8 Sq448 Skv1500 H8 KVH8 D64 non-causal",
+              lambda: c.flash_bwd_case(gen, c.BATCH, c.WHISPER_PROMPT + c.NEW, c.WHISPER_FRAMES, 8, 8, 64, False,
+                                       by_rows=True))
+    torch.cuda.empty_cache()
+    olmoe = c.olmoe_train_config()
+    kv.report(name, "one_step olmoe-1b-7b depth 2",
+              lambda: c.one_step(olmoe, c.build_model(olmoe), c.make_plan(olmoe, None), c.OLMOE_TOL))
+    torch.cuda.empty_cache()
+    wcfg = c.get_config(c.WHISPER_ARCH)
+    kv.report(name, "one_step whisper-base",
+              lambda: c.one_step(wcfg, c.build_model(wcfg), c.make_plan(wcfg, None), c.WHISPER_TOL,
+                                 batch_size=c.BATCH, seq=c.WHISPER_PROMPT + c.NEW))
 
 
 if __name__ == "__main__":

@@ -4,7 +4,11 @@ The reference keeps its parameters as a nested dict of arrays with layer
 parameters stacked on a leading ``L`` dim (the ResNet's blocks are a list of
 dicts, its conv weights HWIO). The port keeps the same tree, the same
 stacking and the same layouts, so conversion is leaf by leaf: names, shapes
-and types are kept. The caller hands over numpy arrays (``jax.device_get`` of the
+and types are kept. That holds for every family's tree: the MoE's experts
+stacked on an E axis after L (``layers/moe/e_gate`` (L, E, d, f), the f32
+router, the ``shared`` experts), zamba2's unstacked ``shared_attn`` block
+beside its stacked mamba2 layers, whisper's ``enc_layers`` and
+``dec_layers`` stacks. The caller hands over numpy arrays (``jax.device_get`` of the
 reference tree); nothing here imports the reference or its framework.
 ``from_jax_train_state`` does the same for a whole train state
 ``{"params", "opt": AdamWState(step, m, v)}``.

@@ -10,7 +10,7 @@ scan on a CUDA tensor) and holds its output against ``kernels/ref.py``.
 The shapes are the reference's but where the port's kernels take less:
 
   * head_dim 32 becomes 64 for flash and decode attention, which take head
-    dims 64, 128 and 160 only (``flash_attention.HEAD_DIMS``);
+    dims 64, 112, 128 and 160 only (``flash_attention.HEAD_DIMS``);
   * K = V = 32 becomes 64 for the WKV6 scan, which is built for heads of 64
     (``rwkv6_scan.HEAD_SIZE``);
   * the Pallas kernels' tiles (``block_q``, ``block_k``, ``chunk``) go: the

@@ -42,6 +42,16 @@
 //   * D = 160 (stablelm-12b): a row is three 64-element column blocks, the
 //     last 32 columns past the tensor map's extent of D (zeros, and never
 //     read: s = q.k^T takes 10 k16 steps and p.v 10 column pairs of 16);
+//   * D = 112 (zamba2-7b's shared attention block): a row is two column
+//     blocks, the last 16 columns past the map's extent of D (zeros, never
+//     read: 7 k16 steps and 7 column pairs of 16). zamba2 and the other
+//     multi-head configs (deepseek-moe-16b, olmoe-1b-7b, whisper-base) have
+//     G = 1, so a block holds one live query head in the 16 rows of its
+//     tiles: 2 FLOPs a cache element, 1/16 of the tensor cores' work used.
+//     The sweep is bound by bytes all the same (at zamba2's decode shape,
+//     caches (8,2080,32,112) at kv_len 2049, the least time is the 235 MB of
+//     K and V over the memory rate, 0.07 ms), and the idle rows cost nothing
+//     the stream would not hide;
 //   * slots at or past kv_len are never used: tiles past it are not loaded,
 //     the tail of the last one is masked (p = 0). Smax need not divide
 //     anything.
@@ -367,7 +377,8 @@ int occupancy(int n_split, int* clusters) {
 // (B, Smax, KVH, D) through strides s = (b, s, kvh) as a 4-D map (D, KVH,
 // Smax, B) with a box of (64, 1, R, 1): R rows of one (batch, kv head), one
 // 64-element column block of them, in the 128-byte swizzle. The innermost
-// extent is D: at D = 160 the third block's last 32 columns read as zeros,
+// extent is D: at D = 112 the second block's last 16 columns and at D = 160
+// the third block's last 32 read as zeros,
 // never as the next kv head's
 int map_cache(CUtensorMap* map, const void* base, int dtype, const long long* s, int B, int Smax, int KVH, int D) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(KVH),
@@ -392,7 +403,7 @@ extern "C" int decode_attention_launch(
   p.q_sb = strides[6]; p.q_sh = strides[7]; p.o_sb = strides[8]; p.o_sh = strides[9];
   p.H = H; p.G = H / KVH; p.Smax = Smax; p.n_gt = (p.G + HEADS - 1) / HEADS;
   p.scale = scale;
-  if (!((D == 64 || D == 128 || D == 160) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
+  if (!((D == 64 || D == 112 || D == 128 || D == 160) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
   if (n_split < 1 || n_split > MAX_CLUSTER) return ERR_PLAN;
   CUtensorMap m[2];
   int r;
@@ -403,6 +414,8 @@ extern "C" int decode_attention_launch(
   if (dtype == 0 && D == 128) return launch<__nv_bfloat16, 128>(m, p, B, KVH, n_split, st);
   if (dtype == 1 && D == 64) return launch<__half, 64>(m, p, B, KVH, n_split, st);
   if (dtype == 1 && D == 128) return launch<__half, 128>(m, p, B, KVH, n_split, st);
+  if (dtype == 0 && D == 112) return launch<__nv_bfloat16, 112>(m, p, B, KVH, n_split, st);
+  if (dtype == 1 && D == 112) return launch<__half, 112>(m, p, B, KVH, n_split, st);
   if (dtype == 0) return launch<__nv_bfloat16, 160>(m, p, B, KVH, n_split, st);
   return launch<__half, 160>(m, p, B, KVH, n_split, st);
 }
@@ -416,6 +429,8 @@ extern "C" int decode_attention_occupancy(int D, int dtype, int n_split, int* cl
   if (dtype == 0 && D == 128) return occupancy<__nv_bfloat16, 128>(n_split, clusters);
   if (dtype == 1 && D == 64) return occupancy<__half, 64>(n_split, clusters);
   if (dtype == 1 && D == 128) return occupancy<__half, 128>(n_split, clusters);
+  if (dtype == 0 && D == 112) return occupancy<__nv_bfloat16, 112>(n_split, clusters);
+  if (dtype == 1 && D == 112) return occupancy<__half, 112>(n_split, clusters);
   if (dtype == 0 && D == 160) return occupancy<__nv_bfloat16, 160>(n_split, clusters);
   if (dtype == 1 && D == 160) return occupancy<__half, 160>(n_split, clusters);
   return ERR_NO_KERNEL;

@@ -21,10 +21,10 @@
 //     straight to a 16-bit A fragment) and V read MN-major;
 //   * a block owns the folded q rows of a work item (q tile, kv head,
 //     batch), 64 a consumer warpgroup: three warpgroups (192 rows) at D = 64,
-//     so that while one runs its softmax two others keep the tensor cores
-//     busy; two (128 rows) at D = 128 and 160, where o takes 64 and 80
+//     and 112, so that while one runs its softmax two others keep the tensor
+//     cores busy; two (128 rows) at D = 128 and 160, where o takes 64 and 80
 //     registers a thread. One producer warp feeds them: the q tile, then K
-//     and V tiles of 128 rows at D = 64 (64 at D = 128 and 160) by TMA into a
+//     and V tiles of 128 rows at D = 64 (64 at D = 112, 128 and 160) by TMA into a
 //     ring of 3 buffers (2 at D = 160), K and V behind separate barriers. The consumers take the producer's
 //     registers (setmaxnreg). q, o are read and written through a 5-D tensor
 //     map (D, G, S, KVH, B) whose box is a tile of whole positions, so the
@@ -36,6 +36,22 @@
 //     GQA fold view. s = q.k^T takes 10 k16 steps, which stop at column 160;
 //     o += p.v is one m64n160k16 wgmma, which reads two whole column blocks
 //     of V and half of the third;
+//   * D = 112 (zamba2-7b's shared attention block, 32 query heads over 32 KV
+//     heads, G = 1) is one and three quarter swizzle atoms, laid out as 160
+//     is: two column blocks a row, the last 16 columns of the second past the
+//     maps' extent of D (zeros on a load, clipped on the store). s = q.k^T
+//     takes 7 k16 steps; o += p.v is one m64n112k16 wgmma (N = 112 is a
+//     multiple of 8), which reads the first column block of V whole and 48
+//     columns of the second. What bounds it at zamba2's serving shape
+//     (q (8,32,2048,1,112) causal) is operations again: 2*2*B*H*S^2*D/2 =
+//     241 GFLOP against 0.47 GB. A consumer thread's accumulators take 104
+//     registers (o 56, s 32, p 16), so three consumers fit in 160 each, as
+//     at D = 64 (128 there): 192 folded rows a block, a ring of 3 stages of
+//     64 KV rows, 192 KB of shared memory. Timed on an H100 against D =
+//     128's tiles (two consumers, 0.766 ms), three took 0.640 ms; a ring of
+//     4 (0.916) and KV tiles of 128 rows in a ring of 2 (0.829) were slower
+//     (examples/profile_flash_fwd_torch.py, variants nc3_112, stages4,
+//     kv128_112);
 //   * the kernel is persistent: one block an SM walks over the work items,
 //     heaviest first (item w is q tile n_tiles - 1 - w / (KVH B)), block i
 //     taking items i, i + gridDim.x, ... The next item's q tile loads while
@@ -80,12 +96,12 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr int PRODUCER_REGS = 24;
 
-// Consumer warpgroups a block, 64 folded q rows each: 3 at D = 64, where a
-// consumer thread holds s (64 registers), p (32) and o (32) within 160; 2 at
-// D = 128 and 160, where o alone takes 64 and 80.
+// Consumer warpgroups a block, 64 folded q rows each: 3 at D = 64 and 112,
+// where a consumer thread holds s (64 and 32 registers), p (32 and 16) and o
+// (32 and 56) within 160; 2 at D = 128 and 160, where o alone takes 64 and 80.
 template <int D>
 __host__ __device__ constexpr int n_consumers() {
-  return D == 64 ? 3 : 2;
+  return D == 64 || D == 112 ? 3 : 2;
 }
 
 // Depth of the ring of (K, V) tiles: 3, and 2 at D = 160, where a row takes
@@ -103,7 +119,7 @@ __host__ __device__ constexpr int consumer_regs() {
   return NC == 3 ? 160 : 240;
 }
 
-// KV rows of a swept tile: 128 at D = 64, 64 at D = 128 and 160.
+// KV rows of a swept tile: 128 at D = 64, 64 at D = 112, 128 and 160.
 template <int D>
 __host__ __device__ constexpr int kv_rows() {
   return D == 64 ? 128 : 64;
@@ -522,6 +538,8 @@ extern "C" int flash_attention_fwd_blocks_per_sm(int D, int dtype) {
   if (dtype == 0 && D == 128) return blocks_per_sm<__nv_bfloat16, 128>();
   if (dtype == 1 && D == 64) return blocks_per_sm<__half, 64>();
   if (dtype == 1 && D == 128) return blocks_per_sm<__half, 128>();
+  if (dtype == 0 && D == 112) return blocks_per_sm<__nv_bfloat16, 112>();
+  if (dtype == 1 && D == 112) return blocks_per_sm<__half, 112>();
   if (dtype == 0 && D == 160) return blocks_per_sm<__nv_bfloat16, 160>();
   if (dtype == 1 && D == 160) return blocks_per_sm<__half, 160>();
   return ERR_NO_KERNEL;
@@ -529,7 +547,7 @@ extern "C" int flash_attention_fwd_blocks_per_sm(int D, int dtype) {
 
 // Strides in elements: q b,kvh,s,g | k b,kvh,s | v b,kvh,s | o b,kvh,s,g
 // (14). (P, Gt, gchunks) is the tile plan of a block's folded q rows
-// (FwdSmem<D>::QR: 192 at D = 64, 128 at D = 128 and 160). dtype: 0 = bf16, 1 = f16. Launches one
+// (FwdSmem<D>::QR: 192 at D = 64 and 112, 128 at D = 128 and 160). dtype: 0 = bf16, 1 = f16. Launches one
 // kernel, one block an SM, and returns cudaGetLastError(), or one of the
 // negative ERR_ codes of hopper.cuh without launching.
 extern "C" int flash_attention_fwd_launch(
@@ -542,11 +560,12 @@ extern "C" int flash_attention_fwd_launch(
   p.tp = TilePlan{P, Gt, gchunks};
   p.n_tiles = ((Sq + P - 1) / P) * gchunks;
   p.causal = causal; p.q_offset = q_offset; p.scale = scale;
-  if (!((D == 64 || D == 128 || D == 160) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
-  if (!plan_ok(p.tp, G, D == 64 ? FwdSmem<64>::QR : D == 128 ? FwdSmem<128>::QR : FwdSmem<160>::QR))
-    return ERR_PLAN;
+  if (!((D == 64 || D == 112 || D == 128 || D == 160) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
+  const int qr = D == 64 ? FwdSmem<64>::QR : D == 112 ? FwdSmem<112>::QR : D == 128 ? FwdSmem<128>::QR
+                                                                                     : FwdSmem<160>::QR;
+  if (!plan_ok(p.tp, G, qr)) return ERR_PLAN;
   CUtensorMap m[4];
-  const int nk = D == 64 ? kv_rows<64>() : D == 128 ? kv_rows<128>() : kv_rows<160>();
+  const int nk = D == 64 ? kv_rows<64>() : D == 112 ? kv_rows<112>() : D == 128 ? kv_rows<128>() : kv_rows<160>();
   int r;
   if ((r = map_folded(&m[0], q, dtype, s, B, KVH, Sq, G, D, p.tp)) != 0) return r;
   if ((r = map_kv(&m[1], k, dtype, s + 4, B, KVH, Skv, D, nk)) != 0) return r;
@@ -557,6 +576,8 @@ extern "C" int flash_attention_fwd_launch(
   if (dtype == 0 && D == 128) return launch<__nv_bfloat16, 128>(m, p, st);
   if (dtype == 1 && D == 64) return launch<__half, 64>(m, p, st);
   if (dtype == 1 && D == 128) return launch<__half, 128>(m, p, st);
+  if (dtype == 0 && D == 112) return launch<__nv_bfloat16, 112>(m, p, st);
+  if (dtype == 1 && D == 112) return launch<__half, 112>(m, p, st);
   if (dtype == 0) return launch<__nv_bfloat16, 160>(m, p, st);
   return launch<__half, 160>(m, p, st);
 }

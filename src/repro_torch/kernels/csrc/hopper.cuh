@@ -22,9 +22,10 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int ATOM = 128;  // bytes of a swizzled row: 64 16-bit elements
 
 // 64-element column blocks of a row of D elements in a tile: D / 64 at
-// D = 64 and 128, three at D = 160, where the third block's last 32 columns
-// lie past the tensor map's extent of D: TMA fills them with zeros on a load
-// and clips them on a store, and no product reads them.
+// D = 64 and 128, two at D = 112 and three at D = 160, where the last block's
+// last 16 (D = 112) or 32 (D = 160) columns lie past the tensor map's extent
+// of D: TMA fills them with zeros on a load and clips them on a store, and
+// no product reads them.
 template <int D>
 __host__ __device__ constexpr int col_blocks() {
   return (D + 63) / 64;
@@ -174,6 +175,9 @@ struct Mma {
   // d[64 x 64] or d[64 x 128] (+)= A . B, A from registers, B MN-major in shared memory
   static __device__ void rs_n64_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc);
   static __device__ void rs_n128_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc);
+  // d[64 x 112] (+)= A . B: N = 112 spans one whole column block of B and the
+  // first 48 columns of a second
+  static __device__ void rs_n112_tb(float (&d)[56], const uint32_t (&a)[4], uint64_t db, int acc);
   // d[64 x 160] (+)= A . B: N = 160 spans two whole column blocks of B and the
   // first half of a third
   static __device__ void rs_n160_tb(float (&d)[80], const uint32_t (&a)[4], uint64_t db, int acc);
@@ -292,6 +296,26 @@ __device__ __forceinline__ void Mma<__half>::rs_n160_tb(float (&d)[80], const ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+template <>
+__device__ __forceinline__ void Mma<__nv_bfloat16>::rs_n112_tb(float (&d)[56], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void Mma<__half>::rs_n112_tb(float (&d)[56], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 template <typename T, int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
   if constexpr (N == 64) {
@@ -303,9 +327,11 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t 
 
 template <typename T, int D>
 __device__ __forceinline__ void mma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
-  static_assert(D == 64 || D == 128 || D == 160, "no wgmma for this head_dim");
+  static_assert(D == 64 || D == 112 || D == 128 || D == 160, "no wgmma for this head_dim");
   if constexpr (D == 64) {
     Mma<T>::rs_n64_tb(d, a, db, 1);
+  } else if constexpr (D == 112) {
+    Mma<T>::rs_n112_tb(d, a, db, 1);
   } else if constexpr (D == 128) {
     Mma<T>::rs_n128_tb(d, a, db, 1);
   } else {
@@ -546,7 +572,7 @@ int make_map(CUtensorMap* map, const void* base, int dtype, int rank, const cuui
 
 // (B, KVH, S, G, D) through strides s = (b, kvh, s, g), a box of (64, Gt, P, 1, 1).
 // The innermost extent is D, not the row stride: a box that reaches past D
-// (the third of D = 160) reads zeros there and writes nothing, never the
+// (the second of D = 112, the third of D = 160) reads zeros there and writes nothing, never the
 // columns of the next head that a GQA fold view has beside a row.
 int map_folded(CUtensorMap* map, const void* base, int dtype, const long long* s, int B, int KVH, int S, int G,
                int D, const TilePlan& tp) {

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (64, 128, 160)
+HEAD_DIMS = (64, 112, 128, 160)
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 #: cache rows below which a further split of the sweep is not worth a block:
 #: at batch 1 of granite-3-2b splits of 4 tiles (64 rows each) were faster

@@ -21,7 +21,10 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (64, 128, 160)
+#: head dims of the forward kernel (K1); the backward kernels (K2, K3) are
+#: built for BWD_HEAD_DIMS, and a backward at another head dim raises
+HEAD_DIMS = (64, 112, 128, 160)
+BWD_HEAD_DIMS = (64, 128, 160)
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 
 #: launches of the forward kernel since import (or since the caller reset it)
@@ -69,10 +72,10 @@ DQ_TILE_ROWS, DKV_TILE_ROWS = 128, 64
 
 def fwd_tile_rows(D: int) -> int:
     """Folded q rows a block of the forward kernel owns at head_dim D: 64 a
-    consumer warpgroup, three of them at D = 64 and two at D = 128 and 160
+    consumer warpgroup, three of them at D = 64 and 112 and two at D = 128 and 160
     (``FwdSmem<D>::QR`` in the source; a launch whose plan disagrees fails
     with ERR_PLAN)."""
-    return 192 if D == 64 else 128
+    return 192 if D in (64, 112) else 128
 
 
 def dkv_kv_rows(D: int) -> int:
@@ -90,7 +93,7 @@ class TilePlan:
     head, row = position * groups + group, read by ceil(D / 64) TMA boxes of
     ``box`` = (64, groups, positions, 1, 1) elements over (D, G, S, KVH, B),
     one a 64-element column block; the tensor map's extent of D clips the
-    last box where 64 does not divide D (160).
+    last box where 64 does not divide D (112, 160).
     With G <= rows a tile holds whole positions (``groups`` = G); with
     G > rows it holds one position and the G heads span ``g_chunks`` tiles.
     The ``rows_masked`` rows past positions x groups are never loaded and
@@ -146,15 +149,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q, k, v devices differ: {q.device}, {k.device}, {v.device}")
 
 
-def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **more: torch.Tensor) -> None:
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head_dims=HEAD_DIMS, what: str = "forward",
+                **more: torch.Tensor) -> None:
     D = q.shape[-1]
     if q.dtype not in _DTYPES:
         raise TypeError(
             f"the flash attention kernel takes bfloat16 or float16, not {q.dtype}"
         )
-    if D not in HEAD_DIMS:
+    if D not in head_dims:
         raise ValueError(
-            f"the flash attention kernel is built for head_dim {HEAD_DIMS}, not {D}"
+            f"the flash attention {what} kernels are built for head_dim {head_dims}, not {D}"
         )
     for name, x in (("q", q), ("k", k), ("v", v), *more.items()):
         # rows are read with 16-byte loads: last dim contiguous, every other
@@ -307,7 +311,7 @@ def _bwd_args(q, k, v, lse, delta, named, rows, causal, scale, q_offset):
             raise ValueError(f"{name} {tuple(x.shape)} must be shaped like {tuple(like.shape)}")
         if x.dtype != q.dtype or x.device != q.device:
             raise TypeError(f"{name} must have q's type and device")
-    _check_cuda(q, k, v, **named)
+    _check_cuda(q, k, v, BWD_HEAD_DIMS, "backward", **named)
     _check_tma(q=q, k=k, v=v, **named)
     for name, x in (("lse", lse), ("delta", delta)):
         if x.shape != (B, KVH, Sq, G) or x.dtype != torch.float32 or not x.is_contiguous() or x.device != q.device:

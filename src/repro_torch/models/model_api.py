@@ -10,8 +10,10 @@ architecture:
   cache_spec(batch, seq)          -> dict of (shape, dtype)
   input_specs(suite)              -> dict[str, (shape, dtype)]
 
-The port builds the ``dense``, ``vlm``, ``rwkv`` and ``resnet`` families;
-any other family raises ``KeyError`` as an unknown family does.
+The port builds every family of the reference: ``dense`` and ``vlm``
+(transformer.py), ``moe`` (moe.py), ``rwkv`` (rwkv6.py), ``hybrid`` and its
+alias ``ssm`` (mamba2.py), ``encdec`` (encdec.py) and ``resnet``
+(resnet.py). A family it does not know raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -146,13 +148,14 @@ register_family("vlm")(_build_dense)  # llava backbone = dense + patch stub
 
 def build_model(cfg: ModelConfig) -> Model:
     # late imports, as the reference's: these modules import this one
-    if cfg.family == "rwkv" and "rwkv" not in _BUILDERS:
-        from repro_torch.models import rwkv6
+    if "moe" not in _BUILDERS:
+        from repro_torch.models import encdec, mamba2, moe, resnet, rwkv6
 
+        register_family("moe")(moe._build_moe)
         register_family("rwkv")(rwkv6._build_rwkv)
-    if cfg.family == "resnet" and "resnet" not in _BUILDERS:
-        from repro_torch.models import resnet
-
+        register_family("hybrid")(mamba2._build_hybrid)
+        register_family("ssm")(mamba2._build_hybrid)  # pure-mamba configs reuse the hybrid path
+        register_family("encdec")(encdec._build_encdec)
         register_family("resnet")(resnet._build_resnet)
     if cfg.family not in _BUILDERS:
         raise KeyError(f"unknown family {cfg.family!r}")

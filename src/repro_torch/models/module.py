@@ -233,6 +233,11 @@ def scan_layers(
     return carry
 
 
+def slice_layers(stacked: Params, start: int, stop: int) -> Params:
+    """Layers ``[start, stop)`` of a stacked-params tree (views, no copy)."""
+    return tree_map(lambda a: a[start:stop], stacked)
+
+
 def param_count(params: Params) -> int:
     return sum(x.numel() for x in tree_leaves(params))
 

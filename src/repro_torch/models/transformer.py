@@ -32,6 +32,49 @@ def _norm_init(cfg: ModelConfig, device, stack: Tuple[int, ...] = ()) -> Params:
     return init(cfg.d_model, device=device, stack=stack)
 
 
+def init_attn(cfg: ModelConfig, init, device, stack: Tuple[int, ...] = ()) -> Params:
+    """The attention leaves of one layer, or of a stack of layers (``stack``
+    leads every shape), as the reference's ``init_attn_layer``. ``init`` is
+    ``nn.fan_in_init`` bound to a generator, bf16 and ``device``."""
+    bf16 = torch.bfloat16
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    attn: Params = {
+        "wq": init((*stack, d, cfg.n_heads * hd)),
+        "wk": init((*stack, d, cfg.n_kv_heads * hd)),
+        "wv": init((*stack, d, cfg.n_kv_heads * hd)),
+        "wo": init((*stack, cfg.n_heads * hd, d), scale=1.0 / (2 * cfg.n_layers) ** 0.5),
+    }
+    if cfg.qkv_bias:
+        attn["bq"] = torch.zeros((*stack, cfg.n_heads * hd), dtype=bf16, device=device)
+        attn["bk"] = torch.zeros((*stack, cfg.n_kv_heads * hd), dtype=bf16, device=device)
+        attn["bv"] = torch.zeros((*stack, cfg.n_kv_heads * hd), dtype=bf16, device=device)
+    return attn
+
+
+def init_mlp(cfg: ModelConfig, init, stack: Tuple[int, ...] = ()) -> Params:
+    """The MLP leaves of one layer or a stack, as the reference's ``init_mlp_layer``."""
+    d, f = cfg.d_model, cfg.d_ff
+    out_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
+    if cfg.act == "swiglu":
+        return {
+            "w_gate": init((*stack, d, f)),
+            "w_up": init((*stack, d, f)),
+            "w_down": init((*stack, f, d), scale=out_scale),
+        }
+    return {"w_up": init((*stack, d, f)), "w_down": init((*stack, f, d), scale=out_scale)}
+
+
+def init_block(cfg: ModelConfig, init, device, stack: Tuple[int, ...] = ()) -> Params:
+    """One block's leaves (or a stack's), as the reference's ``init_block``."""
+    attn, mlp = init_attn(cfg, init, device, stack), init_mlp(cfg, init, stack)
+    return {
+        "attn_norm": _norm_init(cfg, device, stack),
+        "attn": attn,
+        "mlp_norm": _norm_init(cfg, device, stack),
+        "mlp": mlp,
+    }
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     """Random parameters from a seeded generator, made on ``device``.
 
@@ -41,39 +84,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
     live on ``device``.
     """
     bf16 = torch.bfloat16
-    L, d, f, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
-    out_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
+    d = cfg.d_model
     init = functools.partial(nn.fan_in_init, gen, dtype=bf16, device=device)
-
-    attn: Params = {
-        "wq": init((L, d, cfg.n_heads * hd)),
-        "wk": init((L, d, cfg.n_kv_heads * hd)),
-        "wv": init((L, d, cfg.n_kv_heads * hd)),
-        "wo": init((L, cfg.n_heads * hd, d), scale=out_scale),
-    }
-    if cfg.qkv_bias:
-        attn["bq"] = torch.zeros((L, cfg.n_heads * hd), dtype=bf16, device=device)
-        attn["bk"] = torch.zeros((L, cfg.n_kv_heads * hd), dtype=bf16, device=device)
-        attn["bv"] = torch.zeros((L, cfg.n_kv_heads * hd), dtype=bf16, device=device)
-    if cfg.act == "swiglu":
-        mlp: Params = {
-            "w_gate": init((L, d, f)),
-            "w_up": init((L, d, f)),
-            "w_down": init((L, f, d), scale=out_scale),
-        }
-    else:
-        mlp = {"w_up": init((L, d, f)), "w_down": init((L, f, d), scale=out_scale)}
-
+    layers = init_block(cfg, init, device, (cfg.n_layers,))
     params: Params = {
         "embed": {
             "table": nn.trunc_normal(gen, (cfg.padded_vocab, d), 1.0 / d**0.5, bf16, device)
         },
-        "layers": {
-            "attn_norm": _norm_init(cfg, device, (L,)),
-            "attn": attn,
-            "mlp_norm": _norm_init(cfg, device, (L,)),
-            "mlp": mlp,
-        },
+        "layers": layers,
         "final_norm": _norm_init(cfg, device),
     }
     if not cfg.tie_embeddings:

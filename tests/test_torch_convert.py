@@ -12,7 +12,8 @@ from repro_torch.configs.registry import get_config
 from repro_torch.convert import from_jax_params
 from repro_torch.models.model_api import build_model
 
-ARCHS = ["granite-3-2b", "qwen2-72b", "stablelm-12b", "llava-next-34b", "resnet_small"]
+ARCHS = ["granite-3-2b", "qwen2-72b", "stablelm-12b", "llava-next-34b", "resnet_small",
+         "deepseek-moe-16b", "olmoe-1b-7b", "zamba2-7b", "whisper-base"]
 
 
 def _flatten(tree, prefix=""):
@@ -48,7 +49,13 @@ def test_from_jax_params_keeps_every_leaf(arch):
         return
     # norm scales stay f32, matrices stay bf16
     assert got["final_norm/scale"].dtype == torch.float32
-    assert got["layers/attn/wq"].dtype == torch.bfloat16
+    if arch == "whisper-base":  # the encoder and decoder stacks
+        assert got["enc_layers/attn/wq"].shape[0] == got["dec_layers/cross_attn/wq"].shape[0] == 2
+        return
+    assert got["layers/attn/wq" if arch != "zamba2-7b" else "shared_attn/attn/wq"].dtype == torch.bfloat16
+    if arch in ("deepseek-moe-16b", "olmoe-1b-7b"):  # experts stacked on E after L; the router f32
+        assert got["layers/moe/e_gate"].shape[:2] == (2, 8) and got["layers/moe/w_router"].dtype == torch.float32
+        assert ("layers/moe/shared/w_gate" in got) == (arch == "deepseek-moe-16b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

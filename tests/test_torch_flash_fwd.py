@@ -4,9 +4,9 @@ the build cache of the kernels, on the CPU.
 The CUDA kernels run on the card only (``chip_smoke.py`` holds them against
 their plain versions there). What is held here is what decides which rows and
 keys each block visits, run in Python: the tile plan of K1's folded q rows a
-block (``fwd_tile_rows(D)``: 192 at D = 64, 128 at D = 128 and 160), the KV
-tiles each of its consumer warpgroups (64 rows each, three at D = 64 and two
-at D = 128 and 160)
+block (``fwd_tile_rows(D)``: 192 at D = 64 and 112, 128 at D = 128 and 160),
+the KV tiles each of its consumer warpgroups (64 rows each, three at D = 64
+and 112, two at D = 128 and 160)
 sweeps, which tiles skip the mask; the tiles of the cache each block of K4's cluster takes, and
 the combine of their partials. Each model is held against the plain version
 (``kernels/ref.py``), which computes in f32, at the reference's f32 tolerance
@@ -97,6 +97,10 @@ FWD_CASES = [
     (4, 77, 77, 160, True, 0),     # head_dim 160: 64-row kv tiles, 32 positions a tile
     (1, 130, 131, 160, False, 0),  # head_dim 160, G=1, non-causal, ragged Skv
     (130, 5, 40, 160, True, 35),   # head_dim 160: the heads of one position over two tiles
+    (1, 300, 300, 112, True, 0),   # head_dim 112 (zamba2-7b), G=1: 192 positions a tile
+    (4, 77, 77, 112, True, 0),     # head_dim 112: 64-row kv tiles, 48 positions a tile
+    (1, 130, 131, 112, False, 0),  # head_dim 112, non-causal, ragged Skv
+    (130, 5, 40, 112, True, 35),   # head_dim 112: the heads of one position over two tiles
 ]
 
 
@@ -129,10 +133,27 @@ def test_fwd_tiles_at_head_dim_160():
     column blocks, the last half past D."""
     assert tfa.fwd_tile_rows(160) == tfa.fwd_tile_rows(128) == 128
     assert kv_rows(160) == kv_rows(128) == 64
-    assert tfa.HEAD_DIMS == tda.HEAD_DIMS == (64, 128, 160)
+    assert 160 in tfa.HEAD_DIMS and 160 in tda.HEAD_DIMS and 160 in tfa.BWD_HEAD_DIMS
 
 
-@pytest.mark.parametrize("D", [64, 128, 160])
+def test_fwd_tiles_at_head_dim_112():
+    """D = 112 (zamba2-7b): a row is two 64-element column blocks, the last 16
+    columns of the second past D; three consumer warpgroups (192 folded rows)
+    as at D = 64, over D = 128's 64-row KV tiles. K1 and K4 take it; the
+    backward kernels do not, and say so before any CUDA call."""
+    assert tfa.fwd_tile_rows(112) == tfa.fwd_tile_rows(64) == 192
+    assert kv_rows(112) == kv_rows(128) == 64
+    assert tfa.HEAD_DIMS == tda.HEAD_DIMS == (64, 112, 128, 160)
+    assert tfa.BWD_HEAD_DIMS == (64, 128, 160)
+    q = torch.zeros(1, 2, 8, 1, 112, dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 8, 112, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 8, 1)
+    with pytest.raises(ValueError, match=r"backward kernels are built for head_dim \(64, 128, 160\), not 112"):
+        tfa.launch_bwd_dq(q, k, k, q, q, lse, lse.clone(), q.clone(), causal=True, scale=112**-0.5)
+    assert tfa.dq_launch_count == 0
+
+
+@pytest.mark.parametrize("D", [64, 112, 128, 160])
 @pytest.mark.parametrize("G", [1, 3, 4, 8, 130, 200])
 def test_fwd_tile_plan_box_and_items(G, D):
     """The forward's plan: 64 rows a consumer warpgroup, whole positions (or
@@ -217,6 +238,8 @@ def decode_by_cluster(q, kc, vc, kv_len, *, scale, n_sm=132):
 DECODE_CASES = [
     # (B, Smax, H, KVH, D, kv_len): chip_smoke.py's cases, smaller where they are large
     (2, 333, 8, 2, 160, 77),    # head_dim 160
+    (2, 333, 4, 4, 112, 77),    # head_dim 112, G=1: one live head in a block's 8
+    (8, 2080, 4, 4, 112, 2049),  # zamba2's decode length, four of its 32 heads
     (2, 333, 8, 2, 64, 1),
     (2, 333, 8, 2, 64, 77),
     (2, 333, 8, 2, 64, 333),

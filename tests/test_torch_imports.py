@@ -79,8 +79,11 @@ import repro_torch.launch.traces
 import repro_torch.launch.train
 import repro_torch.models.attention
 import repro_torch.models.losses
+import repro_torch.models.encdec
+import repro_torch.models.mamba2
 import repro_torch.models.model_api
 import repro_torch.models.module
+import repro_torch.models.moe
 import repro_torch.models.resnet
 import repro_torch.models.rwkv6
 import repro_torch.models.transformer
@@ -110,11 +113,12 @@ params = model.init(torch.Generator().manual_seed(0), "cpu")
 prompt = torch.from_numpy(synthetic.token_batch(cfg.vocab, 2, 8, seed=7)["tokens"])
 out = greedy_generate(model, params, prompt, 3, make_plan(cfg, None))
 assert out.shape == (2, 3)
-cfg = get_config("rwkv6-1.6b").reduced()
-model = build_model(cfg)
-params = model.init(torch.Generator().manual_seed(0), "cpu")
-out = greedy_generate(model, params, prompt, 3, make_plan(cfg, None))
-assert out.shape == (2, 3)
+for arch in ("rwkv6-1.6b", "olmoe-1b-7b", "zamba2-7b"):
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    out = greedy_generate(model, params, prompt, 3, make_plan(cfg, None))
+    assert out.shape == (2, 3)
 
 # and trains, through the launcher, with a checkpoint to resume from
 import tempfile

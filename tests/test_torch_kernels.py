@@ -65,6 +65,8 @@ FLASH_CASES = [
     (2, 64, 64, 8, 4, 64, True, "bfloat16", 32, 32),   # bf16 io
     (1, 64, 64, 8, 2, 160, True, "float32", 32, 32),   # head_dim 160 (stablelm-12b), G=4
     (1, 48, 48, 4, 1, 160, True, "bfloat16", 16, 16),  # head_dim 160, MQA, bf16
+    (1, 64, 64, 4, 4, 112, True, "float32", 32, 32),   # head_dim 112 (zamba2-7b), G=1
+    (1, 48, 40, 8, 2, 112, False, "bfloat16", 16, 8),  # head_dim 112, G=4, non-causal, Sq != Skv, bf16
     # the calibration shape of benchmarks/kernel_bench.py
     (_cal["B"], _cal["S"], _cal["S"], _cal["H"], _cal["KVH"], _cal["D"], True, "float32",
      _cal["block_q"], _cal["block_k"]),
@@ -157,6 +159,7 @@ DECODE_CASES = [
     (1, 256, 4, 4, 64, 1, 64),     # single valid entry
     (3, 96, 6, 1, 16, 50, 32),     # MQA, odd sizes
     (2, 96, 8, 2, 160, 77, 32),    # head_dim 160 (stablelm-12b), G=4
+    (2, 96, 4, 4, 112, 77, 32),    # head_dim 112 (zamba2-7b), G=1
     (_dcal["B"], _dcal["Smax"], _dcal["H"], _dcal["KVH"], _dcal["D"], _dcal["kv_len"], _dcal["block_k"]),
 ]
 

@@ -14,18 +14,21 @@ import pytest
 import torch
 
 from repro.configs.registry import get_config as jax_get_config
+from repro.models import mamba2 as jmamba2
+from repro.models import moe as jmoe
 from repro.models import transformer as jtfm
 from repro.models.model_api import build_model as jax_build_model
 from repro.runtime.serve_step import pad_cache as jax_pad_cache
 from repro.sharding.plan import make_plan as jax_make_plan
 from repro_torch.configs.registry import get_config
 from repro_torch.convert import from_jax_params
+from repro_torch.models import mamba2, moe
 from repro_torch.models import transformer as tfm
 from repro_torch.models.model_api import build_model
 from repro_torch.runtime import serve_step
 from repro_torch.sharding.plan import make_plan
 
-ARCHS = ["granite-3-2b", "qwen2-72b", "stablelm-12b", "stablelm-12b-d160"]
+ARCHS = ["granite-3-2b", "qwen2-72b", "stablelm-12b", "stablelm-12b-d160", "olmoe-1b-7b", "zamba2-7b"]
 TOL = dict(atol=6e-2, rtol=6e-2)
 #: stablelm-shaped configs that keep its head_dim of 160 (the reduced ones
 #: have 16): 2 layers, d_model 640, 4 heads over 1 KV head (G = 4), vocab 256
@@ -38,6 +41,16 @@ def reduced_configs(arch):
     name, overrides = D160.get(arch, (arch, {}))
     return jax_get_config(name).reduced(**overrides), get_config(name).reduced(**overrides)
 B, S, EXTRA = 2, 16, 8
+
+
+def _forward(cfg, params, tokens, plan, *, reference=False):
+    """Full-sequence logits (B, S, V) through the family's ``forward``."""
+    tfm_, moe_, mamba2_ = (jtfm, jmoe, jmamba2) if reference else (tfm, moe, mamba2)
+    if cfg.family == "moe":
+        return moe_.forward(cfg, params, tokens, plan)[0]
+    if cfg.family == "hybrid":
+        return mamba2_.forward(cfg, params, tokens, plan)
+    return tfm_.forward(cfg, params, tokens, plan)
 
 
 def _np(x) -> np.ndarray:
@@ -60,8 +73,8 @@ def _setup(arch):
 @torch.no_grad()
 def test_forward_logits_match_reference(arch):
     (jcfg, _, jparams, jplan), (cfg, _, params, plan), tokens = _setup(arch)
-    want = jtfm.forward(jcfg, jparams, jnp.asarray(tokens), jplan)
-    got = tfm.forward(cfg, params, torch.from_numpy(tokens), plan)
+    want = _forward(jcfg, jparams, jnp.asarray(tokens), jplan, reference=True)
+    got = _forward(cfg, params, torch.from_numpy(tokens), plan)
     assert got.shape == (B, S + EXTRA, cfg.padded_vocab)
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
@@ -69,7 +82,10 @@ def test_forward_logits_match_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 @torch.no_grad()
 def test_loss_matches_reference(arch):
-    (_, jmodel, jparams, jplan), (_, model, params, plan), tokens = _setup(arch)
+    (_, jmodel, jparams, jplan), (cfg, model, params, plan), tokens = _setup(arch)
+    if cfg.family == "hybrid":  # the chunked scan takes a multiple of the chunk: S + EXTRA tokens
+        more = np.random.default_rng(2).integers(0, cfg.vocab, (B, 1), dtype=np.int32)
+        tokens = np.concatenate([tokens, more], axis=1)
     jbatch = {"tokens": jnp.asarray(tokens[:, :-1]), "labels": jnp.asarray(tokens[:, 1:])}
     batch = {"tokens": torch.from_numpy(tokens[:, :-1]), "labels": torch.from_numpy(tokens[:, 1:])}
     want, wm = jmodel.loss(jparams, jbatch, jplan)
@@ -87,18 +103,24 @@ def test_prefill_and_decode_match_reference(arch):
     last, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens[:, :S])}, plan)
     assert last.shape == (B, cfg.padded_vocab)
     np.testing.assert_allclose(_np(last), _np(jlast), **TOL)
-    for name in ("k", "v"):
-        assert cache[name].shape == jcache[name].shape and cache[name].dtype == torch.bfloat16
+    assert set(cache) == set(jcache)
+    for name in cache:
+        assert cache[name].shape == jcache[name].shape, name
+        if name == "ssm":  # f32 states over bf16 inputs: held as a whole, at bf16's 2e-2
+            assert np.linalg.norm(_np(cache[name]) - _np(jcache[name])) <= 2e-2 * np.linalg.norm(_np(jcache[name]))
+            continue
+        assert cache[name].dtype == torch.bfloat16
         np.testing.assert_allclose(_np(cache[name]), _np(jcache[name]), **TOL)
 
     jcache = jax_pad_cache(jcache, EXTRA)
     cache = serve_step.pad_cache(cache, EXTRA)
-    assert cache["k"].shape == jcache["k"].shape
+    kv = "attn_k" if cfg.family == "hybrid" else "k"
+    assert cache[kv].shape == jcache[kv].shape and cache[kv].shape[2] == S + EXTRA
     for i in range(EXTRA):
         jlogits, jcache = jmodel.decode(jparams, {"token": jnp.asarray(tokens[:, S + i])}, jcache, S + i, jplan)
         logits, cache = model.decode(params, {"token": torch.from_numpy(tokens[:, S + i])}, cache, S + i, plan)
         np.testing.assert_allclose(_np(logits), _np(jlogits), err_msg=f"{arch}: decode step {i}", **TOL)
-    np.testing.assert_allclose(_np(cache["k"]), _np(jcache["k"]), **TOL)
+    np.testing.assert_allclose(_np(cache[kv]), _np(jcache[kv]), **TOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["llava-next-34b"])
@@ -107,7 +129,7 @@ def test_incremental_decode_matches_forward(arch):
     """Twin of the reference's test of the same name: the port against itself."""
     _, (cfg, model, params, plan), tokens = _setup(arch)
     tokens = torch.from_numpy(tokens)
-    ref_logits = tfm.forward(cfg, params, tokens, plan)
+    ref_logits = _forward(cfg, params, tokens, plan)
     last, cache = model.prefill(params, {"tokens": tokens[:, :S]}, plan)
     np.testing.assert_allclose(_np(last), _np(ref_logits[:, S - 1]), **TOL)
     cache = serve_step.pad_cache(cache, EXTRA)
@@ -162,8 +184,9 @@ def test_logit_softcap_and_pad_mask_match_reference():
 
 
 @torch.no_grad()
-def test_greedy_generate_and_step_builders():
-    _, (cfg, model, params, plan), tokens = _setup("qwen2-72b")
+@pytest.mark.parametrize("arch", ["qwen2-72b", "olmoe-1b-7b", "zamba2-7b"])
+def test_greedy_generate_and_step_builders(arch):
+    _, (cfg, model, params, plan), tokens = _setup(arch)
     prompt = torch.from_numpy(tokens[:, :S])
     out = serve_step.greedy_generate(model, params, prompt, 5, plan)
     assert out.shape == (B, 5) and out.dtype == torch.int32
@@ -176,8 +199,13 @@ def test_greedy_generate_and_step_builders():
 
 
 def test_families_outside_the_slice_raise_key_error():
+    """Every family of the registry builds now (tests/test_torch_convert.py
+    holds each arch's param count); a family the port does not know raises."""
+    import dataclasses
+
     for arch in ("olmoe-1b-7b", "whisper-base", "zamba2-7b"):
-        with pytest.raises(KeyError, match="unknown family"):
-            build_model(get_config(arch))
+        assert build_model(get_config(arch)).cfg.name == arch
+    with pytest.raises(KeyError, match="unknown family"):
+        build_model(dataclasses.replace(get_config("granite-3-2b"), family="no-such-family"))
     spec = build_model(get_config("granite-3-2b")).cache_spec(8, 2080)
     assert spec["k"] == ((40, 8, 2080, 8, 64), torch.bfloat16)

@@ -25,7 +25,7 @@ from repro.runtime import train_step as jts
 from repro.sharding.plan import make_plan as jax_make_plan
 from repro_torch.configs.base import ShapeSuite
 from repro_torch.configs.registry import get_config
-from repro_torch.convert import from_jax_train_state
+from repro_torch.convert import from_jax_params, from_jax_train_state
 from repro_torch.data import synthetic
 from repro_torch.launch import train as ttrain
 from repro_torch.models import transformer
@@ -49,7 +49,8 @@ def _batch(cfg, step, batch=4, seq=32):
     return synthetic.batch_for(cfg, ShapeSuite("t", seq, batch, "train"), seed=0, step=step)
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen2-72b", "stablelm-12b-d160"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen2-72b", "stablelm-12b-d160", "olmoe-1b-7b", "zamba2-7b",
+                                  "whisper-base"])
 def test_first_steps_track_the_reference(arch):
     jcfg, cfg = reduced_configs(arch)
     jmodel = jax_build_model(jcfg)
@@ -67,7 +68,7 @@ def test_first_steps_track_the_reference(arch):
     for i in range(5):
         batch = _batch(cfg, i)
         jstate, jm = jstep(jstate, {k: jax.numpy.asarray(v) for k, v in batch.items()})
-        state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        state, m = step(state, from_jax_params(batch, "cpu"))  # whisper's frames are bf16 numpy
         np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), atol=3e-2, err_msg=f"loss, step {i}")
         np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=3e-2,
                                    err_msg=f"grad norm, step {i}")
