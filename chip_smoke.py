@@ -6,7 +6,7 @@ Builds the CUDA kernels from the sources in this checkout and holds each
 against its plain PyTorch version on the card, at the shape its main path
 gives it and at ragged small shapes: K1-K4 at head_dim 64 (granite-3-2b) and
 at head_dim 160 (stablelm-12b, with a guard case on the first 160 columns of
-buffers 192 wide), K1 and K4 at head_dim 112 (zamba2-7b, a guard case on
+buffers 192 wide), K1-K4 at head_dim 112 (zamba2-7b, a guard case on
 buffers 128 wide) and at one query head a KV head (deepseek-moe-16b's and
 whisper-base's shapes, K2/K3 at whisper's cross attention), K5 at
 rwkv6-1.6b's. Then it drives the port's entry points at full size, random
@@ -22,8 +22,15 @@ weights from a seed:
     gradients against the non-kernel path, then TRAIN_STEPS steps through
     ``repro_torch.launch.train.run``, then a run cut at half way and resumed
     (at depth 2) against an uninterrupted one; stablelm-12b and olmoe-1b-7b
-    at full width and depth 2, whisper-base at full size -- the same
+    at full width and depth 2, zamba2-7b at full width and depth 4 (its
+    shared attention block twice), whisper-base at full size -- the same
     one-step check;
+  * the multi-device substrate (phase_mesh) -- under NCCL at world 1 (one
+    process on card 0, a 1 x 1 mesh): granite-3-2b's sharded train step
+    (baseline, sp, zero) against the single-device step at the training
+    setup, the sharded decode (baseline, serve) and prefill, EF-int8, the
+    ring matmuls and GPipe; the multi-rank semantics are held on the CPU by
+    gloo (tests/test_torch_mesh_ranks.py and its neighbours);
   * training, the paper's ResNet trio -- batch 32 at full image size,
     RESNET_STEPS steps each through ``repro_torch.launch.train.run``; one
     step of resnet_small and resnet_medium against the same step on the CPU
@@ -128,6 +135,11 @@ GUARD_WIDTH, SENTINEL = 192, 7.0
 # prompt and new tokens; its guard case on the first 112 columns of buffers
 # 128 wide
 ZAMBA_ARCH, D112_GUARD_WIDTH = "zamba2-7b", 128
+# zamba2-7b's one-step training check: full width, ZAMBA_TRAIN_LAYERS mamba2
+# layers in groups of ZAMBA_TRAIN_EVERY, so the shared attention block (K1-K3
+# at head_dim 112) runs twice, before each group, as it runs before each of
+# the full model's three groups of 27
+ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_EVERY = 4, 2
 # the mixture of experts: deepseek-moe-16b served at the same batch, prompt and
 # new tokens; olmoe-1b-7b's one-step check at full width and this depth
 DEEPSEEK_ARCH, OLMOE_ARCH, OLMOE_TRAIN_LAYERS = "deepseek-moe-16b", "olmoe-1b-7b", 2
@@ -269,6 +281,15 @@ TOL_RESUME = 1e-5  # the reference's resume tolerance (tests/test_train_integrat
 # rest), and `dq_skip_diag` planted in K3 0.245 and 0.106
 # (examples/profile_flash_bwd_torch.py --variants sound dq_skip_diag).
 STABLELM_TOL = (TOL_LOSS, 0.053, 0.035)
+# zamba2-7b's one-step check (head_dim 112, full width, depth 4, the shared
+# block twice), set the same way from two readings on an H100 of K3 with its
+# 128-row KV tiles: the sound kernels 0.0255 (attention) and 0.0322 (the
+# rest), `dq_skip_diag` planted in K3 0.375 and 0.196
+# (examples/profile_flash_bwd_torch.py --variants dq_skip_diag). At depth 4 the
+# hybrid's drift between two roundings (ROADMAP Queue 3, "held differently")
+# stays within granite's limits, so it is held like granite, not to the
+# spread of two non-kernel paths.
+ZAMBA_TOL = (TOL_LOSS, 0.097, 0.079)
 # The one-step checks of olmoe-1b-7b (full width, depth 2, batch 2, seq 4096)
 # and whisper-base (full size, batch 8, 448 tokens on 1500 frames), set the
 # same way from two readings on an H100 each (attention leaves, the rest):
@@ -633,7 +654,7 @@ def phase_build(strict: bool = True) -> None:
          resources=resources)
     if not strict:
         return
-    for lib, n_inst in (("flash_attention_fwd", 8), ("flash_attention_bwd", 12), ("decode_attention", 8),
+    for lib, n_inst in (("flash_attention_fwd", 8), ("flash_attention_bwd", 16), ("decode_attention", 8),
                         ("wkv6_scan", 6)):
         if _build.ptxas_log.get(lib):  # compiled in this process: ptxas spoke of every kernel
             found = [k for k in resources[lib]["kernels"] if k.startswith(TMA_KERNELS + HMMA_KERNELS)]
@@ -1120,6 +1141,12 @@ def olmoe_train_config():
     return dataclasses.replace(get_config(OLMOE_ARCH), n_layers=OLMOE_TRAIN_LAYERS)
 
 
+def zamba_train_config():
+    """zamba2-7b at full width, ZAMBA_TRAIN_LAYERS layers in groups of
+    ZAMBA_TRAIN_EVERY: the one-step check at head_dim 112."""
+    return dataclasses.replace(get_config(ZAMBA_ARCH), n_layers=ZAMBA_TRAIN_LAYERS, attn_every=ZAMBA_TRAIN_EVERY)
+
+
 def stablelm_train_config():
     """stablelm-12b at full width and STABLELM_TRAIN_LAYERS layers: the
     one-step check at head_dim 160."""
@@ -1183,12 +1210,13 @@ def phase_d160(cfg) -> dict:
 
 
 def phase_d112(cfg) -> dict:
-    """K1 and K4 at head_dim 112 (zamba2-7b's shared attention block; K2 and
-    K3 are not built for it): each at the shape its main path gives it (timed
-    beside its bound, its plain version and the library call for the same
-    function), at ragged small shapes (causal and not, q_offset > 0, G 1, 4
-    and 130, f16), then the guard case on the first 112 columns of buffers
-    D112_GUARD_WIDTH wide. Returns each kernel's record by name."""
+    """K1-K4 at head_dim 112 (zamba2-7b's shared attention block): K1 and K4
+    at the serving shape, K2 and K3 at the training shape (B 2, S 4096,
+    H = KVH 32, causal), each timed beside its bound, its plain version and
+    the library call for the same function; all four at ragged small shapes
+    (causal and not, q_offset > 0, G 1, 3, 4 and 130, f16), then the guard
+    case on the first 112 columns of buffers D112_GUARD_WIDTH wide. Returns
+    each kernel's record by name."""
     gen = torch.Generator(device=DEV).manual_seed(8)
     H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     require(D == 112, f"{cfg.name} has head_dim {D}")
@@ -1213,7 +1241,17 @@ def phase_d112(cfg) -> dict:
     dec_cases += decode_case(gen, 1, 300, 130, 1, D, [250])                     # G=130: 17 blocks of 8 heads
     require(da.launch_count - da0 == len(dec_cases) + 5, "the decode wrapper did not count its launches")
     torch.cuda.empty_cache()
-    guard = guard_case(gen, D=D, width=D112_GUARD_WIDTH, backward=False)
+    bwd_cases = [
+        flash_bwd_case(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, H, KVH, D, True, by_rows=True, repeat=True),
+        flash_bwd_case(gen, 1, 101, 101, 4, 4, D, True),                        # G=1, ragged
+        flash_bwd_case(gen, 2, 77, 131, 8, 2, D, False),                        # non-causal, Sq < Skv, G=4
+        flash_bwd_case(gen, 1, 131, 77, 6, 2, D, False, dtype=f16),             # non-causal, Sq > Skv, G=3, f16
+        flash_bwd_case(gen, 2, 99, 99, 8, 2, D, True, q_offset=64),             # q_offset > 0
+        flash_bwd_case(gen, 1, 257, 257, 4, 4, D, True, dtype=f16),             # three dk/dv blocks of 128 rows, f16
+        flash_bwd_case(gen, 1, 5, 40, 130, 1, D, True, q_offset=35),            # G=130: one position a tile
+    ]
+    torch.cuda.empty_cache()
+    guard = guard_case(gen, D=D, width=D112_GUARD_WIDTH)
     tol = f"{TOL_ROW_RMS} * rms(row) + 1 ulp at this shape, {TOL_BF16} at the small ones and the guard case"
     recs = {
         "flash_attention_fwd": {"name": "flash_attention_fwd", "tolerance": tol,
@@ -1223,6 +1261,9 @@ def phase_d112(cfg) -> dict:
         "decode_attention": {"name": "decode_attention", "tolerance": tol, "max_abs_err": dec_main,
                              **decode_timed(gen, BATCH, smax, H, KVH, D, PROMPT + NEW // 2), "cases": dec_cases},
     }
+    torch.cuda.empty_cache()
+    for rec in bwd_records(flash_bwd_timed(gen, TRAIN_BATCH, TRAIN_SEQ, H, KVH, D), bwd_cases[0], bwd_cases):
+        recs[rec["name"]] = dict(rec, tolerance=tol)
     for name, rec in recs.items():
         rec["guard_max_abs_err"] = guard[name]
         emit("kernel_d112", arch=cfg.name, **rec)
@@ -1583,9 +1624,23 @@ def is_attn_leaf(name: str) -> bool:
 
 
 def attention_calls(cfg) -> int:
-    """Flash attention calls of one forward: one a layer, and for the
-    encoder-decoder one an encoder layer and two (self, cross) a decoder layer."""
-    return cfg.enc_layers + 2 * cfg.n_layers if cfg.family == "encdec" else cfg.n_layers
+    """Flash attention calls of one forward: one a layer, for the
+    encoder-decoder one an encoder layer and two (self, cross) a decoder layer,
+    and for the mamba2 hybrid one of the shared block before each group of
+    ``attn_every`` layers."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return -(-cfg.n_layers // cfg.attn_every)
+    return cfg.n_layers
+
+
+def forward_launches(cfg) -> int:
+    """K1's launches in one training step: each attention call once, and once
+    more in backward where remat runs its layer again (the hybrid's shared
+    block runs outside the rematerialized layer loop)."""
+    n_attn = attention_calls(cfg)
+    return 2 * n_attn if cfg.remat and cfg.family != "hybrid" else n_attn
 
 
 def one_step(cfg, model, plan, tol=(TOL_LOSS, TOL_GRAD_ATTN, TOL_GRAD_OTHER), batch_size=TRAIN_BATCH,
@@ -1597,7 +1652,7 @@ def one_step(cfg, model, plan, tol=(TOL_LOSS, TOL_GRAD_ATTN, TOL_GRAD_OTHER), ba
     tol_loss, tol_attn, tol_other = tol
     L = cfg.n_layers
     n_attn = attention_calls(cfg)
-    expected = (2 * n_attn if cfg.remat else n_attn, n_attn, n_attn)
+    expected = (forward_launches(cfg), n_attn, n_attn)
     params = model.init(torch.Generator(device=DEV).manual_seed(0), DEV)
     suite = ShapeSuite("train_4k", seq, batch_size, "train")
     batch = from_jax_params(synthetic.batch_for(cfg, suite, seed=0), DEV)  # whisper's frames are bf16 numpy
@@ -1728,6 +1783,187 @@ def phase_train(cfg) -> dict:
                           "rtol": TOL_RESUME, "mean_step_ms": full["mean_step_ms"]},
     }
     emit("train", **out)
+    return out
+
+
+# the multi-device substrate on the card (phase_mesh): train steps a variant,
+# the reference's tolerances (tests/test_variants.py) against the
+# single-device path, and the pipeline's microbatches and depth
+MESH_STEPS, MESH_VARIANTS = 3, ("baseline", "sp", "zero")
+TOL_MESH_LOGITS = 6e-2
+PIPE_LAYERS, PIPE_MICRO, PIPE_SEQ = 2, 2, 512
+
+
+def counted_steps(step, state, batch, n: int) -> tuple:
+    """``n`` steps: their losses, (K1, K2, K3) launches and (host ms, device
+    ms) each."""
+    losses, launches, times = [], [], []
+    for _ in range(n):
+        before = (fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count)
+        (state, m), host_ms, device_ms = timed(lambda: step(state, batch))
+        launches.append(tuple(a - b for a, b in zip((fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count),
+                                                     before)))
+        losses.append(float(m["loss"]))
+        times.append((host_ms, device_ms))
+    return losses, launches, times
+
+
+def phase_mesh(cfg) -> dict:
+    """The multi-device substrate (sharding plans, sharded train and serve
+    steps, EF-int8, the ring matmuls, GPipe) under NCCL at the world the
+    machine gives this script: one process on card 0, a one-rank group over a
+    FileStore and a 1 x 1 (data, model) mesh. It shows that the sharded code
+    path launches the kernels under NCCL and computes what the single-device
+    path computes; the multi-rank semantics are held on the CPU by gloo
+    (tests/test_torch_mesh_ranks.py, test_torch_ring_pipeline.py,
+    test_torch_compression.py).
+
+    granite-3-2b at its training setup (full width, batch 2, seq 4096,
+    remat): MESH_STEPS steps of ``build_train_step`` and of ``jit_train_step``
+    for each of MESH_VARIANTS from one seeded init and batch, each loss
+    within TOL_LOSS of the single-device step's and each step's (K1, K2, K3)
+    launches equal to its; the median step (the steps after the first) by
+    the host clock and by CUDA events beside the single-device one's. Then
+    at the serving shape (batch 8, prompt 2048) one ``jit_decode_step`` for
+    baseline and serve against the single-device decode at TOL_MESH_LOGITS,
+    with K4's launches counted, and ``jit_prefill_step`` (baseline, K1
+    counted); ``ef_int8_psum`` against the EF identity (1e-6) with NCCL's
+    MAX and int32 SUM, the ring matmuls against the all-gather oracle, and
+    ``pipeline_forward`` at one stage against the plain forward. Each decode
+    step is timed on its second call, after a warm-up."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.optim import adamw, compression
+    from repro_torch.runtime import ring, serve_step
+    from repro_torch.runtime.pipeline import pipeline_forward
+    from repro_torch.sharding import dist
+
+    require(cfg.remat, "the full config trains under remat")
+    L = cfg.n_layers
+    model = build_model(cfg)
+    opt_cfg = adamw.AdamWConfig(warmup_steps=1, total_steps=10)
+    suite = ShapeSuite("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = {k: torch.from_numpy(np.asarray(v)).to(DEV) for k, v in synthetic.batch_for(cfg, suite, seed=0).items()}
+    init = lambda: train_step.init_train_state(model, torch.Generator(device=DEV).manual_seed(0), opt_cfg, DEV)  # noqa: E731
+    out = {"arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": cfg.remat, "steps": MESH_STEPS}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tdist.init_process_group("nccl", store=tdist.FileStore(f"{tmp}/store", 1), rank=0, world_size=1,
+                                 device_id=DEV)
+        try:
+            mesh = make_mesh_shape((1, tdist.get_world_size()), ("data", "model"), device="cuda")
+            out.update(world=tdist.get_world_size(), cards_on_machine=torch.cuda.device_count(),
+                       backend=tdist.get_backend(), nccl_version=".".join(map(str, torch.cuda.nccl.version())),
+                       mesh={"shape": list(mesh.mesh.shape), "axes": list(mesh.mesh_dim_names)})
+            want = (2 * L, L, L)
+            runs = {}
+            state = init()
+            runs["single"] = counted_steps(train_step.build_train_step(model, make_plan(cfg, None), opt_cfg),
+                                           state, batch, MESH_STEPS)
+            del state
+            for variant in MESH_VARIANTS:
+                torch.cuda.empty_cache()
+                step, st_sh, b_sh, plan = train_step.jit_train_step(model, mesh, suite, opt_cfg, variant=variant)
+                state = dist.distribute(init(), st_sh)
+                require(all(dist.is_dtensor(x) for x in tree_leaves(state["opt"].m)), f"{variant}: m not sharded")
+                runs[variant] = counted_steps(step, state, dist.distribute(batch, b_sh), MESH_STEPS)
+                del state, step
+            torch.cuda.empty_cache()
+            single_losses = runs["single"][0]
+            train = {}
+            for name, (losses, launches, times) in runs.items():
+                train[name] = {"losses": losses, "launches_per_step": launches,
+                               "loss_abs_err": max(abs(a - b) for a, b in zip(losses, single_losses)),
+                               "median_step_ms": statistics.median(t[0] for t in times[1:]),
+                               "median_step_device_ms": statistics.median(t[1] for t in times[1:]),
+                               "step_ms_runs": [t[0] for t in times], "step_device_ms_runs": [t[1] for t in times]}
+            for name in MESH_VARIANTS:
+                train[name]["step_ms_over_single"] = train[name]["median_step_ms"] / train["single"]["median_step_ms"]
+            out["train"] = train
+
+            # ---- serving: the single-device prefill and one decode step, then the sharded ones
+            B, S = BATCH, PROMPT
+            params = model.init(torch.Generator(device=DEV).manual_seed(1), DEV)
+            toks = torch.from_numpy(synthetic.token_batch(cfg.vocab, B, S, seed=5)["tokens"]).to(DEV)
+            plan0 = make_plan(cfg, None)
+            with torch.no_grad():
+                fa.launch_count = 0
+                last, cache = model.prefill(params, {"tokens": toks}, plan0)
+                prefill_k1 = fa.launch_count
+                cache = pad_cache(cache, 1)
+                tok = torch.argmax(last, -1).to(torch.int32)
+                one_decode = lambda: model.decode(params, {"token": tok}, cache, S, plan0)  # noqa: E731
+                one_decode()  # warm-up; each call writes the same slot S
+                da.launch_count = 0
+                (want_logits, _), host_ms, device_ms = timed(one_decode)
+                decode_k4 = da.launch_count
+            serve_out = {"single": {"prefill_k1": prefill_k1, "decode_k4": decode_k4, "decode_ms": host_ms,
+                                    "decode_device_ms": device_ms}}
+            for variant in ("baseline", "serve"):
+                dstep, p_sh, tok_sh, c_sh, _ = serve_step.jit_decode_step(model, mesh, ShapeSuite("d", S + 1, B, "decode"),
+                                                                          variant=variant)
+                args = (dist.distribute(params, p_sh), dist.distribute({"token": tok}, tok_sh),
+                        dist.distribute({k: v.clone() for k, v in cache.items()}, c_sh))
+                dstep(*args)  # warm-up (DTensor's sharding rules are cached at first use)
+                da.launch_count = 0
+                (logits, _), host_ms, device_ms = timed(lambda: dstep(*args))
+                serve_out[variant] = {"decode_k4": da.launch_count, "decode_ms": host_ms, "decode_device_ms": device_ms,
+                                      "decode_ms_over_single": host_ms / serve_out["single"]["decode_ms"],
+                                      "logits_max_abs_err": max_err(logits.full_tensor(), want_logits)}
+                del args
+            pstep, p_sh, b_sh, _ = serve_step.jit_prefill_step(model, mesh, ShapeSuite("p", S, B, "prefill"))
+            fa.launch_count = 0
+            got_last, _ = pstep(dist.distribute(params, p_sh), dist.distribute({"tokens": toks}, b_sh))
+            serve_out["baseline"].update(prefill_k1=fa.launch_count,
+                                         prefill_logits_max_abs_err=max_err(got_last.full_tensor(), last))
+            out["serve"] = serve_out
+            del params, cache, last, got_last
+            torch.cuda.empty_cache()
+
+            # ---- EF-int8 under NCCL (MAX of the scale, int32 SUM), the ring matmuls, GPipe at one stage
+            gen = torch.Generator(device=DEV).manual_seed(2)
+            grads = {"w": torch.randn(2048, 2048, generator=gen, device=DEV) * 0.01,
+                     "b": torch.randn(8192, generator=gen, device=DEV)}
+            err0 = compression.init_error_state(grads)
+            mean, err = compression.ef_int8_psum(grads, err0)
+            ef = max(max_err(mean[k] + err[k], grads[k]) for k in grads)
+            x, w = torch.randn(64, 2048, generator=gen, device=DEV), torch.randn(2048, 512, generator=gen, device=DEV)
+            ring_err = max(max_err(ring.ring_ag_matmul(x, w), x @ w),
+                           max_err(ring.ring_rs_matmul(x @ w, w.t().contiguous()), (x @ w) @ w.t()))
+            pcfg = dataclasses.replace(cfg, n_layers=PIPE_LAYERS)
+            pparams = build_model(pcfg).init(torch.Generator(device=DEV).manual_seed(3), DEV)
+            ptoks = torch.from_numpy(synthetic.token_batch(cfg.vocab, PIPE_MICRO * 2, PIPE_SEQ, seed=6)["tokens"]).to(DEV)
+            fa.launch_count = 0
+            plog = pipeline_forward(pcfg, pparams, ptoks.reshape(PIPE_MICRO, 2, PIPE_SEQ),
+                                    make_mesh_shape((1,), ("stage",), device="cuda"))
+            pipe_k1 = fa.launch_count
+            with torch.no_grad():
+                pwant = transformer.forward(pcfg, pparams, ptoks, plan0).float()
+            pipe_err = max_err(plog.reshape(pwant.shape), pwant)
+            out["collectives"] = {"ef_int8_identity_max_abs_err": ef, "ef_tolerance": 1e-6,
+                                  "ring_vs_all_gather_max_abs_err": ring_err,
+                                  "pipeline_vs_plain_max_abs_err": pipe_err, "pipeline_k1": pipe_k1,
+                                  "pipeline": {"stages": 1, "microbatches": PIPE_MICRO, "layers": PIPE_LAYERS,
+                                               "seq": PIPE_SEQ}}
+            del pparams, grads, mean, err, err0
+        finally:
+            tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit("mesh", **out)
+    for name, rec in out["train"].items():
+        require(all(c == want for c in rec["launches_per_step"]),
+                f"{name}: per-step (K1, K2, K3) launches {rec['launches_per_step']}, the single device's {want}")
+        require(rec["loss_abs_err"] <= TOL_LOSS, f"{name}: losses {rec['losses']} vs single {single_losses}")
+    for variant in ("baseline", "serve"):
+        rec = serve_out[variant]
+        require(rec["decode_k4"] == decode_k4 == L, f"{variant}: K4 launches {rec['decode_k4']}, single {decode_k4}")
+        require(rec["logits_max_abs_err"] <= TOL_MESH_LOGITS, f"{variant} decode logits: {rec}")
+    require(serve_out["baseline"]["prefill_k1"] == prefill_k1 == L, f"prefill K1 launches {serve_out}")
+    require(serve_out["baseline"]["prefill_logits_max_abs_err"] <= TOL_MESH_LOGITS, f"prefill logits: {serve_out}")
+    require(ef <= 1e-6, f"EF-int8: mean + residual off the input by {ef}")
+    require(ring_err <= 1e-2, f"ring matmuls off the all-gather oracle by {ring_err}")
+    require(pipe_err <= TOL_MESH_LOGITS and pipe_k1 == PIPE_LAYERS * PIPE_MICRO, f"pipeline: {out['collectives']}")
     return out
 
 
@@ -2577,8 +2813,13 @@ def main() -> None:
         torch.cuda.empty_cache()
     trained = phase_train(cfg)
     torch.cuda.empty_cache()
+    meshed = phase_mesh(cfg)
+    torch.cuda.empty_cache()
     slm_train = stablelm_train_config()
     slm_step = one_step(slm_train, build_model(slm_train), make_plan(slm_train, None), STABLELM_TOL)
+    torch.cuda.empty_cache()
+    zamba_train = zamba_train_config()
+    zamba_step = one_step(zamba_train, build_model(zamba_train), make_plan(zamba_train, None), ZAMBA_TOL)
     torch.cuda.empty_cache()
     olmoe_train = olmoe_train_config()
     stepped = {OLMOE_ARCH: one_step(olmoe_train, build_model(olmoe_train), make_plan(olmoe_train, None), OLMOE_TOL)}
@@ -2623,10 +2864,14 @@ def main() -> None:
     # On the calibration path: K1 in ``calibrate --backend kernels``
     # (launches_calibrate), and K1, K4 and K5 in one calibration measurement
     # each (launches_calibrate_kernel). At head_dim 112 (d112): K1 and K4 on
-    # zamba2-7b's serving path. launches_serve: K1 and K4 on the serving paths
+    # zamba2-7b's serving path, K1-K3 (launches_train for K1) on its one
+    # training step at depth 4. launches_serve: K1 and K4 on the serving paths
     # of deepseek-moe-16b, zamba2-7b and whisper-base; launches_one_step: K1,
-    # K2 and K3 in the one-step checks of olmoe-1b-7b and whisper-base.
+    # K2 and K3 in the one-step checks of olmoe-1b-7b and whisper-base. In
+    # phase mesh: K1-K3 in one sharded train step (launches_mesh_step,
+    # baseline), K1 in its sharded prefill and K4 in its sharded decode step.
     bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    mesh_step = meshed["train"]["baseline"]["launches_per_step"][0]
     slm_served = served[slm_cfg.name]["launches"]
     slm_k1, slm_k2, slm_k3 = slm_step["launches"]
     emit("wall", seconds=time.perf_counter() - t0)
@@ -2638,18 +2883,24 @@ def main() -> None:
              launches_calibrate=calib["launches"]["flash_attention"],
              launches_calibrate_kernel=calib_k["flash_attention"]["launches"],
              d160=dict(at160("flash_attention_fwd", slm_served["flash_attention_fwd"]), launches_train=slm_k1),
-             d112=at_dim(d112, "flash_attention_fwd", served[ZAMBA_ARCH]["launches"]["flash_attention_fwd"]),
-             launches_serve=served_by["flash_attention_fwd"], launches_one_step=stepped_by[0]),
+             d112=dict(at_dim(d112, "flash_attention_fwd", served[ZAMBA_ARCH]["launches"]["flash_attention_fwd"]),
+                       launches_train=zamba_step["launches"][0]),
+             launches_serve=served_by["flash_attention_fwd"], launches_one_step=stepped_by[0],
+             launches_mesh_step=mesh_step[0], launches_mesh_prefill=meshed["serve"]["baseline"]["prefill_k1"]),
         dict(row(decode, "src/repro_torch/kernels/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:126", served[cfg.name]["launches"]["decode_attention"]),
              launches_calibrate_kernel=calib_k["decode_attention"]["launches"],
              d160=at160("decode_attention", slm_served["decode_attention"]),
              d112=at_dim(d112, "decode_attention", served[ZAMBA_ARCH]["launches"]["decode_attention"]),
-             launches_serve=served_by["decode_attention"]),
+             launches_serve=served_by["decode_attention"], launches_mesh_decode=meshed["serve"]["baseline"]["decode_k4"]),
         dict(row(dkv, bwd_src, dkv["replaces"], trained["launches"]["flash_attention_bwd_dkv"]),
-             d160=at160("flash_attention_bwd_dkv", slm_k2), launches_one_step=stepped_by[1]),
+             d160=at160("flash_attention_bwd_dkv", slm_k2),
+             d112=at_dim(d112, "flash_attention_bwd_dkv", zamba_step["launches"][1]), launches_one_step=stepped_by[1],
+             launches_mesh_step=mesh_step[1]),
         dict(row(dq, bwd_src, dq["replaces"], trained["launches"]["flash_attention_bwd_dq"]),
-             d160=at160("flash_attention_bwd_dq", slm_k3), launches_one_step=stepped_by[2]),
+             d160=at160("flash_attention_bwd_dq", slm_k3),
+             d112=at_dim(d112, "flash_attention_bwd_dq", zamba_step["launches"][2]), launches_one_step=stepped_by[2],
+             launches_mesh_step=mesh_step[2]),
         dict(row(wkv, "src/repro_torch/kernels/csrc/wkv6_scan.cu", wkv["replaces"],
                  served_rwkv["launches"]["wkv6_scan"]),
              launches_calibrate_kernel=calib_k["wkv6"]["launches"],

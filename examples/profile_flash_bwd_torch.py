@@ -3,8 +3,9 @@ their time goes, and whether ``chip_smoke.py``'s checks catch a planted fault.
 
 Each variant edits ``csrc/flash_attention_bwd.cu`` (or the header
 ``csrc/hopper.cuh`` it includes) by regular expressions. Timed variants
-(``chip_smoke.gpu_ms`` of each kernel at the training shape, q/do
-(2,8,4096,4,64), k/v (2,8,4096,64), bf16, causal; in turns, twice over):
+(``chip_smoke.gpu_ms`` of each kernel at granite-3-2b's training shape, q/do
+(2,8,4096,4,64), k/v (2,8,4096,64), and at zamba2-7b's, q/do
+(2,32,4096,1,112), k/v (2,32,4096,112), bf16, causal; in turns, twice over):
 
   full            the kernels as they are
   noexp           p without its exp2 (the exponent kept as p), both kernels
@@ -13,8 +14,13 @@ Each variant edits ``csrc/flash_attention_bwd.cu`` (or the header
                   dq += ds.k in K3, dv += p^T.do and dk += ds^T.q in K2 (p
                   and ds are still computed and packed; K2 at D = 64 and 128
                   only, the shape timed)
+  split112        D = 112 as D = 160: a dk/dv block owns 64 KV rows, one
+                  warpgroup holding their dv and the other their dk
+  dq128_112       the dq kernel at D = 112 sweeps KV tiles of 128 rows, its
+                  ring 2 deep (three would not fit beside q and do)
 
-Every variant but ``full`` computes wrong results: these are timings only.
+Every variant but ``full``, ``split112`` and ``dq128_112`` computes wrong
+results: these are timings only.
 
 Checked variants, each with one planted fault:
 
@@ -30,7 +36,9 @@ one-step check at full width and depth 2 (``chip_smoke.STABLELM_TOL``), then
 the one-query-head-a-KV-head configs: the case at whisper-base's cross
 attention in training (non-causal, 448 x 1500) and the one-step checks of
 olmoe-1b-7b at full width and depth 2 (``chip_smoke.OLMOE_TOL``) and of
-whisper-base at full size (``chip_smoke.WHISPER_TOL``). It prints
+whisper-base at full size (``chip_smoke.WHISPER_TOL``), then head_dim 112:
+the case at zamba2-7b's training shape and its one-step check at full width
+and depth 4 (``chip_smoke.ZAMBA_TOL``). It prints
 what each check found: every one should fail. ``one_step`` prints its
 readings (the gradients' relative L2 errors) before it holds them to their
 limits, so the output also gives the faults' readings from which
@@ -61,6 +69,9 @@ EDITS = {
                       "const bool dead = wg_rows <= 0 || (p.causal && (kv0 > wg_last || it == n_kt - 1));")],
     "dkv_skip_first": [(r"const bool dead = p\.causal && first \+ tp\.P - 1 < kv_w;",
                         "const bool dead = it == 0 || (p.causal && first + tp.P - 1 < kv_w);")],
+    "split112": [(r"  return D == 160;\n", "  return D == 160 || D == 112;\n")],
+    "dq128_112": [(r"  return D == 64 \? 128 : 64;", "  return D == 64 || D == 112 ? 128 : 64;"),
+                  (r"  return D == 160 \? 2 : 3;", "  return D == 160 || D == 112 ? 2 : 3;")],
 }
 CHECKED = {"sound", "dq_skip_diag", "dkv_skip_first"}  # run through the checks instead of the timer
 
@@ -71,19 +82,24 @@ def time_here(name: str) -> None:
     import torch
 
     c.phase_build(strict=False)
-    cfg = c.get_config(c.ARCH)
-    B, S, H, KVH, D = c.TRAIN_BATCH, c.TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    gen = torch.Generator(device=c.DEV).manual_seed(5)
-    q, do = c.randn(gen, (B, S, H, D)), c.randn(gen, (B, S, H, D))
-    k, v = c.randn(gen, (B, S, KVH, D)), c.randn(gen, (B, S, KVH, D))
-    qf, kf, vf, dof = c.ops._fold(q, KVH), c.ops._kv_fold(k), c.ops._kv_fold(v), c.ops._fold(do, KVH)
-    kw = dict(causal=True, scale=D**-0.5)
-    o, lse = c.fa.flash_attention_fwd(qf, kf, vf, **kw)
-    delta = torch.empty_like(lse)
-    dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
     out = {"variant": name, "card": torch.cuda.get_device_name(0)}
-    out["dq_ms"] = c.gpu_ms(lambda: c.fa.launch_bwd_dq(qf, kf, vf, o, dof, lse, delta, dq, **kw), iters=10)
-    out["dkv_ms"] = c.gpu_ms(lambda: c.fa.launch_bwd_dkv(qf, kf, vf, dof, lse, delta, dk, dv, **kw), iters=10)
+    for arch in (c.ARCH, c.ZAMBA_ARCH):
+        cfg = c.get_config(arch)
+        B, S, H, KVH, D = c.TRAIN_BATCH, c.TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        gen = torch.Generator(device=c.DEV).manual_seed(5)
+        q, do = c.randn(gen, (B, S, H, D)), c.randn(gen, (B, S, H, D))
+        k, v = c.randn(gen, (B, S, KVH, D)), c.randn(gen, (B, S, KVH, D))
+        qf, kf, vf, dof = c.ops._fold(q, KVH), c.ops._kv_fold(k), c.ops._kv_fold(v), c.ops._fold(do, KVH)
+        kw = dict(causal=True, scale=D**-0.5)
+        o, lse = c.fa.flash_attention_fwd(qf, kf, vf, **kw)
+        delta = torch.empty_like(lse)
+        dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vf)
+        at = "" if D == 64 else f"_d{D}"
+        out["dq_ms" + at] = c.gpu_ms(lambda: c.fa.launch_bwd_dq(qf, kf, vf, o, dof, lse, delta, dq, **kw), iters=10)
+        out["dkv_ms" + at] = c.gpu_ms(lambda: c.fa.launch_bwd_dkv(qf, kf, vf, dof, lse, delta, dk, dv, **kw),
+                                      iters=10)
+        del q, do, k, v, qf, kf, vf, dof, o, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
 
 
@@ -125,6 +141,14 @@ def check_here(name: str) -> None:
     kv.report(name, "one_step whisper-base",
               lambda: c.one_step(wcfg, c.build_model(wcfg), c.make_plan(wcfg, None), c.WHISPER_TOL,
                                  batch_size=c.BATCH, seq=c.WHISPER_PROMPT + c.NEW))
+    torch.cuda.empty_cache()
+    # head_dim 112: zamba2-7b's backward shape, and its one-step check at full width and depth 4
+    kv.report(name, "flash_bwd_case B2 S4096 H32 KVH32 D112 causal",
+              lambda: c.flash_bwd_case(gen, c.TRAIN_BATCH, c.TRAIN_SEQ, c.TRAIN_SEQ, 32, 32, 112, True, by_rows=True))
+    torch.cuda.empty_cache()
+    zamba = c.zamba_train_config()
+    kv.report(name, "one_step zamba2-7b depth 4",
+              lambda: c.one_step(zamba, c.build_model(zamba), c.make_plan(zamba, None), c.ZAMBA_TOL))
 
 
 if __name__ == "__main__":

@@ -37,9 +37,17 @@
 //   * larger tiles, so that every fetched tile serves more work: the dk/dv
 //     kernel owns 128 KV rows a block (64 a consumer warpgroup) against q tiles
 //     of 64 folded rows, and the dq kernel 128 folded q rows against KV tiles
-//     of 128 (64 at D = 128 and 160). dk and dv (dq) stay in registers for the
-//     whole sweep, and each kernel writes its outputs once: no atomics, no
+//     of 128 (64 at D = 128 and 160). dk and dv (dq) stay in registers for
+//     the whole sweep, and each kernel writes its outputs once: no atomics, no
 //     second pass, and two runs give the same bits;
+//   * at D = 112 (zamba2-7b) a row is one and three quarter swizzle atoms: two
+//     64-element column blocks, the last 16 columns past the tensor maps'
+//     extent of D, so TMA zero-fills them and no product reads them (the s
+//     and dp products take 7 k16 steps; dv, dk and dq are m64n112k16 wgmma).
+//     dk and dv of 64 rows take 112 registers a thread (128 at D = 128), so
+//     a dk/dv block owns 128 KV rows as at 128 (a split as at 160 took 1.36
+//     ms against 0.90); the dq kernel sweeps 128-row (K, V) tiles as at 64,
+//     in a ring of 2 (192 KB of shared memory with q and do);
 //   * at D = 160 (stablelm-12b) a row is two and a half swizzle atoms: three
 //     64-element column blocks, the last 32 columns past the tensor maps'
 //     extent of D, so TMA zero-fills them and no product reads them (the
@@ -89,25 +97,27 @@ constexpr int SWEEP_ROWS = 64;  // folded q rows of a swept tile of the dk/dv ke
 constexpr int CONSUMER_REGS = 240;
 constexpr int PRODUCER_REGS = 24;
 
-// KV rows of a swept tile of the dq kernel: 128 at D = 64 (s, dp and dq then
-// take 160 of a consumer's 240 registers), 64 at D = 128 and 160 (dq alone
-// takes 64 and 80).
+// KV rows of a swept tile of the dq kernel: 128 at D = 64 and 112 (s, dp and
+// dq then take 160 and 184 of a consumer's 240 registers), 64 at D = 128 and
+// 160 (dq alone takes 64 and 80). At 112 the 128-row tiles, in a ring of 2,
+// took 0.659 ms against 0.702 for 64-row tiles in a ring of 3 (H100, zamba2's
+// training shape; examples/profile_flash_bwd_torch.py, variant dq128_112).
 template <int D>
 __host__ __device__ constexpr int dq_kv_rows() {
-  return D == 64 ? 128 : 64;
+  return D == 64 || D == 112 ? 128 : 64;
 }
 
-// Depth of the dq kernel's ring of (K, V) tiles: 3, and 2 at D = 160, where
-// three would not fit beside the q and do tiles (48 KB each, 24 KB a K or V
-// tile). The dk/dv kernel keeps 3 (its resident K and V tiles are 24 KB each
-// at D = 160).
+// Depth of the dq kernel's ring of (K, V) tiles: 3, and 2 at D = 112 and 160,
+// where three would not fit beside the q and do tiles (32 KB each and 32 KB a
+// K or V tile at 112; 48 and 24 KB at 160). The dk/dv kernel keeps 3 (its
+// resident K and V tiles are 24 KB each at D = 160).
 template <int D>
 __host__ __device__ constexpr int dq_stages() {
-  return D == 160 ? 2 : 3;
+  return D == 112 || D == 160 ? 2 : 3;
 }
 constexpr int DKV_STAGES = 3;
 
-// How the dk/dv kernel splits its work. At D = 64 and 128 each consumer
+// How the dk/dv kernel splits its work. At D = 64, 112 and 128 each consumer
 // warpgroup owns 64 KV rows and holds their dk and dv (a block owns 128). At
 // D = 160 dk and dv would take 160 of a thread's registers before s and dp
 // (the most is 255): there the block owns 64 KV rows, warpgroup 0 holds their
@@ -719,18 +729,23 @@ extern "C" int flash_attention_bwd_dq_launch(
   p.tp = TilePlan{P, Gt, gchunks};
   p.causal = causal; p.q_offset = q_offset; p.scale = scale;
   if (!plan_ok(p.tp, G, DQ_ROWS)) return ERR_PLAN;
-  if (!((D == 64 || D == 128 || D == 160) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
+  if (!((D == 64 || D == 112 || D == 128 || D == 160) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
   CUtensorMap m[4];
   int r;
   if ((r = map_folded(&m[0], q, dtype, s, B, KVH, Sq, G, D, p.tp)) != 0) return r;
   if ((r = map_folded(&m[1], dout, dtype, s + 14, B, KVH, Sq, G, D, p.tp)) != 0) return r;
-  const int nk = D == 64 ? dq_kv_rows<64>() : D == 128 ? dq_kv_rows<128>() : dq_kv_rows<160>();
+  const int nk = D == 64    ? dq_kv_rows<64>()
+                 : D == 112 ? dq_kv_rows<112>()
+                 : D == 128 ? dq_kv_rows<128>()
+                            : dq_kv_rows<160>();
   if ((r = map_kv(&m[2], k, dtype, s + 4, B, KVH, Skv, D, nk)) != 0) return r;
   if ((r = map_kv(&m[3], v, dtype, s + 7, B, KVH, Skv, D, nk)) != 0) return r;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64) return launch_dq<__nv_bfloat16, 64>(m, p, B, st);
+  if (dtype == 0 && D == 112) return launch_dq<__nv_bfloat16, 112>(m, p, B, st);
   if (dtype == 0 && D == 128) return launch_dq<__nv_bfloat16, 128>(m, p, B, st);
   if (dtype == 1 && D == 64) return launch_dq<__half, 64>(m, p, B, st);
+  if (dtype == 1 && D == 112) return launch_dq<__half, 112>(m, p, B, st);
   if (dtype == 1 && D == 128) return launch_dq<__half, 128>(m, p, B, st);
   if (dtype == 0) return launch_dq<__nv_bfloat16, 160>(m, p, B, st);
   return launch_dq<__half, 160>(m, p, B, st);
@@ -748,8 +763,11 @@ extern "C" int flash_attention_bwd_dkv_launch(
   p.tp = TilePlan{P, Gt, gchunks};
   p.causal = causal; p.q_offset = q_offset; p.scale = scale;
   if (!plan_ok(p.tp, G, SWEEP_ROWS)) return ERR_PLAN;
-  if (!((D == 64 || D == 128 || D == 160) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
-  const int own = D == 160 ? dkv_own_rows<160>() : dkv_own_rows<64>();
+  if (!((D == 64 || D == 112 || D == 128 || D == 160) && (dtype == 0 || dtype == 1))) return ERR_NO_KERNEL;
+  const int own = D == 64    ? dkv_own_rows<64>()
+                  : D == 112 ? dkv_own_rows<112>()
+                  : D == 128 ? dkv_own_rows<128>()
+                             : dkv_own_rows<160>();
   CUtensorMap m[4];
   int r;
   if ((r = map_folded(&m[0], q, dtype, s, B, KVH, Sq, G, D, p.tp)) != 0) return r;
@@ -758,8 +776,10 @@ extern "C" int flash_attention_bwd_dkv_launch(
   if ((r = map_kv(&m[3], v, dtype, s + 7, B, KVH, Skv, D, own)) != 0) return r;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64) return launch_dkv<__nv_bfloat16, 64>(m, p, B, st);
+  if (dtype == 0 && D == 112) return launch_dkv<__nv_bfloat16, 112>(m, p, B, st);
   if (dtype == 0 && D == 128) return launch_dkv<__nv_bfloat16, 128>(m, p, B, st);
   if (dtype == 1 && D == 64) return launch_dkv<__half, 64>(m, p, B, st);
+  if (dtype == 1 && D == 112) return launch_dkv<__half, 112>(m, p, B, st);
   if (dtype == 1 && D == 128) return launch_dkv<__half, 128>(m, p, B, st);
   if (dtype == 0) return launch_dkv<__nv_bfloat16, 160>(m, p, B, st);
   return launch_dkv<__half, 160>(m, p, B, st);

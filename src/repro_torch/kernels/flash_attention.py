@@ -21,10 +21,10 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-#: head dims of the forward kernel (K1); the backward kernels (K2, K3) are
-#: built for BWD_HEAD_DIMS, and a backward at another head dim raises
+#: head dims of the forward kernel (K1) and of the backward kernels (K2, K3);
+#: a call at another head dim raises before any launch
 HEAD_DIMS = (64, 112, 128, 160)
-BWD_HEAD_DIMS = (64, 128, 160)
+BWD_HEAD_DIMS = (64, 112, 128, 160)
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 
 #: launches of the forward kernel since import (or since the caller reset it)
@@ -80,8 +80,9 @@ def fwd_tile_rows(D: int) -> int:
 
 def dkv_kv_rows(D: int) -> int:
     """KV rows a block of the dk/dv kernel owns at head_dim D
-    (``dkv_own_rows<D>`` in the source): 128, 64 a consumer warpgroup; 64 at
-    D = 160, where one warpgroup holds their dv and the other their dk."""
+    (``dkv_own_rows<D>`` in the source): 128, 64 a consumer warpgroup, at
+    D = 64, 112 and 128; 64 at D = 160, where one warpgroup holds their dv and
+    the other their dk."""
     return 64 if D == 160 else 128
 
 

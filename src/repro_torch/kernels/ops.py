@@ -11,6 +11,14 @@ in ``ref.py``. ``flash_attention`` is differentiable: a
 and dk/dv kernels, the twin of the reference's ``_flash`` under
 ``custom_vjp``. The decode and WKV6 kernels have no backward, here as in
 the reference.
+
+Each wrapper also takes DTensors (the sharded steps of ``runtime/``): it
+redistributes them to a layout in which the kernel's work is local -- the
+batch over the data axes, heads over ``model`` (``sharding.dist.
+kernel_placements``); a sequence-sharded input is gathered on the sequence
+there, as GSPMD would gather it -- runs the same kernel (or, for a CPU
+tensor, its plain version) on the local shards, and wraps the result back.
+Both ends are differentiable, so ``_Flash`` runs unchanged under them.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rwkv6_scan as rk
+from repro_torch.sharding import dist
 
 
 def _fold(q: torch.Tensor, kvh: int) -> torch.Tensor:
@@ -83,6 +92,11 @@ def flash_attention(
     """GQA flash attention with the model-API layout. Differentiable."""
     D = q.shape[-1]
     scale = D**-0.5 if scale is None else scale
+    if dist.is_dtensor(q):
+        mesh = q.device_mesh
+        pl = dist.kernel_placements(mesh, q.shape[0], (q.shape[2], k.shape[2]), 0, 2)
+        ql, kl, vl = (dist.to_local_as(x, mesh, pl) for x in (q, k, v))
+        return dist.from_local(_Flash.apply(ql, kl, vl, causal, scale, q_offset), mesh, pl)
     return _Flash.apply(q, k, v, causal, scale, q_offset)
 
 
@@ -95,6 +109,14 @@ def decode_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Single-token decode attention; returns q-shaped output."""
+    if dist.is_dtensor(q):
+        mesh = q.device_mesh
+        heads = (q.shape[-2], k_cache.shape[2])
+        pl_q = dist.kernel_placements(mesh, q.shape[0], heads, 0, q.dim() - 2)
+        pl_c = dist.kernel_placements(mesh, q.shape[0], heads, 0, 2)
+        out = decode_attention(dist.to_local_as(q, mesh, pl_q), dist.to_local_as(k_cache, mesh, pl_c),
+                               dist.to_local_as(v_cache, mesh, pl_c), kv_len=dist.full(kv_len), scale=scale)
+        return dist.from_local(out, mesh, pl_q)
     squeeze = q.dim() == 4
     q3 = q[:, 0] if squeeze else q
     out = da.decode_attention(q3, k_cache, v_cache, kv_len, scale=scale)
@@ -119,4 +141,11 @@ def wkv6(
     autograd would have to differentiate raises (in ``rk.wkv6_scan``) rather
     than computing the gradient some other way.
     """
+    if dist.is_dtensor(r):
+        mesh = r.device_mesh
+        B, H = r.shape[0], r.shape[2]
+        seq, bonus, state = (dist.kernel_placements(mesh, B, (H,), bd, hd) for bd, hd in ((0, 2), (None, 0), (0, 1)))
+        out, st = rk.wkv6_scan(*(dist.to_local_as(x, mesh, seq) for x in (r, k, v, logw)),
+                               dist.to_local_as(u, mesh, bonus), dist.to_local_as(state0, mesh, state), chunk=chunk)
+        return dist.from_local(out, mesh, seq), dist.from_local(st, mesh, state)
     return rk.wkv6_scan(r, k, v, logw, u, state0, chunk=chunk)

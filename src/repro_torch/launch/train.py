@@ -18,18 +18,27 @@ f32 images of its dataset's size; ``--seq`` is ignored for it, as in the
 reference. Convolutions run in f32: cuDNN's TF32 rounding is off while the
 steps run (and its autotuner on, the shapes being fixed).
 
-Prints the reference's result keys as JSON. ``--mesh host`` is refused: the
-multi-device substrate is ROADMAP Queue 1 item 11.
+Prints the reference's result keys as JSON. ``--mesh host`` shards the step
+over every rank of the job: started by ``torchrun``, each rank one process
+(gloo with ``--device cpu``, NCCL and one card a rank on the GPU), the mesh
+is the reference's ``make_host_mesh`` over the world size, the step
+``runtime.train_step.jit_train_step``; rank 0 prints. With one rank it is
+the single-device path, as in the reference.
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch granite-3-2b --reduced --mesh host --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint.store import CheckpointStore
@@ -37,9 +46,12 @@ from repro_torch.configs.base import ShapeSuite
 from repro_torch.configs.registry import get_config
 from repro_torch.data import synthetic
 from repro_torch.data.pipeline import HostPipeline
+from repro_torch.launch.mesh import make_mesh_shape
 from repro_torch.models.model_api import build_model
+from repro_torch.models.module import tree_map
 from repro_torch.optim import adamw
 from repro_torch.runtime import train_step as ts
+from repro_torch.sharding import dist
 from repro_torch.sharding.plan import make_plan
 
 
@@ -64,10 +76,38 @@ def build_argparser():
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--mesh", choices=("none", "host"), default="none",
-                    help="'host' is not ported yet (ROADMAP Queue 1 item 11)")
+                    help="'host': mesh over all ranks of the job (data x model), started by torchrun")
     ap.add_argument("--metrics-out", default="")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu for a dry run")
     return ap
+
+
+def make_host_mesh(device):
+    """The reference's host mesh over the job's ranks: None for one, else
+    (max(1, n // 2), n // rows) over (data, model)."""
+    n = tdist.get_world_size() if tdist.is_initialized() else 1
+    if n == 1:
+        return None
+    rows = max(1, n // 2)
+    return make_mesh_shape((rows, n // rows), ("data", "model"), device=device)
+
+
+def _join_job(device: torch.device) -> torch.device:
+    """Joins the process group ``torchrun`` describes (its environment), once;
+    returns this rank's device (its own card on the GPU)."""
+    if "WORLD_SIZE" not in os.environ or tdist.is_initialized():
+        return device
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    tdist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return device
+
+
+def _state_map(fn, state):
+    opt = state["opt"]
+    return {"params": tree_map(fn, state["params"]),
+            "opt": type(opt)(fn(opt.step), tree_map(fn, opt.m), tree_map(fn, opt.v))}
 
 
 def cudnn_flags():
@@ -82,11 +122,9 @@ def _sync(device: torch.device) -> None:
 
 def run(args) -> dict:
     """Train ``args.steps`` steps (minus any resumed ones); returns the result dict."""
-    if args.mesh != "none":
-        raise NotImplementedError(
-            "--mesh host: the multi-device substrate is not ported yet (ROADMAP Queue 1 item 11)"
-        )
     device = resolve_device(args.device)
+    if args.mesh == "host":
+        device = _join_job(device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -96,8 +134,13 @@ def run(args) -> dict:
         lr_peak=args.lr, warmup_steps=args.warmup,
         total_steps=args.total_steps or max(args.steps, 1),
     )
-    plan = make_plan(cfg, None)
-    step_fn = ts.build_train_step(model, plan, opt_cfg, grad_accum=args.grad_accum)
+    mesh = make_host_mesh(device) if args.mesh == "host" else None
+    if mesh is not None:
+        step_fn, st_sh, b_sh, plan = ts.jit_train_step(model, mesh, suite, opt_cfg, grad_accum=args.grad_accum)
+    else:
+        plan = make_plan(cfg, None)
+        step_fn = ts.build_train_step(model, plan, opt_cfg, grad_accum=args.grad_accum)
+    lead = not tdist.is_initialized() or tdist.get_rank() == 0  # the rank that logs, saves and prints
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = ts.init_train_state(model, gen, opt_cfg, device)
@@ -110,7 +153,16 @@ def run(args) -> dict:
         if latest is not None:
             state, extra = store.restore(state, latest)
             start_step = latest
-            print(f"[train] resumed from step {latest}", flush=True)
+            if lead:
+                print(f"[train] resumed from step {latest}", flush=True)
+    if mesh is not None:
+        state = dist.distribute(state, st_sh)
+
+    def save(step, loss, async_save):
+        # under a mesh every rank gathers the state whole; the lead rank writes it
+        whole = _state_map(dist.full, state) if mesh is not None else state
+        if lead:
+            store.save(step, whole, extra={"loss": loss}, async_save=async_save)
 
     pipeline = HostPipeline(
         lambda step: synthetic.batch_for(cfg, suite, seed=args.seed, step=step),
@@ -127,6 +179,8 @@ def run(args) -> dict:
         with cudnn_flags():
             for step in range(start_step, args.steps):
                 batch = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in pipeline.get().items()}
+                if mesh is not None:
+                    batch = dist.distribute(batch, b_sh)
                 t0 = time.perf_counter()
                 state, metrics = step_fn(state, batch)
                 loss = float(metrics["loss"])  # waits for the step's work on the device
@@ -134,19 +188,19 @@ def run(args) -> dict:
                 losses.append(loss)
                 if np.isnan(loss):
                     raise FloatingPointError(f"NaN loss at step {step}")
-                if (step + 1) % args.log_every == 0:
+                if lead and (step + 1) % args.log_every == 0:
                     print(
                         f"[train] step {step + 1}/{args.steps} loss={loss:.4f} "
                         f"step_time={np.mean(step_times[-args.log_every:]) * 1e3:.1f}ms",
                         flush=True,
                     )
                 if store and (step + 1) % args.ckpt_every == 0:
-                    store.save(step + 1, state, extra={"loss": loss}, async_save=True)
+                    save(step + 1, loss, True)
     finally:
         pipeline.stop()
     if store:
         if losses:  # a run resumed at its last step takes none and has nothing new to save
-            store.save(args.steps, state, extra={"loss": losses[-1]})
+            save(args.steps, losses[-1], False)
         store.wait()
 
     _sync(device)
@@ -164,7 +218,7 @@ def run(args) -> dict:
         "wall_s": wall,
         "pipeline": pipeline.stats(),
     }
-    if args.metrics_out:
+    if args.metrics_out and lead:
         Path(args.metrics_out).write_text(json.dumps(result, indent=2))
     return result
 
@@ -172,7 +226,10 @@ def run(args) -> dict:
 def main():
     args = build_argparser().parse_args()
     result = run(args)
-    print(json.dumps(result, indent=2))
+    if not tdist.is_initialized() or tdist.get_rank() == 0:
+        print(json.dumps(result, indent=2))
+    if tdist.is_initialized() and "WORLD_SIZE" in os.environ:
+        tdist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import dist
 
 NEG_INF = -1e30
 
@@ -34,10 +35,12 @@ def flash_attention(
     """Device dispatch: the CUDA kernel on the card, the blocked path elsewhere.
 
     A CUDA tensor goes to the flash kernel when ``kv_len is None``, at any
-    sequence length and ``q_offset`` (the kernel masks its ragged edge).
-    Every other call, and every CPU tensor, runs ``xla_flash_attention``.
+    sequence length and ``q_offset`` (the kernel masks its ragged edge), and
+    so does a DTensor (``ops`` runs the kernel, or for CPU shards its plain
+    version, on the local shards). Every other call, and every plain CPU
+    tensor, runs ``xla_flash_attention``.
     """
-    if q.device.type == "cuda" and kv_len is None:
+    if kv_len is None and (q.device.type == "cuda" or dist.is_dtensor(q)):
         return ops.flash_attention(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
     return xla_flash_attention(
         q, k, v, causal=causal, block_k=block_k, q_offset=q_offset,
@@ -117,11 +120,12 @@ def decode_attention(
     cache entries (an int, or a 1-element int32 tensor on q's device).
 
     A CUDA tensor goes to the decode kernel through ``ops.decode_attention``,
-    as ``flash_attention`` sends one to the flash kernel. A CPU tensor runs
-    the masked softmax below, which rounds q*scale and p to the cache's type
-    before the dots as the reference's decode path does.
+    as ``flash_attention`` sends one to the flash kernel, and so does a
+    DTensor. A plain CPU tensor runs the masked softmax below, which rounds
+    q*scale and p to the cache's type before the dots as the reference's
+    decode path does.
     """
-    if q.device.type == "cuda":
+    if q.device.type == "cuda" or dist.is_dtensor(q):
         return ops.decode_attention(q, k_cache, v_cache, kv_len=kv_len, scale=scale)
     return torch_decode_attention(q, k_cache, v_cache, kv_len=kv_len, scale=scale)
 

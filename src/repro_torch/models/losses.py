@@ -5,6 +5,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.sharding import dist
+
 
 def softmax_cross_entropy(
     logits: torch.Tensor,
@@ -20,7 +22,9 @@ def softmax_cross_entropy(
     stabilizer for large-vocab training) and label smoothing. Returns
     (loss, metrics-dict).
     """
-    lf = logits.float()
+    # under a mesh the vocab dim whole on each rank: DTensor's rule for a
+    # gather from a vocab-sharded tensor fails on batch-sharded labels
+    lf = dist.whole_on(logits.float(), -1)
     labels = labels.long()
     lse = torch.logsumexp(lf, dim=-1)  # (B,S)
     label_logit = torch.gather(lf, -1, labels[..., None])[..., 0]

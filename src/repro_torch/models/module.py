@@ -14,6 +14,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.sharding import dist
+
 Params = Dict[str, Any]
 
 # ---------------------------------------------------------------------------
@@ -69,14 +71,16 @@ def dense_init(
 
 def dense_apply(p: Params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """``x @ w (+ b)`` with ``w`` stored (in, out), as the reference stores it."""
-    y = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
+    y = torch.matmul(dist.rows_flattenable(x).to(compute_dtype), p["w"].to(compute_dtype))
     if "b" in p:
         y = y + p["b"].to(compute_dtype)
     return y
 
 
 def embedding_apply(p: Params, ids: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    return torch.nn.functional.embedding(ids.long(), p["table"]).to(compute_dtype)
+    # a sharded table is gathered first: DTensor's rule for a vocab-sharded
+    # lookup fails on batch-sharded ids
+    return torch.nn.functional.embedding(ids.long(), dist.replicated(p["table"])).to(compute_dtype)
 
 
 def rmsnorm_init(d: int, *, device, dtype=torch.float32, stack: Sequence[int] = ()) -> Params:

@@ -33,7 +33,7 @@ that the card computes what the reference computes in f32.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -93,11 +93,18 @@ def bn_init(c: int, device) -> Params:
             "bias": torch.zeros((c,), dtype=torch.float32, device=device)}
 
 
-def bn_apply(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Batch statistics over (N, H, W), population variance, in f32."""
+def bn_apply(p: Params, x: torch.Tensor, plan: Optional[ShardingPlan] = None, eps: float = 1e-5) -> torch.Tensor:
+    """Batch statistics over (N, H, W), population variance, in f32. Where
+    each rank holds some rows of the batch (``plan.batch_sum``, the zero
+    step), the statistics are the whole batch's: its sums over the ranks."""
     xf = _compute(x)
-    y = F.batch_norm(xf.permute(0, 3, 1, 2), None, None, p["scale"], p["bias"], training=True, eps=eps)
-    return y.permute(0, 2, 3, 1).to(x.dtype)
+    if plan is None or plan.batch_sum is None:
+        y = F.batch_norm(xf.permute(0, 3, 1, 2), None, None, p["scale"], p["bias"], training=True, eps=eps)
+        return y.permute(0, 2, 3, 1).to(x.dtype)
+    n = plan.batch_sum(torch.tensor(float(xf.numel() // xf.shape[-1]), dtype=xf.dtype, device=xf.device))
+    mean = plan.batch_sum(xf.sum(dim=(0, 1, 2))) / n
+    var = plan.batch_sum((xf - mean).square().sum(dim=(0, 1, 2))) / n
+    return ((xf - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]).to(x.dtype)
 
 
 def max_pool_same(x: torch.Tensor, k: int = 3, stride: int = 2) -> torch.Tensor:
@@ -120,14 +127,14 @@ def _bottleneck_init(gen, cin: int, width: int, cout: int, device) -> Params:
     return p
 
 
-def _bottleneck_apply(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
-    pre = F.relu(bn_apply(p["bn1"], x))
+def _bottleneck_apply(p: Params, x: torch.Tensor, stride: int, plan: ShardingPlan) -> torch.Tensor:
+    pre = F.relu(bn_apply(p["bn1"], x, plan))
     shortcut = conv_apply(p["proj"], pre, stride) if "proj" in p else x
     if "proj" not in p and stride > 1:
         shortcut = x[:, ::stride, ::stride, :]
     h = conv_apply(p["conv1"], pre, 1)
-    h = conv_apply(p["conv2"], F.relu(bn_apply(p["bn2"], h)), stride)
-    h = conv_apply(p["conv3"], F.relu(bn_apply(p["bn3"], h)), 1)
+    h = conv_apply(p["conv2"], F.relu(bn_apply(p["bn2"], h, plan)), stride)
+    h = conv_apply(p["conv3"], F.relu(bn_apply(p["bn3"], h, plan)), 1)
     return shortcut + h
 
 
@@ -165,8 +172,8 @@ def forward(cfg: ModelConfig, params: Params, images: torch.Tensor, plan: Shardi
     if not cifar_stem:
         x = max_pool_same(x)
     for p, stride in zip(params["blocks"], _block_strides(cfg)):
-        x = _bottleneck_apply(p, x, stride)
-    x = F.relu(bn_apply(params["final_bn"], x))
+        x = _bottleneck_apply(p, x, stride, plan)
+    x = F.relu(bn_apply(params["final_bn"], x, plan))
     x = x.mean(dim=(1, 2))  # global average pool
     return nn.dense_apply(params["head"], x, compute_dtype=x.dtype)
 

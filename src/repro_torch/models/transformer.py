@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import module as nn
 from repro_torch.models.attention import decode_attention, flash_attention
+from repro_torch.sharding import dist
 from repro_torch.sharding.plan import ShardingPlan
 
 Params = Dict[str, Any]
@@ -131,9 +132,9 @@ def _qkv(
     q = nn.dense_apply({"w": p["wq"], **({"b": p["bq"]} if "bq" in p else {})}, x)
     k = nn.dense_apply({"w": p["wk"], **({"b": p["bk"]} if "bk" in p else {})}, x)
     v = nn.dense_apply({"w": p["wv"], **({"b": p["bv"]} if "bv" in p else {})}, x)
-    q = plan.act(q.reshape(B, S, cfg.n_heads, hd), "heads")
-    k = plan.act(k.reshape(B, S, cfg.n_kv_heads, hd), "kv_heads")
-    v = plan.act(v.reshape(B, S, cfg.n_kv_heads, hd), "kv_heads")
+    q = plan.act(dist.split_heads(q, cfg.n_heads, hd), "heads")
+    k = plan.act(dist.split_heads(k, cfg.n_kv_heads, hd), "kv_heads")
+    v = plan.act(dist.split_heads(v, cfg.n_kv_heads, hd), "kv_heads")
     return q, k, v
 
 
@@ -162,7 +163,7 @@ def block_fwd(
 def logits_fn(cfg: ModelConfig, params: Params, h: torch.Tensor, plan: ShardingPlan):
     h = _norm(cfg, params["final_norm"], h)
     if cfg.tie_embeddings:
-        logits = F.linear(h, params["embed"]["table"].to(torch.bfloat16))
+        logits = F.linear(dist.rows_flattenable(h), params["embed"]["table"].to(torch.bfloat16))
     else:
         logits = nn.dense_apply({"w": params["lm_head"]["w_lm"]}, h)
     if cfg.logit_softcap:
@@ -244,7 +245,8 @@ def prefill(
     h = embed_tokens(cfg, params, tokens, plan, patches)
     positions = torch.arange(S, device=h.device)
     rope = nn.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)  # once for all layers
-    cache = init_cache(cfg, B, S, h.device)
+    # under a mesh, DTensors in the cache plan's placements from the start
+    cache = {name: plan.act(leaf, "cache") for name, leaf in init_cache(cfg, B, S, h.device).items()}
 
     for i in range(cfg.n_layers):
         lp = nn.layer_params(params["layers"], i)
@@ -257,8 +259,8 @@ def prefill(
         h = h + _mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], h), plan)
         h = plan.act(h, "hidden")
         # store rope'd keys so decode never re-rotates the cache
-        cache["k"][i].copy_(kr)
-        cache["v"][i].copy_(v)
+        dist.write_rows(cache["k"][i], 1, 0, kr)
+        dist.write_rows(cache["v"][i], 1, 0, v)
 
     cache = {"k": plan.act(cache["k"], "cache"), "v": plan.act(cache["v"], "cache")}
     last = logits_fn(cfg, params, h[:, -1:, :], plan)[:, 0, :]
@@ -296,8 +298,8 @@ def decode_step(
         q, k, v = _qkv(cfg, lp["attn"], xn, plan)
         q = nn.apply_rope(q, pos_arr, cfg.rope_theta, tables=rope)
         k = nn.apply_rope(k, pos_arr, cfg.rope_theta, tables=rope)
-        kc[:, pos : pos + 1].copy_(k)
-        vc[:, pos : pos + 1].copy_(v)
+        dist.write_rows(kc, 1, pos, k)
+        dist.write_rows(vc, 1, pos, v)
         out = decode_attention(q, kc, vc, kv_len=kv_len)
         out = plan.act(out, "decode_heads")
         h = h + nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, 1, -1))

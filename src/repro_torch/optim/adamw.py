@@ -8,6 +8,11 @@ the same tensors, so a step needs no second copy of the state. The update is
 elementwise and runs in slices of ``CHUNK`` elements of each leaf, so its f32
 temporaries stay small next to the state whatever the leaf's size; slicing
 changes no number, only the order of the norm's partial sums.
+
+Under a mesh (``runtime.train_step.jit_train_step``) params, gradients, m and
+v are DTensors with the same placements: the update, elementwise, runs on
+each rank's local shards, and the clip reads the global norm, every element
+of every global gradient counted once (``global_norm``).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Any, Dict, Iterator, NamedTuple, Tuple
 import torch
 
 from repro_torch.models.module import tree_leaves, tree_map, tree_paths
+from repro_torch.sharding import dist
 
 Params = Any
 Path = Tuple[str, ...]
@@ -63,7 +69,8 @@ def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def init_state(params: Params, cfg: AdamWConfig) -> AdamWState:
     device = next(tree_leaves(params)).device
-    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.mu_dtype, device=p.device)  # noqa: E731
+    # a DTensor's moments are DTensors of its placements
+    zeros = lambda p: torch.zeros_like(p, dtype=cfg.mu_dtype, memory_format=torch.contiguous_format)  # noqa: E731
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=device),
         m=tree_map(zeros, params),
@@ -72,13 +79,19 @@ def init_state(params: Params, cfg: AdamWConfig) -> AdamWState:
 
 
 def global_norm(tree: Params) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf in f32, cast a slice at a time."""
-    total = None
+    """sqrt of the sum of squares of every leaf in f32, cast a slice at a time.
+
+    A DTensor leaf adds its local shard's sum, counted once over the ranks
+    that replicate it (``dist.owned_sum``, one all-reduce for the tree): the
+    norm of the global gradients, the same on every rank."""
+    parts = []
     for leaf in tree_leaves(tree):
-        for part in leaf.reshape(-1).split(CHUNK):
-            sq = part.float().square().sum()
-            total = sq if total is None else total + sq
-    return torch.sqrt(total)
+        sq = None
+        for part in dist.local(leaf).reshape(-1).split(CHUNK):
+            s = part.float().square().sum()
+            sq = s if sq is None else sq + s
+        parts.append((sq, leaf))
+    return torch.sqrt(dist.owned_sum(parts))
 
 
 def clip_by_global_norm(grads: Params, max_norm: float) -> Tuple[Params, torch.Tensor]:
@@ -123,9 +136,8 @@ def apply_updates(
     flat_v = dict(tree_paths(state.v))
     for path, p in tree_paths(params):
         decay = bool(cfg.weight_decay) and _decay_mask(path)
-        for p_s, g_s, m_s, v_s in zip(
-            _slices(p), flat_g[path].reshape(-1).split(CHUNK), _slices(flat_m[path]), _slices(flat_v[path])
-        ):
+        p_l, g_l, m_l, v_l = (dist.local(x) for x in (p, flat_g[path], flat_m[path], flat_v[path]))
+        for p_s, g_s, m_s, v_s in zip(_slices(p_l), g_l.reshape(-1).split(CHUNK), _slices(m_l), _slices(v_l)):
             g32 = g_s.float() * clip
             v_s.mul_(cfg.b2).add_(g32.square().mul_(1 - cfg.b2))
             m_s.mul_(cfg.b1).add_(g32.mul_(1 - cfg.b1))

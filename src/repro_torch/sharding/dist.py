@@ -1,0 +1,245 @@
+"""DTensor helpers of the multi-device path.
+
+The sharded steps keep parameters, optimizer moments, batches and caches as
+``torch.distributed.tensor.DTensor``s on a ``DeviceMesh``: the twin of the
+reference's global arrays with a ``NamedSharding``. Everything here is the
+identity on a plain tensor, so the single-device path runs the same code.
+``torch.distributed.tensor`` is imported inside the functions: importing this
+module starts nothing.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Optional, Sequence
+
+import torch
+
+
+def is_dtensor(x) -> bool:
+    if not isinstance(x, torch.Tensor) or type(x) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def local(x):
+    """The local shard of a DTensor (a view of its storage), or ``x``."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def full(x):
+    """The whole tensor on every rank (differentiable), or ``x``."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def implicit_replication():
+    """A block in which a plain tensor meeting a DTensor counts as replicated:
+    the constants a model makes on its own (positions, masks, rotary tables)."""
+    from torch.distributed.tensor.experimental import implicit_replication as ctx
+
+    return ctx()
+
+
+def distribute(tree: Any, shardings: Any) -> Any:
+    """``tree``'s tensors as DTensors with the placements of ``shardings``
+    (a matching tree of ``plan.NamedSharding``), the twin of ``device_put``.
+    Every rank passes the same whole tensors; a 0-d leaf stays a plain tensor
+    (every rank holds it, as a replicated scalar)."""
+    if isinstance(tree, dict):
+        return {k: distribute(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        parts = [distribute(v, s) for v, s in zip(tree, shardings)]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else type(tree)(parts)
+    if tree.dim() == 0:
+        return tree
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = shardings.mesh
+    device = torch.device(mesh.device_type, torch.cuda.current_device()) if mesh.device_type == "cuda" else \
+        torch.device("cpu")
+    tree = tree.to(device)
+    if mesh.size() == 1:  # the whole tensor is the one shard: no copy
+        return from_local(tree.contiguous(), mesh, shardings.placements)
+    return distribute_tensor(tree, mesh, shardings.placements)
+
+
+def replicated(x):
+    """``x`` whole on every rank, still a DTensor (``Replicate`` on every mesh
+    dim), or ``x``: for the ops whose DTensor rule fails on our layouts
+    (ROADMAP.md lists them)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    want = [Replicate()] * x.device_mesh.ndim
+    return x if list(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+def whole_on(x, dim: int):
+    """``x`` with dim ``dim`` unsharded (its other placements kept), or ``x``."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    dim %= x.dim()
+    want = [Replicate() if pl.is_shard(dim) else pl for pl in x.placements]
+    return x if list(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+def split_heads(x, heads: int, head_dim: int):
+    """(..., heads * head_dim) -> (..., heads, head_dim). A DTensor whose last
+    dim is sharded over more pieces than ``heads`` divides into is gathered
+    on that dim first: DTensor cannot view it (GSPMD moves it on its own)."""
+    if is_dtensor(x):
+        n = math.prod(size for pl, size in zip(x.placements, x.device_mesh.mesh.shape) if pl.is_shard(x.dim() - 1))
+        if heads % n:
+            x = whole_on(x, -1)
+    return x.reshape(*x.shape[:-1], heads, head_dim)
+
+
+def rows_flattenable(x):
+    """``x`` with the dims between its first and its last unsharded: a matmul
+    flattens them with the first, and DTensor (torch 2.11) refuses to flatten
+    a sharded inner dim without redistributing. Under ``sp`` this gathers the
+    sequence before each projection, as Megatron's sequence parallelism does."""
+    if not is_dtensor(x) or x.dim() < 3:
+        return x
+    from torch.distributed.tensor import Replicate
+
+    want = [Replicate() if pl.is_shard() and 0 < pl.dim < x.dim() - 1 else pl for pl in x.placements]
+    return x if list(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+def like(g, p):
+    """``g`` (a gradient) in ``p``'s placements, where ``p`` is a DTensor."""
+    if not is_dtensor(p):
+        return g
+    if list(g.placements) != list(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def owned_sum(parts) -> torch.Tensor:
+    """The sum over ranks of ``parts`` — (tensor, DTensor or None) pairs: each
+    tensor a sum this rank took over its local shard of the DTensor (or over a
+    plain tensor, which is the whole). A shard that the mesh replicates over
+    some dims is counted on the ranks at coordinate 0 of those dims only, so
+    that each element of each global tensor is counted once. One all-reduce
+    for all of them where any is a DTensor."""
+    total = None
+    mesh = None
+    for value, ref in parts:
+        if ref is not None and is_dtensor(ref):
+            mesh = ref.device_mesh
+            coord = mesh.get_coordinate()
+            if any(not pl.is_shard() and c != 0 for pl, c in zip(ref.placements, coord)):
+                value = torch.zeros_like(value)
+        total = value if total is None else total + value
+    return total if mesh is None else all_sum(total, mesh)
+
+
+def all_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``x`` over every rank of ``mesh`` (a new tensor; one
+    all-reduce a mesh dim)."""
+    import torch.distributed as tdist
+
+    x = x.clone()
+    for d in range(mesh.ndim):
+        tdist.all_reduce(x, group=mesh.get_group(d))
+    return x
+
+
+def batch_sum_over(mesh, axes):
+    """A differentiable sum over the ranks of ``mesh``'s dims ``axes`` (the
+    ranks that split a batch): ``ShardingPlan.batch_sum`` of the zero step."""
+    from torch.distributed.nn.functional import all_reduce
+
+    groups = [mesh.get_group(a) for a in axes]
+
+    def batch_sum(t: torch.Tensor) -> torch.Tensor:
+        for g in groups:
+            t = all_reduce(t, group=g)
+        return t
+
+    return batch_sum
+
+
+# ---------------------------------------------------------------------------
+# the kernels' boundary: a layout in which each rank's work is whole
+# ---------------------------------------------------------------------------
+
+DP_AXES = ("pod", "data")
+TP_AXIS = "model"
+
+
+def kernel_placements(mesh, batch: int, heads: Sequence[int], batch_dim: Optional[int], head_dim: int) -> list:
+    """Placements under which a kernel's work is local: the batch (tensor dim
+    ``batch_dim``; None for a tensor without one) over the data axes when
+    they divide it, heads (dim ``head_dim``) over ``model`` when it divides
+    every head count given, everything else replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names or ()
+    sizes = dict(zip(names, mesh.mesh.shape))
+    dp = [a for a in names if a in DP_AXES]
+    dp_ok = batch % math.prod(sizes[a] for a in dp) == 0
+    tp_ok = TP_AXIS in sizes and all(h % sizes[TP_AXIS] == 0 for h in heads)
+    out = []
+    for name in names:
+        if name in dp and dp_ok and batch_dim is not None:
+            out.append(Shard(batch_dim))
+        elif name == TP_AXIS and tp_ok:
+            out.append(Shard(head_dim))
+        else:
+            out.append(Replicate())
+    return out
+
+
+def to_local_as(x, mesh, placements) -> torch.Tensor:
+    """``x`` (a DTensor) redistributed to ``placements``, as its local shard."""
+    if list(x.placements) != list(placements):
+        x = x.redistribute(mesh, placements)
+    return x.to_local()
+
+
+def from_local(x: torch.Tensor, mesh, placements):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x, mesh, placements, run_check=False)
+
+
+# ---------------------------------------------------------------------------
+# in-place writes into a (sharded) cache
+# ---------------------------------------------------------------------------
+
+
+def write_rows(dst: torch.Tensor, dim: int, start: int, src: torch.Tensor) -> None:
+    """``dst.narrow(dim, start, n).copy_(src)``, n = src.shape[dim]. Where
+    ``dst`` is a DTensor, into its local shard: ``src`` is brought to ``dst``'s
+    placements but on ``dim`` (whole there), and each rank writes the part of
+    rows [start, start + n) its shard holds. The shards on ``dim`` must be
+    even, as the cache plans make them."""
+    if not is_dtensor(dst):
+        dst.narrow(dim, start, src.shape[dim]).copy_(full(src))
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = dst.device_mesh
+    want = [Replicate() if pl.is_shard(dim) else pl for pl in dst.placements]
+    if not is_dtensor(src):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    src_l = to_local_as(src, mesh, want)
+    dst_l = dst.to_local()
+    # this shard's first row on dim: the mesh dims that shard it, in mesh order
+    rows, offset = dst.shape[dim], 0
+    coord = mesh.get_coordinate()
+    for pl, size, c in zip(dst.placements, mesh.mesh.shape, coord):
+        if pl.is_shard(dim):
+            if rows % size:
+                raise ValueError(f"write_rows needs even shards: {rows} rows over {size}")
+            rows //= size
+            offset += c * rows
+    lo, hi = max(start, offset), min(start + src.shape[dim], offset + rows)
+    if lo < hi:
+        dst_l.narrow(dim, lo - offset, hi - lo).copy_(src_l.narrow(dim, lo - start, hi - lo))

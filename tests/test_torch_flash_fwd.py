@@ -139,17 +139,19 @@ def test_fwd_tiles_at_head_dim_160():
 def test_fwd_tiles_at_head_dim_112():
     """D = 112 (zamba2-7b): a row is two 64-element column blocks, the last 16
     columns of the second past D; three consumer warpgroups (192 folded rows)
-    as at D = 64, over D = 128's 64-row KV tiles. K1 and K4 take it; the
-    backward kernels do not, and say so before any CUDA call."""
+    as at D = 64, over D = 128's 64-row KV tiles. K1, K4 and the backward
+    kernels (K2, K3) take it, the dk/dv kernel owning 128 KV rows as at
+    D = 128; a head dim none of them is built for is refused before any
+    CUDA call."""
     assert tfa.fwd_tile_rows(112) == tfa.fwd_tile_rows(64) == 192
     assert kv_rows(112) == kv_rows(128) == 64
-    assert tfa.HEAD_DIMS == tda.HEAD_DIMS == (64, 112, 128, 160)
-    assert tfa.BWD_HEAD_DIMS == (64, 128, 160)
-    q = torch.zeros(1, 2, 8, 1, 112, dtype=torch.bfloat16)
-    k = torch.zeros(1, 2, 8, 112, dtype=torch.bfloat16)
+    assert tfa.HEAD_DIMS == tda.HEAD_DIMS == tfa.BWD_HEAD_DIMS == (64, 112, 128, 160)
+    assert tfa.dkv_kv_rows(112) == tfa.dkv_kv_rows(128) == 128
+    q = torch.zeros(1, 2, 8, 1, 96, dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 8, 96, dtype=torch.bfloat16)
     lse = torch.zeros(1, 2, 8, 1)
-    with pytest.raises(ValueError, match=r"backward kernels are built for head_dim \(64, 128, 160\), not 112"):
-        tfa.launch_bwd_dq(q, k, k, q, q, lse, lse.clone(), q.clone(), causal=True, scale=112**-0.5)
+    with pytest.raises(ValueError, match=r"backward kernels are built for head_dim \(64, 112, 128, 160\), not 96"):
+        tfa.launch_bwd_dq(q, k, k, q, q, lse, lse.clone(), q.clone(), causal=True, scale=96**-0.5)
     assert tfa.dq_launch_count == 0
 
 

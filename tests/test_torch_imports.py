@@ -87,9 +87,14 @@ import repro_torch.models.moe
 import repro_torch.models.resnet
 import repro_torch.models.rwkv6
 import repro_torch.models.transformer
+import repro_torch.launch.mesh
 import repro_torch.optim.adamw
+import repro_torch.optim.compression
+import repro_torch.runtime.pipeline
+import repro_torch.runtime.ring
 import repro_torch.runtime.serve_step
 import repro_torch.runtime.train_step
+import repro_torch.sharding.dist
 import repro_torch.sharding.plan
 import repro_torch.telemetry.constants
 import repro_torch.telemetry.counts
@@ -141,6 +146,26 @@ with tempfile.TemporaryDirectory() as tmp:
                           "--out", tmp + "/sim"]) == 0
     assert calibrate.main(["--backend", "kernels", "--device", "cpu", "--skus", "h100-80gb",
                            "--out", tmp + "/calib"]) == 0
+# and shards a train step over a mesh (one rank, its store in a file)
+import torch.distributed as tdist
+from repro_torch.configs.base import ShapeSuite
+from repro_torch.launch.mesh import make_mesh_shape
+from repro_torch.optim import adamw
+from repro_torch.runtime import train_step as ts
+from repro_torch.sharding import dist
+with tempfile.TemporaryDirectory() as tmp:
+    tdist.init_process_group("gloo", store=tdist.FileStore(tmp + "/store", 1), rank=0, world_size=1)
+    cfg = get_config("granite-3-2b").reduced()
+    model = build_model(cfg)
+    suite = ShapeSuite("t", 16, 2, "train")
+    opt = adamw.AdamWConfig(warmup_steps=1, total_steps=2)
+    step, st_sh, b_sh, _ = ts.jit_train_step(model, make_mesh_shape((1, 1), ("data", "model"), device="cpu"),
+                                             suite, opt, variant="sp")
+    state = dist.distribute(ts.init_train_state(model, torch.Generator().manual_seed(0), opt, "cpu"), st_sh)
+    batch = {k: torch.from_numpy(v) for k, v in synthetic.batch_for(cfg, suite, seed=0).items()}
+    _, metrics = step(state, dist.distribute(batch, b_sh))
+    assert float(metrics["loss"]) == float(metrics["loss"])
+    tdist.destroy_process_group()
 assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
 print("PORT-STANDS-ALONE")
 """
@@ -153,6 +178,19 @@ def test_port_imports_and_serves_without_jax_or_repro():
     )
     assert proc.returncode == 0, proc.stderr
     assert "PORT-STANDS-ALONE" in proc.stdout
+
+
+def test_every_registry_head_dim_has_forward_and_backward_kernels():
+    """A guard against the next head-dim gap: every arch of the registry
+    that has attention runs K1-K4 at its head_dim, and trains through K2/K3."""
+    from repro_torch.configs.registry import CONFIGS
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.kernels import flash_attention as tfa
+
+    dims = {name: cfg.resolved_head_dim for name, cfg in CONFIGS.items() if cfg.family != "resnet"}
+    assert len(dims) == 10 and set(dims.values()) >= {64, 112, 128, 160}
+    for name, D in dims.items():
+        assert D in tfa.HEAD_DIMS and D in tfa.BWD_HEAD_DIMS and D in tda.HEAD_DIMS, (name, D)
 
 
 def test_no_source_of_the_port_names_jax_or_repro():

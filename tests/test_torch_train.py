@@ -172,7 +172,3 @@ def test_result_keys_and_flags_equal_the_reference(tmp_path):
     assert list(got["pipeline"]) == list(want["pipeline"])
     assert (tmp_path / "m.json").exists()
 
-
-def test_mesh_host_is_refused_with_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttrain.run(_args(mesh="host"))
