@@ -30,7 +30,17 @@ weights from a seed:
     (baseline, sp, zero) against the single-device step at the training
     setup, the sharded decode (baseline, serve) and prefill, EF-int8, the
     ring matmuls and GPipe; the multi-rank semantics are held on the CPU by
-    gloo (tests/test_torch_mesh_ranks.py and its neighbours);
+    gloo (tests/test_torch_mesh_ranks.py and its neighbours); then the vlm,
+    moe and encdec families' sharded steps the same way (phase_mesh_families:
+    llava-next-34b, olmoe-1b-7b and whisper-base training, baseline and sp;
+    deepseek-moe-16b and whisper-base prefill and decode, baseline and
+    serve);
+  * the multi-pod dry-run (phase_dryrun) -- ``python -m repro_torch.launch.
+    dryrun`` for granite-3-2b train_4k on a fake 256-rank group and for
+    deepseek-moe-16b decode_32k on a fake 512-rank group, in processes of
+    their own; then granite's training step lowered at a fake 1 x 1 mesh
+    against the same step on the card at world 1 on the non-kernel path
+    (fingerprint and FLOPs equal);
   * training, the paper's ResNet trio -- batch 32 at full image size,
     RESNET_STEPS steps each through ``repro_torch.launch.train.run``; one
     step of resnet_small and resnet_medium against the same step on the CPU
@@ -111,6 +121,7 @@ from repro_torch.models.module import (  # noqa: E402
     param_bytes, param_count, tree_leaves, tree_map, tree_paths, tree_unflatten,
 )
 from repro_torch.runtime import train_step  # noqa: E402
+from repro_torch.sharding import dist  # noqa: E402
 from repro_torch.runtime.serve_step import pad_cache  # noqa: E402
 from repro_torch.sharding.plan import make_plan  # noqa: E402
 
@@ -1310,6 +1321,43 @@ def phase_g1() -> dict:
     return out
 
 
+def phase_g7(cfg) -> dict:
+    """K1-K4 at llava-next-34b's heads (56 query heads over 8 KV heads, G = 7,
+    head_dim 128), which phase mesh_families trains at depth LLAVA_MESH_LAYERS
+    and no other phase gives the kernels: K1 and K2/K3 at its training shape
+    (B 2, S 4096, causal; the backward twice, bit-identical), and K1-K4 at
+    ragged small shapes with G 7 (causal and not, Sq against Skv both ways,
+    q_offset > 0, f16), each held to its plain version at the tolerances of
+    the other head_dims."""
+    gen = torch.Generator(device=DEV).manual_seed(10)
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    require((H // KVH, D) == (7, 128) and H % KVH == 0, f"{cfg.name} has G {H / KVH}, head_dim {D}")
+    f16 = torch.float16
+    flash = [
+        flash_case(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, H, KVH, D, True, by_rows=True),  # the training shape
+        flash_case(gen, 2, 77, 131, 14, 2, D, False),                                      # ragged, Sq < Skv
+        flash_case(gen, 1, 131, 77, 7, 1, D, False, dtype=f16),                            # ragged, Sq > Skv, f16
+        flash_case(gen, 2, 33, 97, 14, 2, D, True, q_offset=64),                           # q_offset > 0
+        flash_case(gen, 1, 130, 130, 21, 3, D, True),                                      # three 64-row kv tiles
+    ]
+    torch.cuda.empty_cache()
+    decode = decode_case(gen, 2, 333, 14, 2, D, [1, 77, 333])
+    decode += decode_case(gen, 1, 130, 7, 1, D, [130], dtype=f16)
+    bwd = [
+        flash_bwd_case(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, H, KVH, D, True, by_rows=True, repeat=True),
+        flash_bwd_case(gen, 1, 101, 101, 7, 1, D, True),                                   # ragged
+        flash_bwd_case(gen, 2, 77, 131, 14, 2, D, False),                                  # non-causal, Sq < Skv
+        flash_bwd_case(gen, 1, 131, 77, 7, 1, D, False, dtype=f16),                        # non-causal, Sq > Skv, f16
+        flash_bwd_case(gen, 2, 99, 99, 14, 2, D, True, q_offset=64),                       # q_offset > 0
+        flash_bwd_case(gen, 1, 257, 257, 21, 3, D, True),                                  # several dk/dv blocks
+    ]
+    torch.cuda.empty_cache()
+    out = {"arch": cfg.name, "flash_attention_fwd": flash, "decode_attention": decode, "flash_attention_bwd": bwd,
+           "tolerance": f"{TOL_ROW_RMS} * rms(row) + 1 ulp at the training shape, {TOL_BF16} at the small ones"}
+    emit("kernel_g7", **out)
+    return out
+
+
 @contextlib.contextmanager
 def full_f32_matmul():
     """Inside the block f32 matrix products run in full f32, TF32 off (the
@@ -1967,6 +2015,291 @@ def phase_mesh(cfg) -> dict:
     return out
 
 
+# the new families' sharded steps at world 1 (phase_mesh_families): the
+# steps a train run takes (the first one warms up), llava-next-34b's depth,
+# deepseek-moe-16b's serving depth
+MESH_FAMILY_STEPS, LLAVA_ARCH, LLAVA_MESH_LAYERS, DEEPSEEK_MESH_LAYERS = 2, "llava-next-34b", 2, 2
+
+
+@contextlib.contextmanager
+def mesh_world_1():
+    """A one-rank NCCL group on card 0 over a FileStore, and its 1 x 1
+    (data, model) mesh, for the block."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_mesh_shape
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tdist.init_process_group("nccl", store=tdist.FileStore(f"{tmp}/store", 1), rank=0, world_size=1,
+                                 device_id=DEV)
+        try:
+            yield make_mesh_shape((1, 1), ("data", "model"), device="cuda")
+        finally:
+            tdist.destroy_process_group()
+
+
+def routes_of(cfg):
+    """``routes_recorded`` for the MoE family; for the others a block that
+    records and replays nothing."""
+    return routes_recorded if cfg.family == "moe" else (lambda record, replay=None: contextlib.nullcontext())
+
+
+def mesh_family_train(cfg, mesh, batch_size: int, seq: int) -> dict:
+    """MESH_FAMILY_STEPS steps of ``build_train_step`` and of ``jit_train_step``
+    (baseline, sp) from one seeded init and batch: the losses, each step's
+    (K1, K2, K3) launches and its times. The MoE family's sharded steps route
+    by the single device's choices (``routes_recorded``)."""
+    from repro_torch.optim import adamw
+
+    model = build_model(cfg)
+    opt_cfg = adamw.AdamWConfig(warmup_steps=1, total_steps=10)
+    suite = ShapeSuite("train_4k", seq, batch_size, "train")
+    batch = from_jax_params(synthetic.batch_for(cfg, suite, seed=0), DEV)
+    init = lambda: train_step.init_train_state(model, torch.Generator(device=DEV).manual_seed(0), opt_cfg, DEV)  # noqa: E731
+    routed = routes_of(cfg)
+    routes: list = []
+    with routed(routes):
+        runs = {"single": counted_steps(train_step.build_train_step(model, make_plan(cfg, None), opt_cfg), init(),
+                                        batch, MESH_FAMILY_STEPS)}
+    torch.cuda.empty_cache()
+    for variant in ("baseline", "sp"):
+        step, st_sh, b_sh, _ = train_step.jit_train_step(model, mesh, suite, opt_cfg, variant=variant)
+        with routed([], routes):
+            runs[variant] = counted_steps(step, dist.distribute(init(), st_sh), dist.distribute(batch, b_sh),
+                                          MESH_FAMILY_STEPS)
+        del step
+        torch.cuda.empty_cache()
+    single = runs["single"]
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch_size, "seq": seq, "remat": cfg.remat,
+           "routing_replayed": cfg.family == "moe"}
+    for name, (losses, launches, times) in runs.items():
+        out[name] = {"losses": losses, "launches_per_step": launches,
+                     "loss_abs_err": max(abs(a - b) for a, b in zip(losses, single[0])),
+                     "step_ms": times[-1][0], "step_device_ms": times[-1][1]}
+    for name in ("baseline", "sp"):
+        out[name]["step_ms_over_single"] = out[name]["step_ms"] / out["single"]["step_ms"]
+    return out
+
+
+def mesh_family_serve(cfg, mesh, prompt: int) -> dict:
+    """The single-device prefill and one decode step (its second call), then
+    ``jit_prefill_step`` and ``jit_decode_step`` (baseline, serve) on the same
+    requests: the logits against the single device's, K1's launches in the
+    prefill and K4's in the decode step, the decode step's times."""
+    from repro_torch.runtime import serve_step
+
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(1), DEV)
+    batch = from_jax_params(synthetic.batch_for(cfg, ShapeSuite("p", prompt, BATCH, "prefill"), seed=5), DEV)
+    batch.pop("labels", None)
+    plan0 = make_plan(cfg, None)
+    routed = routes_of(cfg)
+    prefill_routes: list = []
+    decode_routes: list = []
+    with torch.no_grad():
+        fa.launch_count = 0
+        with routed(prefill_routes):
+            last, cache = model.prefill(params, batch, plan0)
+        prefill_k1 = fa.launch_count
+        cache = pad_cache(cache, 1)
+        tok = torch.argmax(last, -1).to(torch.int32)
+        one_decode = lambda: model.decode(params, {"token": tok}, cache, prompt, plan0)  # noqa: E731
+        with routed(decode_routes):
+            one_decode()  # warm-up; each call writes the same slot
+            da.launch_count = 0
+            (want, _), host_ms, device_ms = timed(one_decode)
+        decode_k4 = da.launch_count
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": BATCH, "prompt": prompt,
+           "routing_replayed": cfg.family == "moe",
+           "single": {"prefill_k1": prefill_k1, "decode_k4": decode_k4, "decode_ms": host_ms,
+                      "decode_device_ms": device_ms}}
+    for variant in ("baseline", "serve"):
+        pstep, p_sh, b_sh, _ = serve_step.jit_prefill_step(model, mesh, ShapeSuite("p", prompt, BATCH, "prefill"),
+                                                           variant=variant)
+        fa.launch_count = 0
+        with routed([], prefill_routes):
+            got_last, _ = pstep(dist.distribute(params, p_sh), dist.distribute(batch, b_sh))
+        k1 = fa.launch_count
+        dstep, p_sh, tok_sh, c_sh, _ = serve_step.jit_decode_step(
+            model, mesh, ShapeSuite("d", prompt + 1, BATCH, "decode"), variant=variant)
+        args = (dist.distribute(params, p_sh), dist.distribute({"token": tok}, tok_sh),
+                dist.distribute({k: v.clone() for k, v in cache.items()}, c_sh))
+        with routed([], decode_routes):
+            dstep(*args)  # warm-up (DTensor's sharding rules are cached at first use)
+            da.launch_count = 0
+            (logits, _), d_host_ms, d_device_ms = timed(lambda: dstep(*args))
+        out[variant] = {"prefill_k1": k1, "decode_k4": da.launch_count,
+                        "prefill_logits_max_abs_err": max_err(got_last.full_tensor(), last),
+                        "decode_logits_max_abs_err": max_err(logits.full_tensor(), want),
+                        "decode_ms": d_host_ms, "decode_device_ms": d_device_ms,
+                        "decode_ms_over_single": d_host_ms / host_ms}
+        del args, got_last, logits
+        torch.cuda.empty_cache()
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_families() -> dict:
+    """phase_mesh for the vlm, moe and encdec families, under NCCL at world 1
+    (one process on card 0, a 1 x 1 mesh), each sharded step held against
+    its single-device step from one seeded init and batch: training
+    (baseline, sp) of llava-next-34b at full width and LLAVA_MESH_LAYERS
+    layers, olmoe-1b-7b at full width and OLMOE_TRAIN_LAYERS (routing
+    replayed) and whisper-base at full size, losses within TOL_LOSS;
+    prefill and decode (baseline, serve) of deepseek-moe-16b at
+    DEEPSEEK_MESH_LAYERS layers (routing replayed) and whisper-base, logits
+    within TOL_MESH_LOGITS. Every sharded step launches K1-K3 (training), K1
+    (prefill) and K4 (decode) as often as the single device's."""
+    out = {"train": {}, "serve": {}}
+    with mesh_world_1() as mesh:
+        for c, b, seq in ((dataclasses.replace(get_config(LLAVA_ARCH), n_layers=LLAVA_MESH_LAYERS), TRAIN_BATCH,
+                           TRAIN_SEQ),
+                          (olmoe_train_config(), TRAIN_BATCH, TRAIN_SEQ),
+                          (get_config(WHISPER_ARCH), BATCH, WHISPER_PROMPT + NEW)):
+            out["train"][c.name] = mesh_family_train(c, mesh, b, seq)
+            torch.cuda.empty_cache()
+        for c, prompt in ((dataclasses.replace(get_config(DEEPSEEK_ARCH), n_layers=DEEPSEEK_MESH_LAYERS), PROMPT),
+                          (get_config(WHISPER_ARCH), WHISPER_PROMPT)):
+            out["serve"][c.name] = mesh_family_serve(c, mesh, prompt)
+    emit("mesh_families", **out)
+    for arch, rec in out["train"].items():
+        want = rec["single"]["launches_per_step"]
+        for variant in ("baseline", "sp"):
+            require(rec[variant]["launches_per_step"] == want,
+                    f"{arch} {variant}: (K1, K2, K3) a step {rec[variant]['launches_per_step']}, single {want}")
+            require(rec[variant]["loss_abs_err"] <= TOL_LOSS, f"{arch} {variant}: {rec[variant]} vs {rec['single']}")
+    for arch, rec in out["serve"].items():
+        for variant in ("baseline", "serve"):
+            r = rec[variant]
+            require((r["prefill_k1"], r["decode_k4"]) == (rec["single"]["prefill_k1"], rec["single"]["decode_k4"]),
+                    f"{arch} {variant}: (K1 prefill, K4 decode) launches {r}, single {rec['single']}")
+            require(max(r["prefill_logits_max_abs_err"], r["decode_logits_max_abs_err"]) <= TOL_MESH_LOGITS,
+                    f"{arch} {variant} logits: {r}")
+    return out
+
+
+# the dry-run (phase_dryrun): two cells of ``python -m repro_torch.launch.dryrun``
+# on fake process groups of 256 and 512 ranks, then granite's training step
+# lowered at a fake 1 x 1 mesh against the same step on the card
+DRYRUN_CELLS = (("granite-3-2b", "train_4k", "single"), ("deepseek-moe-16b", "decode_32k", "multi"))
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_CHILD = """
+import json, sys
+from repro_torch.configs.base import ShapeSuite
+from repro_torch.launch.lowering import fake_world, lower_cell
+from repro_torch.launch.mesh import make_mesh_shape
+arch, seq, batch = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+with fake_world(1):
+    _, _, low = lower_cell(arch, ShapeSuite("train_4k", seq, batch, "train"),
+                           make_mesh_shape((1, 1), ("data", "model"), device="cpu"))
+print(json.dumps({"fingerprint": low.fingerprint, "flops": low.flops, "bytes": low.bytes, "memory": low.memory}))
+"""
+
+
+@contextlib.contextmanager
+def flash_kernels_plain():
+    """Inside the block the flash kernels' wrappers run their plain versions
+    on the card's tensors: the ops they run for a CPU tensor, which the
+    dry-run traces. A rebinding made by this script only."""
+    saved = fa.flash_attention_fwd, fa.flash_attention_bwd
+
+    def fwd(q, k, v, *, causal, scale, q_offset=0, out=None):
+        return fa.plain_fwd(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
+
+    def bwd(q, k, v, o, lse, do, *, causal, scale, q_offset=0):
+        return ref.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal, scale=scale, q_offset=q_offset)
+
+    fa.flash_attention_fwd, fa.flash_attention_bwd = fwd, bwd
+    try:
+        yield
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = saved
+
+
+def phase_dryrun(cfg) -> dict:
+    """The multi-pod dry-run, in processes of its own (a fake process group
+    cannot share this one with an NCCL group): ``python -m
+    repro_torch.launch.dryrun`` for each of DRYRUN_CELLS, every one OK, its
+    roofline terms, bound, GiB a device and ``t_lower_s`` printed. Then
+    granite-3-2b's training step at phase train's setup (batch 2, seq 4096,
+    remat) lowered at a fake 1 x 1 mesh (``lower_cell``), against the same
+    step run on the card at world 1 (NCCL, a 1 x 1 mesh) on the non-kernel
+    path under the counters (``count_step``): its fingerprint and FLOPs must
+    be equal. The predicted peak a device is printed beside the kernel
+    path's ``max_memory_allocated`` over one more step, as a ratio, and not
+    held: the lowering's attention is the plain version's, which holds the
+    score matrix."""
+    from repro_torch.optim import adamw
+    from repro_torch.telemetry.counts import count_step
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    cells = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape, mesh_kind in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                                   "--mesh", mesh_kind, "--out", tmp], env=env, capture_output=True, text=True,
+                                  timeout=DRYRUN_TIMEOUT_S)
+            label = f"{arch}__{shape}__{mesh_kind}"
+            require(proc.returncode == 0, f"dryrun {label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+            rec = json.loads(Path(tmp, f"{label}.json").read_text())
+            require(rec["status"] == "OK", f"dryrun {label}: {rec}")
+            r = rec["roofline"]
+            cells[label] = {"compute_s": r["compute_s"], "memory_s": r["memory_s"], "collective_s": r["collective_s"],
+                            "bound": r["bound"], "step_s": r["step_s"], "mesh": r["mesh"], "chips": r["chips"],
+                            "gib_per_device": r["peak_mem_bytes_per_device"] / 2**30,
+                            "flops_per_device": r["flops_per_device"], "hbm_bytes_per_device": r["hbm_bytes_per_device"],
+                            "wire_bytes_per_device": r["wire_bytes_per_device"], "t_lower_s": rec["t_lower_s"],
+                            "process_wall_s": time.perf_counter() - t0, "line": proc.stdout.strip()}
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", DRYRUN_CHILD, cfg.name, str(TRAIN_SEQ), str(TRAIN_BATCH)],
+                               env=env, capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+        require(child.returncode == 0, f"lower_cell at 1 x 1: exit {child.returncode}\n{child.stderr[-3000:]}")
+        lowered = json.loads(child.stdout.strip().splitlines()[-1])
+        lower_s = time.perf_counter() - t0
+
+    require(cfg.remat, "the full config trains under remat")
+    suite = ShapeSuite("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    model, opt_cfg = build_model(cfg), adamw.AdamWConfig()
+    with mesh_world_1() as mesh:
+        step, st_sh, b_sh, _ = train_step.jit_train_step(model, mesh, suite, opt_cfg)
+        state = dist.distribute(train_step.init_train_state(model, torch.Generator(device=DEV).manual_seed(0),
+                                                            opt_cfg, DEV), st_sh)
+        batch = dist.distribute({k: torch.from_numpy(np.asarray(v)).to(DEV)
+                                 for k, v in synthetic.batch_for(cfg, suite, seed=0).items()}, b_sh)
+        fa.launch_count = fa.dkv_launch_count = fa.dq_launch_count = 0
+        with flash_kernels_plain():
+            _, counts = count_step(lambda: step(state, batch), inputs=(state, batch))
+        plain_launches = (fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch)
+        torch.cuda.synchronize()
+        kernel_peak = torch.cuda.max_memory_allocated()
+        del state, batch, step
+    torch.cuda.empty_cache()
+    predicted = lowered["memory"]["peak_bytes_per_device"]
+    out = {"cells": cells,
+           "one_device": {"arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": cfg.remat,
+                          "lowered_fingerprint": lowered["fingerprint"], "card_fingerprint": counts.fingerprint,
+                          "lowered_flops": lowered["flops"], "card_flops": counts.flops,
+                          "lowered_hbm_bytes": lowered["bytes"], "card_hbm_bytes": counts.hbm_bytes,
+                          "lower_process_wall_s": lower_s, "card_plain_launches": plain_launches,
+                          "predicted_peak_gib": predicted / 2**30, "memory": lowered["memory"],
+                          "kernel_path_max_allocated_gib": kernel_peak / 2**30,
+                          "predicted_over_kernel_path": predicted / kernel_peak,
+                          "peak_not_held": "the lowering's attention is the plain version's, which holds the "
+                                           "score matrix; the kernels never do"}}
+    emit("dryrun", **out)
+    one = out["one_device"]
+    require(plain_launches == (0, 0, 0), f"the non-kernel step launched {plain_launches}")
+    require(one["lowered_fingerprint"] == one["card_fingerprint"] and one["lowered_flops"] == one["card_flops"],
+            f"the dry-run's 1 x 1 program is not the card's: {one}")
+    return out
+
+
 def timed(fn):
     """(fn(), host ms, device ms): the host clock from the call to the end of
     its work on the device (a synchronize), and CUDA events around it."""
@@ -2036,17 +2369,20 @@ def routes_recorded(record: list, replay=None):
     ``record``. With ``replay`` (the ids another run recorded, one entry a
     layer call, in the same order) each call still records its own choice but
     routes by the replayed one, its gates the call's own probabilities at
-    those experts, renormalized as ``top_k_gates`` does. A rebinding made by
-    this script only, as ``torch_attention_path`` is."""
+    those experts, renormalized as ``top_k_gates`` does (a sharded step's
+    call at world 1 gets them as a DTensor of its ids' placements). A
+    rebinding made by this script only, as ``torch_attention_path`` is."""
     saved = moe.top_k_gates
     replayed = iter(replay) if replay is not None else None
 
     def recording(probs, k, renormalize=True):
         vals, idx = saved(probs, k, renormalize)
-        record.append(idx)
+        record.append(dist.full(idx))
         if replayed is None:
             return vals, idx
         forced = next(replayed)
+        if dist.is_dtensor(idx):  # a sharded step at world 1: the whole ids are the one shard
+            forced = dist.from_local(forced, idx.device_mesh, idx.placements)
         vals = torch.gather(probs, -1, forced)
         if renormalize:
             vals = vals / vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
@@ -2560,7 +2896,8 @@ def characterize(resnet_runs: list) -> dict:
         }
     emit("collocate_solo", card_memory_bytes=total, solos=solos, command_s=cli_s, wall_s=time.perf_counter() - t0,
          reckoned="measured_over_roofline = measured solo step / max(compute_s, memory_s, collective_s) "
-                  "on the card's peaks (f32 67 TFLOP/s, 3.35 TB/s); bytes are telemetry/counts.py's upper bound")
+                  "on the card's peaks (f32 67 TFLOP/s, 3.35 TB/s); bytes by telemetry/hlo.py, the reference's "
+                  "fused traffic model")
     for arch, s in solos.items():
         ratio = s["step_ms"] / s["phase_resnet_median_ms"]
         require(1 / SOLO_LIMIT <= ratio <= SOLO_LIMIT,
@@ -2783,6 +3120,7 @@ def main() -> None:
     d160 = phase_d160(slm_cfg)
     d112 = phase_d112(get_config(ZAMBA_ARCH))
     phase_g1()
+    phase_g7(get_config(LLAVA_ARCH))
     rwkv_cfg = get_config(RWKV_ARCH)
     wkv = phase_wkv6(rwkv_cfg)
     torch.cuda.empty_cache()
@@ -2814,6 +3152,10 @@ def main() -> None:
     trained = phase_train(cfg)
     torch.cuda.empty_cache()
     meshed = phase_mesh(cfg)
+    torch.cuda.empty_cache()
+    families = phase_mesh_families()
+    torch.cuda.empty_cache()
+    phase_dryrun(cfg)
     torch.cuda.empty_cache()
     slm_train = stablelm_train_config()
     slm_step = one_step(slm_train, build_model(slm_train), make_plan(slm_train, None), STABLELM_TOL)
@@ -2870,8 +3212,15 @@ def main() -> None:
     # K2 and K3 in the one-step checks of olmoe-1b-7b and whisper-base. In
     # phase mesh: K1-K3 in one sharded train step (launches_mesh_step,
     # baseline), K1 in its sharded prefill and K4 in its sharded decode step.
+    # In phase mesh_families, by arch: K1-K3 in one sharded train step
+    # (launches_mesh_train, baseline), K1 in the sharded prefill
+    # (launches_mesh_prefill) and K4 in the sharded decode step
+    # (launches_mesh_decode), baseline.
     bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     mesh_step = meshed["train"]["baseline"]["launches_per_step"][0]
+    mesh_train = [{a: r["baseline"]["launches_per_step"][0][i] for a, r in families["train"].items()} for i in range(3)]
+    mesh_prefill = {a: r["baseline"]["prefill_k1"] for a, r in families["serve"].items()}
+    mesh_decode = {a: r["baseline"]["decode_k4"] for a, r in families["serve"].items()}
     slm_served = served[slm_cfg.name]["launches"]
     slm_k1, slm_k2, slm_k3 = slm_step["launches"]
     emit("wall", seconds=time.perf_counter() - t0)
@@ -2886,21 +3235,23 @@ def main() -> None:
              d112=dict(at_dim(d112, "flash_attention_fwd", served[ZAMBA_ARCH]["launches"]["flash_attention_fwd"]),
                        launches_train=zamba_step["launches"][0]),
              launches_serve=served_by["flash_attention_fwd"], launches_one_step=stepped_by[0],
-             launches_mesh_step=mesh_step[0], launches_mesh_prefill=meshed["serve"]["baseline"]["prefill_k1"]),
+             launches_mesh_step=mesh_step[0], launches_mesh_prefill=meshed["serve"]["baseline"]["prefill_k1"],
+             launches_mesh_train=mesh_train[0], launches_mesh_prefill_families=mesh_prefill),
         dict(row(decode, "src/repro_torch/kernels/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:126", served[cfg.name]["launches"]["decode_attention"]),
              launches_calibrate_kernel=calib_k["decode_attention"]["launches"],
              d160=at160("decode_attention", slm_served["decode_attention"]),
              d112=at_dim(d112, "decode_attention", served[ZAMBA_ARCH]["launches"]["decode_attention"]),
-             launches_serve=served_by["decode_attention"], launches_mesh_decode=meshed["serve"]["baseline"]["decode_k4"]),
+             launches_serve=served_by["decode_attention"], launches_mesh_decode=meshed["serve"]["baseline"]["decode_k4"],
+             launches_mesh_decode_families=mesh_decode),
         dict(row(dkv, bwd_src, dkv["replaces"], trained["launches"]["flash_attention_bwd_dkv"]),
              d160=at160("flash_attention_bwd_dkv", slm_k2),
              d112=at_dim(d112, "flash_attention_bwd_dkv", zamba_step["launches"][1]), launches_one_step=stepped_by[1],
-             launches_mesh_step=mesh_step[1]),
+             launches_mesh_step=mesh_step[1], launches_mesh_train=mesh_train[1]),
         dict(row(dq, bwd_src, dq["replaces"], trained["launches"]["flash_attention_bwd_dq"]),
              d160=at160("flash_attention_bwd_dq", slm_k3),
              d112=at_dim(d112, "flash_attention_bwd_dq", zamba_step["launches"][2]), launches_one_step=stepped_by[2],
-             launches_mesh_step=mesh_step[2]),
+             launches_mesh_step=mesh_step[2], launches_mesh_train=mesh_train[2]),
         dict(row(wkv, "src/repro_torch/kernels/csrc/wkv6_scan.cu", wkv["replaces"],
                  served_rwkv["launches"]["wkv6_scan"]),
              launches_calibrate_kernel=calib_k["wkv6"]["launches"],

@@ -17,7 +17,9 @@ measures it, once per (arch, suite), in ``measure_job``:
     process that has not tuned these shapes yet: with it in, the peak would
     depend on what the process ran before;
   * FLOPs, bytes, collectives and the fingerprint of one more step, traced
-    (``telemetry/counts.py``).
+    (``telemetry/counts.py``); the bytes by the reference's fused traffic
+    model (``telemetry/hlo.py``), as the reference's record reads
+    ``hlo_flops_bytes``.
 
 A record of the whole card (``partitioned=False``, the "non-MIG" solo) carries
 the measured step. A MIG instance cannot be carved without root and
@@ -149,7 +151,7 @@ class JobMeasurement:
     step_s: float  # median of the timed steps
     peak_bytes: float  # 0.0 where not measured (the CPU)
     flops: float  # FlopCounterMode over one traced step
-    bytes: float  # telemetry/counts.py's upper bound over the same step
+    bytes: float  # telemetry/hlo.py's traffic model over the same step
     fingerprint: str
     collectives: Dict
     peak_flops: float  # the card's peak for the type the products compute in
@@ -190,7 +192,7 @@ def measure_job(job: JobSpec, cfg, device: torch.device) -> JobMeasurement:
                 times.append(seconds)
         loss = float(metrics["loss"])
         peak = float(torch.cuda.max_memory_allocated(device) - held) if on_card else 0.0
-        _, counts = count_step(lambda: step(state, batch))
+        _, counts = count_step(lambda: step(state, batch), inputs=(state, batch))
     if not math.isfinite(loss):
         raise FloatingPointError(f"{job.name}: loss {loss} after {WARMUP_STEPS + TIMED_STEPS} steps")
     del state, batch
@@ -200,7 +202,7 @@ def measure_job(job: JobSpec, cfg, device: torch.device) -> JobMeasurement:
         step_s=statistics.median(times),
         peak_bytes=peak,
         flops=counts.flops,
-        bytes=counts.bytes,
+        bytes=counts.hbm_bytes,
         fingerprint=counts.fingerprint,
         collectives=counts.collectives,
         peak_flops=C.PEAK_FLOPS[counts.product_dtype],

@@ -182,6 +182,21 @@ def _check_tma(**named: torch.Tensor) -> None:
             raise ValueError(f"{name} layout not taken by the tensor maps of the flash kernels: strides {x.stride()}")
 
 
+def plain_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, scale: float,
+              q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's plain version in its layouts (what
+    ``flash_attention_fwd`` runs for a CPU tensor): ``ref.mha_reference_with_lse``
+    on the unfolded views, o folded back as a view and lse contiguous."""
+    B, KVH, Sq, G, D = q.shape
+    qm = q.permute(0, 2, 1, 3, 4).reshape(B, Sq, KVH * G, D)
+    o, lse = ref.mha_reference_with_lse(
+        qm, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+        causal=causal, q_offset=q_offset, scale=scale,
+    )
+    o = o.reshape(B, Sq, KVH, G, D).permute(0, 2, 1, 3, 4)
+    return o, lse.reshape(B, Sq, KVH, G).permute(0, 2, 1, 3).contiguous()
+
+
 def flash_attention_fwd(
     q: torch.Tensor,  # (B, KVH, Sq, G, D)
     k: torch.Tensor,  # (B, KVH, Skv, D)
@@ -208,13 +223,7 @@ def flash_attention_fwd(
     Skv = k.shape[2]
 
     if q.device.type == "cpu":
-        qm = q.permute(0, 2, 1, 3, 4).reshape(B, Sq, KVH * G, D)
-        o, lse = ref.mha_reference_with_lse(
-            qm, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-            causal=causal, q_offset=q_offset, scale=scale,
-        )
-        o = o.reshape(B, Sq, KVH, G, D).permute(0, 2, 1, 3, 4)
-        lse = lse.reshape(B, Sq, KVH, G).permute(0, 2, 1, 3).contiguous()
+        o, lse = plain_fwd(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
         return (o if out is None else out.copy_(o)), lse
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu tensors, not {q.device}")

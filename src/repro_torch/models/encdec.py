@@ -13,6 +13,12 @@ non-causal, decoder self causal, cross non-causal with Sq != Skv) and
 (K1) and the decode kernel (K4) on the card. A decode step hands both decode
 attentions of every layer their ``kv_len`` as device scalars made by one
 host-to-device copy a step.
+
+Under a mesh (the sharded steps of ``runtime/``) the same code runs on
+DTensors: the encoder's frames take the plan's ``frames`` spec, the heads
+``heads``/``kv_heads``, the self and cross caches ``cache`` and the decode
+step's activations ``decode_hidden``, as the reference's plan has them; the
+caches are written in place on each rank's shard (``dist.write_rows``).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import losses
 from repro_torch.models import module as nn
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding import dist
 from repro_torch.sharding.plan import ShardingPlan
 
 Params = Dict[str, Any]
@@ -119,15 +126,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 
 
 def _mha_qkv(cfg: ModelConfig, p: Params, xq, xkv, plan: ShardingPlan):
-    Bq, Sq, _ = xq.shape
-    Skv = xkv.shape[1]
     hd = cfg.resolved_head_dim
     q = nn.dense_apply({"w": p["wq"], "b": p["bq"]}, xq)
     k = nn.dense_apply({"w": p["wk"]}, xkv)
     v = nn.dense_apply({"w": p["wv"], "b": p["bv"]}, xkv)
-    q = plan.act(q.reshape(Bq, Sq, cfg.n_heads, hd), "heads")
-    k = plan.act(k.reshape(Bq, Skv, cfg.n_kv_heads, hd), "kv_heads")
-    v = plan.act(v.reshape(Bq, Skv, cfg.n_kv_heads, hd), "kv_heads")
+    q = plan.act(dist.split_heads(q, cfg.n_heads, hd), "heads")
+    k = plan.act(dist.split_heads(k, cfg.n_kv_heads, hd), "kv_heads")
+    v = plan.act(dist.split_heads(v, cfg.n_kv_heads, hd), "kv_heads")
     return q, k, v
 
 
@@ -177,13 +182,15 @@ def _dec_block(cfg, plan, enc_out, B, S, x, lp):
 def _dec_embed(cfg, params, tokens, plan, offset: int = 0):
     B, S = tokens.shape
     h = nn.embedding_apply(params["embed"], tokens)
-    pos = params["dec_pos"]["table"][offset : offset + S]
+    # a row-sharded table whole first: DTensor cannot slice rows across its shards
+    pos = dist.whole_on(params["dec_pos"]["table"], 0)[offset : offset + S]
     return plan.act(h + pos[None].to(h.dtype), "hidden")
 
 
 def _logits(cfg, params, h, plan):
     h = nn.layernorm_apply(params["final_norm"], h)
-    return tfm.mask_pad_logits(cfg, F.linear(h, params["embed"]["table"].to(torch.bfloat16)))
+    logits = dist.grad_as(F.linear(dist.rows_flattenable(h), params["embed"]["table"].to(torch.bfloat16)))
+    return tfm.mask_pad_logits(cfg, logits)
 
 
 def forward(cfg: ModelConfig, params: Params, frames, tokens, plan: ShardingPlan):
@@ -221,11 +228,12 @@ def prefill(cfg: ModelConfig, params: Params, frames, tokens, plan: ShardingPlan
     spec = cache_spec(cfg, B, S)
     spec["xk"] = spec["xv"] = ((cfg.n_layers, *enc_out.shape[:2], cfg.n_kv_heads, cfg.resolved_head_dim),
                                torch.bfloat16)
-    cache = {name: torch.empty(shape, dtype=dt, device=h.device) for name, (shape, dt) in spec.items()}
+    # under a mesh, DTensors in the cache plan's placements from the start
+    cache = {name: plan.new(shape, dt, "cache", h.device, init="empty") for name, (shape, dt) in spec.items()}
     for i, lp in enumerate(nn.unbind_layers(params["dec_layers"])):
         h, kv = _dec_block(cfg, plan, enc_out, B, S, h, lp)
         for name, t in zip(("k", "v", "xk", "xv"), kv):
-            cache[name][i].copy_(t)
+            dist.write_rows(cache[name][i], 1, 0, t)
     cache = {name: plan.act(t, "cache") for name, t in cache.items()}
     last = _logits(cfg, params, h[:, -1:, :], plan)[:, 0, :]
     return plan.act(last, "last_logits"), cache
@@ -248,13 +256,13 @@ def decode_step(cfg, params, token, cache, pos: Union[int, torch.Tensor], plan: 
         kc, vc, xk, xv = cache["k"][i], cache["v"][i], cache["xk"][i], cache["xv"][i]
         xn = nn.layernorm_apply(lp["self_norm"], h)
         q, k, v = _mha_qkv(cfg, lp["self_attn"], xn, xn, plan)
-        kc[:, pos : pos + 1].copy_(k)
-        vc[:, pos : pos + 1].copy_(v)
+        dist.write_rows(kc, 1, pos, k)
+        dist.write_rows(vc, 1, pos, v)
         out = tfm.decode_attention(q, kc, vc, kv_len=kv_len)
         h = h + _mha_out(lp["self_attn"], out, B, 1)
         xn = nn.layernorm_apply(lp["cross_norm"], h)
         qx = nn.dense_apply({"w": lp["cross_attn"]["wq"], "b": lp["cross_attn"]["bq"]}, xn)
-        out = tfm.decode_attention(qx.reshape(B, 1, cfg.n_heads, hd), xk, xv, kv_len=x_len)
+        out = tfm.decode_attention(dist.split_heads(qx, cfg.n_heads, hd), xk, xv, kv_len=x_len)
         h = h + _mha_out(lp["cross_attn"], out, B, 1)
         h = h + _mlp(lp["mlp"], nn.layernorm_apply(lp["mlp_norm"], h))
         h = plan.act(h, "decode_hidden")

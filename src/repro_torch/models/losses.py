@@ -27,7 +27,7 @@ def softmax_cross_entropy(
     lf = dist.whole_on(logits.float(), -1)
     labels = labels.long()
     lse = torch.logsumexp(lf, dim=-1)  # (B,S)
-    label_logit = torch.gather(lf, -1, labels[..., None])[..., 0]
+    label_logit = dist.gather_last(lf, labels)
     nll = lse - label_logit
     if label_smoothing > 0.0:
         smooth = lse - lf.mean(dim=-1)

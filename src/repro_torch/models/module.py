@@ -70,8 +70,12 @@ def dense_init(
 
 
 def dense_apply(p: Params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """``x @ w (+ b)`` with ``w`` stored (in, out), as the reference stores it."""
-    y = torch.matmul(dist.rows_flattenable(x).to(compute_dtype), p["w"].to(compute_dtype))
+    """``x @ w (+ b)`` with ``w`` stored (in, out), as the reference stores it.
+    On DTensors the product's input, and the gradients of its input and its
+    output, come in layouts the product can flatten into rows and its
+    neighbours can view (``dist.rows_flattenable``, ``dist.grad_as``)."""
+    x = dist.grad_as(dist.rows_flattenable(x), keep_partial=True)
+    y = dist.grad_as(torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype)))
     if "b" in p:
         y = y + p["b"].to(compute_dtype)
     return y

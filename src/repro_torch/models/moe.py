@@ -23,6 +23,15 @@ Numerics, as the reference's:
 Attention goes through ``transformer.flash_attention`` and
 ``transformer.decode_attention``: the flash kernel (K1, its backward K2/K3
 in training) and the decode kernel (K4) on the card.
+
+Under a mesh (the sharded steps of ``runtime/``) the router runs on DTensors
+and dispatch and combine on each rank's own examples, as the reference's
+``vmap`` over the batch keeps every gather and scatter local to the data
+shard: the grouped (B, E, C, d) rows take the plan's ``grouped`` spec
+(experts over ``model``, the expert-parallel layout), each rank runs the
+expert GEMMs of its experts on its examples against those experts' weights
+(gathered over the data axes, as FSDP does), and the combine gathers the
+experts' rows back (``_dispatch_combine``).
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import losses
 from repro_torch.models import module as nn
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding import dist
 from repro_torch.sharding.plan import ShardingPlan
 
 Params = Dict[str, Any]
@@ -57,7 +67,7 @@ def router_probs(p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
 
 def top_k_gates(probs: torch.Tensor, k: int, renormalize: bool = True):
     """(values, expert ids) of the k largest probabilities of each row."""
-    vals, idx = torch.topk(probs, k, dim=-1)
+    vals, idx = dist.topk_last(probs, k)
     if renormalize:
         vals = vals / vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     return vals, idx
@@ -148,8 +158,14 @@ def sort_combine(expert_out: torch.Tensor, scatter_info: DispatchInfo, T: int) -
 
 
 def load_balance_loss(probs: torch.Tensor, expert_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
-    """Switch-style aux loss: E * sum_e fraction_e * mean_prob_e."""
-    assign = torch.bincount(expert_idx.reshape(-1).long(), minlength=n_experts).float()
+    """Switch-style aux loss: E * sum_e fraction_e * mean_prob_e.
+
+    The assignments are counted by comparing them with each expert id and
+    summing, a count of static shape: ``bincount``'s output depends on the
+    data, so it cannot be traced on fake tensors, and DTensor has no rule
+    for it."""
+    experts = torch.arange(n_experts, device=expert_idx.device)
+    assign = (expert_idx.reshape(-1, 1).long() == experts).sum(0).float()
     frac = assign / assign.sum().clamp_min(1.0)
     mean_p = probs.mean(dim=0)
     return n_experts * (frac * mean_p).sum()
@@ -209,16 +225,10 @@ def moe_ffn(
     if capacity_factor is None:
         capacity_factor = m.capacity_factor
     B, S, d = x.shape
-    probs, logits = router_probs(p, x.reshape(B * S, d))
+    probs, logits = router_probs(p, dist.rows_flattenable(x).reshape(B * S, d))
     gates, eidx = top_k_gates(probs, m.top_k)
     capacity = capacity_of(S, m.top_k, m.n_experts, capacity_factor)
-
-    grouped, info = sort_dispatch(
-        x, eidx.reshape(B, S, m.top_k), gates.reshape(B, S, m.top_k), m.n_experts, capacity, 0, m.n_experts
-    )
-    grouped = plan.act(grouped, "grouped")
-    out = plan.act(_expert_mlp(p, grouped), "grouped")
-    y = sort_combine(out, info, S)
+    y = _dispatch_combine(cfg, p, x, eidx.reshape(B, S, m.top_k), gates.reshape(B, S, m.top_k), capacity, plan)
 
     if m.n_shared:
         y = y + tfm._mlp(cfg, p["shared"], x, plan)
@@ -228,6 +238,31 @@ def moe_ffn(
         "router_z": torch.logsumexp(logits, dim=-1).square().mean(),
     }
     return y, aux
+
+
+def _dispatch_combine(cfg: ModelConfig, p: Params, x, eidx, gates, capacity: int, plan: ShardingPlan):
+    """Dispatch (B, S, d) rows to the experts, run their GEMMs and combine
+    them back to (B, S, d). On DTensors each rank runs dispatch and combine
+    on its own examples (the batch over the data axes, the rest whole), the
+    grouped rows take the ``grouped`` spec and each rank runs the GEMMs of the
+    experts it holds, whose weights come gathered over the other axes: in
+    backward their local gradients are summed over the axes that split the
+    examples (``dist.local_operand``)."""
+    m, S = cfg.moe, x.shape[1]
+    if not dist.is_dtensor(x):
+        grouped, info = sort_dispatch(x, eidx, gates, m.n_experts, capacity, 0, m.n_experts)
+        grouped = plan.act(grouped, "grouped")
+        out = plan.act(_expert_mlp(p, grouped), "grouped")
+        return sort_combine(out, info, S)
+    mesh = x.device_mesh
+    rows = dist.kernel_placements(mesh, x.shape[0], (), 0, None)
+    grouped, info = sort_dispatch(*(dist.to_local_as(t, mesh, rows) for t in (x, eidx, gates)),
+                                  m.n_experts, capacity, 0, m.n_experts)
+    grouped = plan.act(dist.from_local(grouped, mesh, rows), "grouped")
+    # the expert dim: dim 1 of the grouped rows, dim 0 of the stacked weights
+    weights = {k: dist.local_operand(p[k], grouped, {1: 0}) for k in ("e_gate", "e_up", "e_down")}
+    out = plan.act(dist.from_local(_expert_mlp(weights, grouped.to_local()), mesh, grouped.placements), "grouped")
+    return dist.from_local(sort_combine(dist.to_local_as(out, mesh, rows), info, S), mesh, rows)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
@@ -290,7 +325,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, plan: Shardi
     h = tfm.embed_tokens(cfg, params, tokens, plan)
     positions = torch.arange(S, device=h.device)
     rope = nn.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)  # once for all layers
-    cache = tfm.init_cache(cfg, B, S, h.device)
+    # under a mesh, DTensors in the cache plan's placements from the start
+    cache = {name: plan.new(shape, dt, "cache", h.device) for name, (shape, dt) in tfm.cache_spec(cfg, B, S).items()}
 
     for i, lp in enumerate(nn.unbind_layers(params["layers"])):
         xn = tfm._norm(cfg, lp["attn_norm"], h)
@@ -301,8 +337,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, plan: Shardi
         h = h + nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, S, -1))
         y, _ = moe_ffn(cfg, lp["moe"], tfm._norm(cfg, lp["mlp_norm"], h), plan)
         h = plan.act(h + y, "hidden")
-        cache["k"][i].copy_(kr)
-        cache["v"][i].copy_(v)
+        dist.write_rows(cache["k"][i], 1, 0, kr)
+        dist.write_rows(cache["v"][i], 1, 0, v)
 
     cache = {"k": plan.act(cache["k"], "cache"), "v": plan.act(cache["v"], "cache")}
     last = tfm.logits_fn(cfg, params, h[:, -1:, :], plan)[:, 0, :]
@@ -332,8 +368,8 @@ def decode_step(
         q, k, v = tfm._qkv(cfg, lp["attn"], xn, plan)
         q = nn.apply_rope(q, pos_arr, cfg.rope_theta, tables=rope)
         k = nn.apply_rope(k, pos_arr, cfg.rope_theta, tables=rope)
-        kc[:, pos : pos + 1].copy_(k)
-        vc[:, pos : pos + 1].copy_(v)
+        dist.write_rows(kc, 1, pos, k)
+        dist.write_rows(vc, 1, pos, v)
         out = tfm.decode_attention(q, kc, vc, kv_len=kv_len)
         h = h + nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, 1, -1))
         y, _ = moe_ffn(cfg, lp["moe"], tfm._norm(cfg, lp["mlp_norm"], h), plan)

@@ -163,7 +163,7 @@ def block_fwd(
 def logits_fn(cfg: ModelConfig, params: Params, h: torch.Tensor, plan: ShardingPlan):
     h = _norm(cfg, params["final_norm"], h)
     if cfg.tie_embeddings:
-        logits = F.linear(dist.rows_flattenable(h), params["embed"]["table"].to(torch.bfloat16))
+        logits = dist.grad_as(F.linear(dist.rows_flattenable(h), params["embed"]["table"].to(torch.bfloat16)))
     else:
         logits = nn.dense_apply({"w": params["lm_head"]["w_lm"]}, h)
     if cfg.logit_softcap:
@@ -246,7 +246,7 @@ def prefill(
     positions = torch.arange(S, device=h.device)
     rope = nn.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)  # once for all layers
     # under a mesh, DTensors in the cache plan's placements from the start
-    cache = {name: plan.act(leaf, "cache") for name, leaf in init_cache(cfg, B, S, h.device).items()}
+    cache = {name: plan.new(shape, dt, "cache", h.device) for name, (shape, dt) in cache_spec(cfg, B, S).items()}
 
     for i in range(cfg.n_layers):
         lp = nn.layer_params(params["layers"], i)

@@ -7,7 +7,8 @@ over DTensors placed by ``param_shardings``/``cache_shardings``
 (``sharding.dist.distribute`` places whole tensors there). The decode step
 writes its new K/V into the cache's local shards, the twin of the
 reference's donated cache. ``baseline`` and ``serve`` run DTensors through
-the dense model (another family raises, ROADMAP.md Queue 1 item 11's rest);
+the dense, vlm, moe and encdec models (another family raises, ROADMAP.md
+Queue 1 item 2);
 ``zero`` gathers the weights and runs any family on each rank's batch rows.
 """
 from __future__ import annotations

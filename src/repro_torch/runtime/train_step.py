@@ -16,8 +16,9 @@ twin of donation. Two kinds of step:
 
   * ``baseline`` and ``sp``: DTensors flow through the model, ``plan.act``
     redistributes the activations, and the attention kernels run on local
-    shards (``kernels/ops.py``). The dense family only, so far: another family
-    raises ``NotImplementedError`` (ROADMAP.md, Queue 1 item 11's rest);
+    shards (``kernels/ops.py``). The dense, vlm, moe and encdec families so
+    far: another family raises ``NotImplementedError`` (ROADMAP.md, Queue 1
+    item 2);
   * ``zero``: each step gathers the weights and runs the unchanged model on
     plain local tensors with the null plan, each device computing whole
     examples; the gradients are summed to the parameters' shards
@@ -132,16 +133,16 @@ def build_train_step(
 # ---------------------------------------------------------------------------
 
 #: families whose model runs on DTensors (the baseline, sp and serve variants)
-SHARDED_FAMILIES = ("dense",)
+SHARDED_FAMILIES = ("dense", "vlm", "moe", "encdec")
 
 
 def require_sharded_family(cfg, variant: str) -> None:
     """The variants that shard activations run DTensors through the model,
-    which the dense family takes so far; the others raise."""
+    which the families of ``SHARDED_FAMILIES`` take so far; the others raise."""
     if variant != "zero" and cfg.family not in SHARDED_FAMILIES:
         raise NotImplementedError(
-            f"variant {variant!r} under a mesh runs the dense family only; the {cfg.family} family "
-            f"({cfg.name}) runs there as 'zero' (ROADMAP.md, Queue 1 item 11's rest)"
+            f"variant {variant!r} under a mesh runs the {', '.join(SHARDED_FAMILIES)} families; the "
+            f"{cfg.family} family ({cfg.name}) runs there as 'zero' (ROADMAP.md, Queue 1 item 2)"
         )
 
 

@@ -111,6 +111,44 @@ def rows_flattenable(x):
     return x if list(x.placements) == want else x.redistribute(x.device_mesh, want)
 
 
+class _GradAs(torch.autograd.Function):
+    """The identity; in backward the gradient is brought to the placements
+    the forward value had, a partial sum made whole, or kept partial where
+    the gradient is and ``keep_partial`` says so."""
+
+    @staticmethod
+    def forward(ctx, x, keep_partial: bool):
+        from torch.distributed.tensor import Replicate
+
+        ctx.mesh, ctx.keep_partial = x.device_mesh, keep_partial
+        ctx.placements = tuple(Replicate() if pl.is_partial() else pl for pl in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        want = tuple(gp if ctx.keep_partial and gp.is_partial() else fp
+                     for gp, fp in zip(g.placements, ctx.placements))
+        return (g if tuple(g.placements) == want else g.redistribute(ctx.mesh, want)), None
+
+
+def grad_as(x, keep_partial: bool = False):
+    """``x`` (a product's input or output), whose gradient will come back in
+    ``x``'s placements, a ``Partial`` one as ``Replicate``; or ``x``, where it
+    is no DTensor in autograd. An op that meets two layouts redistributes one
+    operand inside its dispatch, where autograd does not see it, so the
+    gradient reaches the product in the op's layout: a sequence-sharded one,
+    which the product's backward cannot flatten into its rows (torch 2.11),
+    or a partial sum, on which DTensor runs the product's backward by
+    gathering the weight whole, repeating it on every rank of the axis. Here
+    the partial sum is reduced once (Megatron's all-reduce in backward).
+    ``keep_partial`` leaves a partial gradient partial (a product's input:
+    the partial sums of the products that read it add up before one
+    reduction)."""
+    if not is_dtensor(x) or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _GradAs.apply(x, keep_partial)
+
+
 def like(g, p):
     """``g`` (a gradient) in ``p``'s placements, where ``p`` is a DTensor."""
     if not is_dtensor(p):
@@ -173,11 +211,14 @@ DP_AXES = ("pod", "data")
 TP_AXIS = "model"
 
 
-def kernel_placements(mesh, batch: int, heads: Sequence[int], batch_dim: Optional[int], head_dim: int) -> list:
+def kernel_placements(mesh, batch: int, heads: Sequence[int], batch_dim: Optional[int],
+                      head_dim: Optional[int]) -> list:
     """Placements under which a kernel's work is local: the batch (tensor dim
     ``batch_dim``; None for a tensor without one) over the data axes when
-    they divide it, heads (dim ``head_dim``) over ``model`` when it divides
-    every head count given, everything else replicated."""
+    they divide it, heads (dim ``head_dim``; None for a tensor without one)
+    over ``model`` when it divides every head count given, everything else
+    replicated. With no head dim these are the placements in which each rank
+    holds whole examples."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = mesh.mesh_dim_names or ()
@@ -189,7 +230,7 @@ def kernel_placements(mesh, batch: int, heads: Sequence[int], batch_dim: Optiona
     for name in names:
         if name in dp and dp_ok and batch_dim is not None:
             out.append(Shard(batch_dim))
-        elif name == TP_AXIS and tp_ok:
+        elif name == TP_AXIS and tp_ok and head_dim is not None:
             out.append(Shard(head_dim))
         else:
             out.append(Replicate())
@@ -201,6 +242,59 @@ def to_local_as(x, mesh, placements) -> torch.Tensor:
     if list(x.placements) != list(placements):
         x = x.redistribute(mesh, placements)
     return x.to_local()
+
+
+def local_operand(w, like, dims: dict) -> torch.Tensor:
+    """The local shard of ``w`` (a DTensor) for a computation each rank runs
+    on its own part of ``like`` (a DTensor): on each mesh dim on which
+    ``like`` is sharded on a tensor dim ``d`` of ``dims``, ``w`` is sharded on
+    its dim ``dims[d]`` the same way; on the others it is whole. In backward
+    the ranks' local gradients are summed over the mesh dims on which
+    ``like`` is split on a dim ``w`` lacks (its examples), as FSDP sums them."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    want, grad = [], []
+    for pl in like.placements:
+        if pl.is_shard() and pl.dim in dims:
+            want.append(Shard(dims[pl.dim]))
+            grad.append(Shard(dims[pl.dim]))
+        else:
+            want.append(Replicate())
+            grad.append(Partial() if pl.is_shard() else Replicate())
+    if list(w.placements) != want:
+        w = w.redistribute(w.device_mesh, want)
+    return w.to_local(grad_placements=grad)
+
+
+def gather_last(x, idx):
+    """``torch.gather(x, -1, idx[..., None])[..., 0]``. Where ``x`` is a
+    DTensor whose last dim no rank splits, each rank gathers from its local
+    shard (``idx`` brought to ``x``'s placements): DTensor's own backward of
+    ``gather`` scatters into a buffer of the global shape on every rank."""
+    if not is_dtensor(x):
+        return torch.gather(x, -1, idx[..., None])[..., 0]
+    from torch.distributed.tensor import Replicate
+
+    mesh, pl = x.device_mesh, list(x.placements)
+    if not is_dtensor(idx):
+        idx = from_local(idx, mesh, [Replicate()] * mesh.ndim)
+    out = torch.gather(x.to_local(), -1, to_local_as(idx, mesh, pl)[..., None])[..., 0]
+    return from_local(out, mesh, pl)
+
+
+def topk_last(x, k: int):
+    """``torch.topk(x, k, dim=-1)``. Where ``x`` is a DTensor, on each rank's
+    local shard, with its last dim brought whole first: DTensor's cache of
+    each op's output sharding leaves ``k`` out of its key, so a ``topk`` of
+    another ``k`` on the same layout would read a stale global shape."""
+    if not is_dtensor(x):
+        return torch.topk(x, k, dim=-1)
+    from torch.distributed.tensor import Replicate
+
+    mesh, last = x.device_mesh, x.dim() - 1
+    pl = [Replicate() if p.is_shard(last) or p.is_partial() else p for p in x.placements]
+    vals, idx = torch.topk(to_local_as(x, mesh, pl), k, dim=-1)
+    return from_local(vals, mesh, pl), from_local(idx, mesh, pl)
 
 
 def from_local(x: torch.Tensor, mesh, placements):

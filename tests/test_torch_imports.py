@@ -73,6 +73,7 @@ import repro_torch.kernels.ref
 import repro_torch.kernels.rwkv6_scan
 import repro_torch.launch.collocate
 import repro_torch.launch.calibrate
+import repro_torch.launch.dryrun
 import repro_torch.launch.lowering
 import repro_torch.launch.simulate
 import repro_torch.launch.traces
@@ -98,6 +99,7 @@ import repro_torch.sharding.dist
 import repro_torch.sharding.plan
 import repro_torch.telemetry.constants
 import repro_torch.telemetry.counts
+import repro_torch.telemetry.hlo
 import repro_torch.telemetry.roofline
 
 # importing built nothing and needs no compiler

@@ -143,12 +143,12 @@ def test_families_without_sharded_activations_raise_with_their_roadmap_item():
     mesh = tplan.AbstractMesh((2, 4), ("data", "model"))
     suite = base.ShapeSuite("t", 32, 8, "train")
     opt = adamw.AdamWConfig()
-    for arch in ("olmoe-1b-7b", "zamba2-7b", "rwkv6-1.6b", "whisper-base", "llava-next-34b", "resnet_small"):
+    for arch in ("zamba2-7b", "rwkv6-1.6b", "resnet_small"):
         model = build_model(CONFIGS[arch].reduced())
         for variant in ("baseline", "sp", "serve"):
-            with pytest.raises(NotImplementedError, match="item 11's rest"):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
                 ts.jit_train_step(model, mesh, suite, opt, variant=variant)
-        with pytest.raises(NotImplementedError, match="item 11's rest"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
             serve.jit_decode_step(model, mesh, suite, variant="baseline")
 
 

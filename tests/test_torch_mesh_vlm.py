@@ -1,0 +1,28 @@
+"""The vlm family's sharded steps (llava-next-34b reduced: the patch splice
+under DTensors) on a 2 x 4 (data, model) gloo mesh, eight processes, against
+the port's single-device path (``torch_mesh_family.py`` runs them)."""
+import pytest
+
+from torch_mesh_family import check_decode, check_prefill, check_train, run_family
+
+ARCH = "llava-next-34b"
+
+
+@pytest.fixture(scope="module")
+def found(tmp_path_factory):
+    return run_family(ARCH, ARCH, tmp_path_factory.mktemp("vlm"))
+
+
+@pytest.mark.parametrize("variant", ["baseline", "sp"])
+def test_sharded_train_step_matches_single_device(found, variant):
+    check_train(found["train"], variant)
+
+
+@pytest.mark.parametrize("variant", ["baseline", "serve"])
+def test_sharded_prefill_matches_single_device(found, variant):
+    check_prefill(found["serve"], variant)
+
+
+@pytest.mark.parametrize("variant", ["baseline", "serve"])
+def test_sharded_decode_matches_single_device(found, variant):
+    check_decode(found["serve"], variant)

@@ -1,0 +1,267 @@
+"""Shared body of the per-family multi-rank files (``test_torch_mesh_vlm.py``,
+``test_torch_mesh_moe.py``, ``test_torch_mesh_encdec.py``): a family's
+sharded steps on a 2 x 4 (data, model) gloo mesh against the port's own
+single-device path, one process a rank.
+
+``run_family`` runs this file as a script in a subprocess, which spawns the
+eight ranks (``torch.multiprocessing``) over a ``FileStore`` in a temporary
+directory, so no TCP port is taken; rank 0 writes what it found as JSON. Each
+family file is its own test file, so that ``--dist loadfile`` puts them on
+different workers. The limits are the reference's (tests/test_variants.py:
+loss 3e-2, decode logits 6e-2) and ``test_torch_mesh_ranks.py``'s for the
+gradients:
+
+  * ``jit_train_step`` (baseline, sp), two steps against ``build_train_step``
+    on the same batch: the losses, the gradient norms and AdamW's first moment
+    after the first step;
+  * ``jit_prefill_step`` and ``jit_decode_step`` (baseline, serve) against the
+    single-device prefill and decode: the logits, the cache the prefill wrote,
+    the decode's new slot written in place and every other slot unchanged.
+
+The MoE family's sharded runs route by the single-device run's choices
+(``routes_recorded``), as ``chip_smoke.py`` replays them: the two paths round
+attention differently, and on the reduced configs' near-ties that flips a
+token's top-k experts, which moves everything after it by O(1).
+"""
+import contextlib
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+if str(SRC) not in sys.path:
+    sys.path.insert(0, str(SRC))
+
+MESH = (2, 4)
+TOL_LOSS, TOL_LOGITS, TOL_LOGITS_HARD = 3e-2, 6e-2, 0.25
+#: the first step's gradient norm (relative) and the relative L2 error of
+#: AdamW's first moment after it, and the second step's norm. Read: at most
+#: 1.4e-3 (olmoe under sp; 2.6e-4 for the dense family in
+#: test_torch_mesh_ranks.py, whose limit is 1e-3), 2.3e-2 and 2.2e-3
+STEP1_GRAD_NORM_RTOL, STEP1_MOMENT_RTOL, STEP2_GRAD_NORM_RTOL = 3e-3, 3e-2, 2e-2
+TIMEOUT_S = 300
+B, S_TRAIN, S_PROMPT = 8, 32, 31
+
+
+def run_family(train_arch: str, serve_arch: str, tmp: Path) -> dict:
+    """The train and serve cases of one family on the 2 x 4 mesh; rank 0's result."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, __file__, train_arch, serve_arch, str(tmp)],
+                         capture_output=True, text=True, timeout=TIMEOUT_S, env=env)
+    assert out.returncode == 0, f"stderr:\n{out.stderr[-4000:]}"
+    return json.loads((tmp / "result.json").read_text())
+
+
+# ---------------------------------------------------------------------------
+# what each rank runs
+# ---------------------------------------------------------------------------
+
+
+def _batch(cfg, suite):
+    from repro_torch.convert import from_jax_params  # numpy leaves, bfloat16 ones included
+    from repro_torch.data import synthetic
+
+    return from_jax_params(synthetic.batch_for(cfg, suite, seed=0), "cpu")
+
+
+@contextlib.contextmanager
+def routes_recorded(record: list, replay=None):
+    """Inside the block every MoE layer call appends its top-k expert ids
+    (whole) to ``record``; with ``replay`` (another run's record, one entry a
+    call in the same order) each call routes by the replayed ids, its gates
+    its own probabilities at those experts renormalized as ``top_k_gates``
+    does. A DTensor call gets the replayed ids in its own placements."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models import moe
+    from repro_torch.sharding import dist
+
+    saved = moe.top_k_gates
+    replayed = iter(replay) if replay is not None else None
+
+    def recording(probs, k, renormalize=True):
+        vals, idx = saved(probs, k, renormalize)
+        record.append(dist.full(idx))
+        if replayed is None:
+            return vals, idx
+        forced = next(replayed)
+        if dist.is_dtensor(idx):
+            forced = distribute_tensor(forced, idx.device_mesh, idx.placements)
+        vals = torch.gather(probs, -1, forced)
+        if renormalize:
+            vals = vals / vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+        return vals, forced
+
+    moe.top_k_gates = recording
+    try:
+        yield
+    finally:
+        moe.top_k_gates = saved
+
+
+def _two_steps(step, state, batch):
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.sharding import dist
+
+    res, moments = {"loss": [], "grad_norm": []}, []
+    for _ in range(2):
+        state, m = step(state, batch)
+        res["loss"].append(float(m["loss"]))
+        res["grad_norm"].append(float(m["grad_norm"]))
+        moments.append([dist.full(mu).detach().float().clone() for mu in tree_leaves(state["opt"].m)])
+    return res, moments
+
+
+def _rel_l2(got, want) -> float:
+    errs = []
+    for g, w in zip(got, want):
+        ref, diff = float(w.norm()), float((g - w).norm())
+        errs.append(diff / ref if ref > 0 else diff)
+    return max(errs)
+
+
+def case_train(mesh, arch: str) -> dict:
+    from repro_torch.configs.base import ShapeSuite
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model_api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_step as ts
+    from repro_torch.sharding import dist
+    from repro_torch.sharding.plan import make_plan
+
+    opt = adamw.AdamWConfig(warmup_steps=0, total_steps=10)
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    suite = ShapeSuite("t", S_TRAIN, B, "train")
+    batch = _batch(cfg, suite)
+    init = lambda: ts.init_train_state(model, torch.Generator().manual_seed(0), opt, "cpu")  # noqa: E731
+    routes = []
+    with routes_recorded(routes):
+        res, want = _two_steps(ts.build_train_step(model, make_plan(cfg, None), opt), init(), batch)
+    found = {"single": res}
+    for variant in ("baseline", "sp"):
+        step, st_sh, b_sh, _ = ts.jit_train_step(model, mesh, suite, opt, variant=variant)
+        with routes_recorded([], routes):
+            res, got = _two_steps(step, dist.distribute(init(), st_sh), dist.distribute(batch, b_sh))
+        found[variant] = dict(res, moment_err=[_rel_l2(g, w) for g, w in zip(got, want)])
+    return found
+
+
+def case_serve(mesh, arch: str) -> dict:
+    from repro_torch.configs.base import ShapeSuite
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model_api import build_model
+    from repro_torch.runtime import serve_step as serve
+    from repro_torch.sharding import dist
+    from repro_torch.sharding.plan import make_plan
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    plan0 = make_plan(cfg, None)
+    prompt = _batch(cfg, ShapeSuite("p", S_PROMPT, B, "prefill"))
+    prompt.pop("labels", None)
+    prefill_routes, decode_routes = [], []
+    with torch.no_grad(), routes_recorded(prefill_routes):
+        last, cache = model.prefill(params, prompt, plan0)
+    cache = serve.pad_cache(cache, 1)
+    tok = torch.argmax(last, -1).to(torch.int32)
+    written = {k: v.clone() for k, v in cache.items()}
+    with torch.no_grad(), routes_recorded(decode_routes):
+        want, _ = model.decode(params, {"token": tok}, written, S_PROMPT, plan0)
+    self_kv = ("k", "v")
+    out = {}
+    for variant in ("baseline", "serve"):
+        step, p_sh, b_sh, _ = serve.jit_prefill_step(model, mesh, ShapeSuite("p", S_PROMPT, B, "prefill"),
+                                                     variant=variant)
+        with routes_recorded([], prefill_routes):
+            got, c = step(dist.distribute(params, p_sh), dist.distribute(prompt, b_sh))
+        diff = (got.full_tensor().float() - last.float()).abs()
+        out["prefill_" + variant] = {
+            "logits_err": float(diff.max()), "beyond": float((diff > TOL_LOGITS).float().mean()),
+            "cache_err": max(float((c[n].full_tensor().float() - cache[n][:, :, :c[n].shape[2]].float()).abs().max())
+                             for n in c)}
+        step, p_sh, tok_sh, c_sh, _ = serve.jit_decode_step(model, mesh, ShapeSuite("d", S_PROMPT + 1, B, "decode"),
+                                                            variant=variant)
+        c = dist.distribute({k: v.clone() for k, v in cache.items()}, c_sh)
+        with routes_recorded([], decode_routes):
+            logits, _ = step(dist.distribute(params, p_sh), dist.distribute({"token": tok}, tok_sh), c)
+        diff = (logits.full_tensor().float() - want.float()).abs()
+        out["decode_" + variant] = {
+            "logits_err": float(diff.max()), "beyond": float((diff > TOL_LOGITS).float().mean()),
+            "slot_err": max(float((c[n].full_tensor()[:, :, S_PROMPT].float()
+                                   - written[n][:, :, S_PROMPT].float()).abs().max()) for n in self_kv),
+            "others_equal": all(bool(torch.equal(c[n].full_tensor()[:, :, :S_PROMPT], cache[n][:, :, :S_PROMPT]))
+                                for n in self_kv)
+            and all(bool(torch.equal(c[n].full_tensor(), cache[n])) for n in c if n not in self_kv),
+        }
+    return out
+
+
+def _rank_main(rank: int, train_arch: str, serve_arch: str, tmp: str) -> None:
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_mesh_shape
+
+    torch.set_num_threads(1)
+    world = int(np.prod(MESH))
+    tdist.init_process_group("gloo", store=tdist.FileStore(os.path.join(tmp, "store"), world), rank=rank,
+                             world_size=world)
+    try:
+        mesh = make_mesh_shape(MESH, ("data", "model"), device="cpu")
+        result = {"train": case_train(mesh, train_arch), "serve": case_serve(mesh, serve_arch)}
+        if rank == 0:
+            Path(tmp, "result.json").write_text(json.dumps(result))
+    finally:
+        tdist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the checks each family file makes
+# ---------------------------------------------------------------------------
+
+
+def check_train(found: dict, variant: str) -> None:
+    got, want = found[variant], found["single"]
+    assert all(np.isfinite(got["loss"])) and len(got["loss"]) == 2
+    for a, b in zip(got["loss"], want["loss"]):
+        assert abs(a - b) < TOL_LOSS, (variant, got, want)
+    assert abs(got["grad_norm"][0] - want["grad_norm"][0]) <= STEP1_GRAD_NORM_RTOL * want["grad_norm"][0], \
+        (variant, got, want)
+    assert got["moment_err"][0] < STEP1_MOMENT_RTOL, (variant, got)
+    assert abs(got["grad_norm"][1] - want["grad_norm"][1]) <= STEP2_GRAD_NORM_RTOL * want["grad_norm"][1], \
+        (variant, got, want)
+
+
+def _logits_within(r: dict, outliers: float) -> None:
+    """Every logit within TOL_LOGITS; or, with ``outliers`` > 0, all but that
+    share of them, and none beyond TOL_LOGITS_HARD."""
+    if outliers:
+        assert r["beyond"] <= outliers and r["logits_err"] < TOL_LOGITS_HARD, r
+    else:
+        assert r["logits_err"] < TOL_LOGITS, r
+
+
+def check_prefill(found: dict, variant: str, outliers: float = 0.0) -> None:
+    r = found["prefill_" + variant]
+    _logits_within(r, outliers)
+    assert r["cache_err"] < TOL_LOGITS, r
+
+
+def check_decode(found: dict, variant: str, outliers: float = 0.0) -> None:
+    r = found["decode_" + variant]
+    _logits_within(r, outliers)
+    assert r["slot_err"] < TOL_LOGITS and r["others_equal"], r
+
+
+if __name__ == "__main__":
+    import torch.multiprocessing as mp
+
+    train_arch, serve_arch, tmp = sys.argv[1], sys.argv[2], sys.argv[3]
+    mp.spawn(_rank_main, args=(train_arch, serve_arch, tmp), nprocs=int(np.prod(MESH)), join=True)
