@@ -34,7 +34,11 @@ weights from a seed:
     moe and encdec families' sharded steps the same way (phase_mesh_families:
     llava-next-34b, olmoe-1b-7b and whisper-base training, baseline and sp;
     deepseek-moe-16b and whisper-base prefill and decode, baseline and
-    serve);
+    serve), then the hybrid, rwkv and resnet families' (phase_mesh_recurrent:
+    zamba2-7b training at depth 4 and serving at depth 6, rwkv6-1.6b serving
+    at full size, K5 on each rank's heads and batch rows, resnet_small's
+    step; a sharded rwkv6 train step on the card must raise, K5 having no
+    backward);
   * the multi-pod dry-run (phase_dryrun) -- ``python -m repro_torch.launch.
     dryrun`` for granite-3-2b train_4k on a fake 256-rank group and for
     deepseek-moe-16b decode_32k on a fake 512-rank group, in processes of
@@ -2097,43 +2101,46 @@ def mesh_family_serve(cfg, mesh, prompt: int) -> dict:
     prefill_routes: list = []
     decode_routes: list = []
     with torch.no_grad():
-        fa.launch_count = 0
+        fa.launch_count = rk.launch_count = 0
         with routed(prefill_routes):
             last, cache = model.prefill(params, batch, plan0)
-        prefill_k1 = fa.launch_count
+        prefill_k1, prefill_k5 = fa.launch_count, rk.launch_count
         cache = pad_cache(cache, 1)
         tok = torch.argmax(last, -1).to(torch.int32)
-        one_decode = lambda: model.decode(params, {"token": tok}, cache, prompt, plan0)  # noqa: E731
+        # each decode call on a copy of the prefill's cache: a K/V write
+        # rewrites one slot, but a recurrent state advances at every call
+        fresh = lambda: {k: v.clone() for k, v in cache.items()}  # noqa: E731
         with routed(decode_routes):
-            one_decode()  # warm-up; each call writes the same slot
+            model.decode(params, {"token": tok}, fresh(), prompt, plan0)  # warm-up
+            c = fresh()
             da.launch_count = 0
-            (want, _), host_ms, device_ms = timed(one_decode)
+            (want, _), host_ms, device_ms = timed(lambda: model.decode(params, {"token": tok}, c, prompt, plan0))
         decode_k4 = da.launch_count
     out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": BATCH, "prompt": prompt,
            "routing_replayed": cfg.family == "moe",
-           "single": {"prefill_k1": prefill_k1, "decode_k4": decode_k4, "decode_ms": host_ms,
-                      "decode_device_ms": device_ms}}
+           "single": {"prefill_k1": prefill_k1, "prefill_k5": prefill_k5, "decode_k4": decode_k4,
+                      "decode_ms": host_ms, "decode_device_ms": device_ms}}
     for variant in ("baseline", "serve"):
         pstep, p_sh, b_sh, _ = serve_step.jit_prefill_step(model, mesh, ShapeSuite("p", prompt, BATCH, "prefill"),
                                                            variant=variant)
-        fa.launch_count = 0
+        fa.launch_count = rk.launch_count = 0
         with routed([], prefill_routes):
             got_last, _ = pstep(dist.distribute(params, p_sh), dist.distribute(batch, b_sh))
-        k1 = fa.launch_count
+        k1, k5 = fa.launch_count, rk.launch_count
         dstep, p_sh, tok_sh, c_sh, _ = serve_step.jit_decode_step(
             model, mesh, ShapeSuite("d", prompt + 1, BATCH, "decode"), variant=variant)
-        args = (dist.distribute(params, p_sh), dist.distribute({"token": tok}, tok_sh),
-                dist.distribute({k: v.clone() for k, v in cache.items()}, c_sh))
+        args = (dist.distribute(params, p_sh), dist.distribute({"token": tok}, tok_sh))
         with routed([], decode_routes):
-            dstep(*args)  # warm-up (DTensor's sharding rules are cached at first use)
+            dstep(*args, dist.distribute(fresh(), c_sh))  # warm-up (DTensor's sharding rules are cached at first use)
+            c = dist.distribute(fresh(), c_sh)
             da.launch_count = 0
-            (logits, _), d_host_ms, d_device_ms = timed(lambda: dstep(*args))
-        out[variant] = {"prefill_k1": k1, "decode_k4": da.launch_count,
+            (logits, _), d_host_ms, d_device_ms = timed(lambda: dstep(*args, c))
+        out[variant] = {"prefill_k1": k1, "prefill_k5": k5, "decode_k4": da.launch_count,
                         "prefill_logits_max_abs_err": max_err(got_last.full_tensor(), last),
                         "decode_logits_max_abs_err": max_err(logits.full_tensor(), want),
                         "decode_ms": d_host_ms, "decode_device_ms": d_device_ms,
                         "decode_ms_over_single": d_host_ms / host_ms}
-        del args, got_last, logits
+        del args, c, got_last, logits
         torch.cuda.empty_cache()
     del params, cache
     torch.cuda.empty_cache()
@@ -2169,13 +2176,148 @@ def phase_mesh_families() -> dict:
             require(rec[variant]["launches_per_step"] == want,
                     f"{arch} {variant}: (K1, K2, K3) a step {rec[variant]['launches_per_step']}, single {want}")
             require(rec[variant]["loss_abs_err"] <= TOL_LOSS, f"{arch} {variant}: {rec[variant]} vs {rec['single']}")
-    for arch, rec in out["serve"].items():
+    require_mesh_serve(out["serve"])
+    return out
+
+
+def require_mesh_serve(served: dict) -> None:
+    """Each sharded prefill and decode step launched K1, K5 (prefill) and K4
+    (decode) as often as the single device's, its logits within TOL_MESH_LOGITS."""
+    for arch, rec in served.items():
+        want = tuple(rec["single"][k] for k in ("prefill_k1", "prefill_k5", "decode_k4"))
         for variant in ("baseline", "serve"):
             r = rec[variant]
-            require((r["prefill_k1"], r["decode_k4"]) == (rec["single"]["prefill_k1"], rec["single"]["decode_k4"]),
-                    f"{arch} {variant}: (K1 prefill, K4 decode) launches {r}, single {rec['single']}")
+            require(tuple(r[k] for k in ("prefill_k1", "prefill_k5", "decode_k4")) == want,
+                    f"{arch} {variant}: (K1, K5 prefill, K4 decode) launches {r}, single {rec['single']}")
             require(max(r["prefill_logits_max_abs_err"], r["decode_logits_max_abs_err"]) <= TOL_MESH_LOGITS,
                     f"{arch} {variant} logits: {r}")
+
+
+# the recurrent families and ResNet under the sharded steps
+# (phase_mesh_recurrent): zamba2-7b served at full width and
+# ZAMBA_MESH_LAYERS layers in groups of ZAMBA_MESH_EVERY (two applications of
+# the shared attention block), and a sharded rwkv6-1.6b train step on the
+# card (RWKV_TRAIN_RAISES: layers, batch, seq), which must raise
+ZAMBA_MESH_LAYERS, ZAMBA_MESH_EVERY = 6, 3
+RWKV_TRAIN_RAISES = (1, 2, 256)
+
+
+def mesh_resnet_train(arch, mesh) -> dict:
+    """One step of ``arch`` at full size and batch RESNET_BATCH (f32, TF32
+    off, as the launcher runs it), ``build_train_step`` and ``jit_train_step``
+    (baseline, sp) from one seeded init and batch: the loss's relative error
+    and the largest relative L2 error of a leaf of AdamW's first moment (the
+    clipped gradient, scaled) against the single device's; and each run's
+    first moment, brought to the gradient's global norm, against the same
+    step's gradient on the CPU in float64 (the trio's yardstick)."""
+    from repro_torch.optim import adamw
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    opt_cfg = adamw.AdamWConfig(warmup_steps=1, total_steps=10)
+    batch = resnet_batch(cfg, DEV)
+    suite = ShapeSuite("paper", cfg.img_size**2, RESNET_BATCH, "train")
+    init = lambda: train_step.init_train_state(model, torch.Generator(device=DEV).manual_seed(0), opt_cfg, DEV)  # noqa: E731
+    names = ["/".join(path) for path, _ in tree_paths(model.init(torch.Generator(device="cpu"), "meta"))]
+    params64 = tree_map(lambda x: x.detach().cpu().double(), init()["params"])
+    loss64, grads64 = resnet_grads(model, params64, {"images": batch["images"].cpu().double(),
+                                                     "labels": batch["labels"].cpu()})
+    norm64 = torch.stack([g.square().sum() for g in grads64]).sum().sqrt()
+
+    def vs_float64(moments) -> dict:
+        scale = norm64 / torch.stack([dist.full(m).double().cpu().square().sum() for m in moments]).sum().sqrt()
+        errs = {n: rel_l2(dist.full(m).double().cpu() * scale, g)[0] for n, m, g in zip(names, moments, grads64)}
+        worst = max(errs, key=errs.get)
+        return {"moment_vs_float64_rel_l2_max": errs[worst], "moment_vs_float64_worst_leaf": worst}
+
+    out = {"arch": arch, "batch": RESNET_BATCH, "loss_float64": loss64.item()}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False):
+        (state, m), host_ms, _ = timed(lambda: train_step.build_train_step(model, make_plan(cfg, None), opt_cfg)(
+            init(), batch))
+        loss, moments = float(m["loss"]), [x.detach().clone() for x in tree_leaves(state["opt"].m)]
+        out["single"] = dict(loss=loss, step_ms=host_ms, **vs_float64(moments))
+        del state
+        for variant in ("baseline", "sp"):
+            step, st_sh, b_sh, _ = train_step.jit_train_step(model, mesh, suite, opt_cfg, variant=variant)
+            (state, m), host_ms, _ = timed(lambda: step(dist.distribute(init(), st_sh), dist.distribute(batch, b_sh)))
+            got = list(tree_leaves(state["opt"].m))
+            errs = {n: rel_l2(dist.full(g), w)[0] for n, g, w in zip(names, got, moments)}
+            worst = max(errs, key=errs.get)
+            out[variant] = dict(loss=float(m["loss"]), loss_rel_err=abs(float(m["loss"]) - loss) / abs(loss),
+                                moment_rel_l2_max=errs[worst], moment_rel_l2_worst_leaf=worst, step_ms=host_ms,
+                                **vs_float64(got))
+            del state, step, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rwkv_train_raises(mesh) -> dict:
+    """A sharded rwkv6 train step (full width, RWKV_TRAIN_RAISES) on the card:
+    K5 has no backward (nor has the reference's kernel), so the step raises
+    at its first scan, launching nothing, rather than scanning some other way."""
+    from repro_torch.optim import adamw
+
+    layers, batch_size, seq = RWKV_TRAIN_RAISES
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), n_layers=layers)
+    model = build_model(cfg)
+    opt_cfg = adamw.AdamWConfig()
+    suite = ShapeSuite("t", seq, batch_size, "train")
+    step, st_sh, b_sh, _ = train_step.jit_train_step(model, mesh, suite, opt_cfg)
+    state = dist.distribute(train_step.init_train_state(model, torch.Generator(device=DEV).manual_seed(0), opt_cfg,
+                                                        DEV), st_sh)
+    batch = dist.distribute(from_jax_params(synthetic.batch_for(cfg, suite, seed=0), DEV), b_sh)
+    rk.launch_count = 0
+    try:
+        step(state, batch)
+        error = None
+    except NotImplementedError as e:
+        error = str(e)
+    del state, batch, step
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": layers, "batch": batch_size, "seq": seq, "raised": error,
+            "k5_launches": rk.launch_count}
+
+
+def phase_mesh_recurrent() -> dict:
+    """phase_mesh for the hybrid, rwkv and resnet families, under NCCL at
+    world 1 (one process on card 0, a 1 x 1 mesh), each sharded step held
+    against its single-device step from one seeded init and batch: zamba2-7b
+    training (baseline, sp) at full width and depth ZAMBA_TRAIN_LAYERS (K1-K3,
+    losses within TOL_LOSS); zamba2-7b at full width and ZAMBA_MESH_LAYERS
+    layers and rwkv6-1.6b at full size served (baseline, serve; K1 and K5 in
+    the prefill, K4 in the decode step, logits within TOL_MESH_LOGITS);
+    resnet_small training (baseline, sp; the trio's limits, TOL_RESNET_LOSS
+    and TOL_RESNET_GRAD); and a sharded rwkv6 train step, which must raise
+    K5's "no backward" error. Launches equal the single device's."""
+    out = {"train": {}, "serve": {}}
+    with mesh_world_1() as mesh:
+        zamba = zamba_train_config()
+        out["train"][zamba.name] = mesh_family_train(zamba, mesh, TRAIN_BATCH, TRAIN_SEQ)
+        torch.cuda.empty_cache()
+        for c in (dataclasses.replace(get_config(ZAMBA_ARCH), n_layers=ZAMBA_MESH_LAYERS, attn_every=ZAMBA_MESH_EVERY),
+                  get_config(RWKV_ARCH)):
+            out["serve"][c.name] = mesh_family_serve(c, mesh, PROMPT)
+            torch.cuda.empty_cache()
+        out["resnet"] = mesh_resnet_train(RESNET_ARCHS[0], mesh)
+        out["rwkv_train"] = mesh_rwkv_train_raises(mesh)
+    emit("mesh_recurrent", **out)
+    for arch, rec in out["train"].items():
+        want = rec["single"]["launches_per_step"]
+        for variant in ("baseline", "sp"):
+            require(rec[variant]["launches_per_step"] == want,
+                    f"{arch} {variant}: (K1, K2, K3) a step {rec[variant]['launches_per_step']}, single {want}")
+            require(rec[variant]["loss_abs_err"] <= TOL_LOSS, f"{arch} {variant}: {rec[variant]} vs {rec['single']}")
+    require_mesh_serve(out["serve"])
+    rwkv_k5 = out["serve"][RWKV_ARCH]["baseline"]["prefill_k5"]
+    require(rwkv_k5 == get_config(RWKV_ARCH).n_layers, f"rwkv6's sharded prefill launched K5 {rwkv_k5} times")
+    for variant in ("baseline", "sp"):
+        r = out["resnet"][variant]
+        require(r["loss_rel_err"] <= TOL_RESNET_LOSS and r["moment_rel_l2_max"] <= TOL_RESNET_GRAD
+                and r["moment_vs_float64_rel_l2_max"] <= TOL_RESNET_GRAD,
+                f"resnet {variant}: {r} vs {out['resnet']['single']}")
+    r = out["rwkv_train"]
+    require(r["raised"] is not None and "no backward" in r["raised"] and r["k5_launches"] == 0,
+            f"a sharded rwkv6 train step on the card did not raise K5's error: {r}")
     return out
 
 
@@ -3155,6 +3297,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     families = phase_mesh_families()
     torch.cuda.empty_cache()
+    recurrent = phase_mesh_recurrent()
+    torch.cuda.empty_cache()
     phase_dryrun(cfg)
     torch.cuda.empty_cache()
     slm_train = stablelm_train_config()
@@ -3221,6 +3365,9 @@ def main() -> None:
     mesh_train = [{a: r["baseline"]["launches_per_step"][0][i] for a, r in families["train"].items()} for i in range(3)]
     mesh_prefill = {a: r["baseline"]["prefill_k1"] for a, r in families["serve"].items()}
     mesh_decode = {a: r["baseline"]["decode_k4"] for a, r in families["serve"].items()}
+    rec_train = [{a: r["baseline"]["launches_per_step"][0][i] for a, r in recurrent["train"].items()} for i in range(3)]
+    rec_prefill = {a: r["baseline"]["prefill_k1"] for a, r in recurrent["serve"].items() if r["baseline"]["prefill_k1"]}
+    rec_decode = {a: r["baseline"]["decode_k4"] for a, r in recurrent["serve"].items() if r["baseline"]["decode_k4"]}
     slm_served = served[slm_cfg.name]["launches"]
     slm_k1, slm_k2, slm_k3 = slm_step["launches"]
     emit("wall", seconds=time.perf_counter() - t0)
@@ -3236,25 +3383,29 @@ def main() -> None:
                        launches_train=zamba_step["launches"][0]),
              launches_serve=served_by["flash_attention_fwd"], launches_one_step=stepped_by[0],
              launches_mesh_step=mesh_step[0], launches_mesh_prefill=meshed["serve"]["baseline"]["prefill_k1"],
-             launches_mesh_train=mesh_train[0], launches_mesh_prefill_families=mesh_prefill),
+             launches_mesh_train=mesh_train[0], launches_mesh_prefill_families=mesh_prefill,
+             launches_mesh_train_recurrent=rec_train[0], launches_mesh_prefill_recurrent=rec_prefill),
         dict(row(decode, "src/repro_torch/kernels/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:126", served[cfg.name]["launches"]["decode_attention"]),
              launches_calibrate_kernel=calib_k["decode_attention"]["launches"],
              d160=at160("decode_attention", slm_served["decode_attention"]),
              d112=at_dim(d112, "decode_attention", served[ZAMBA_ARCH]["launches"]["decode_attention"]),
              launches_serve=served_by["decode_attention"], launches_mesh_decode=meshed["serve"]["baseline"]["decode_k4"],
-             launches_mesh_decode_families=mesh_decode),
+             launches_mesh_decode_families=mesh_decode, launches_mesh_decode_recurrent=rec_decode),
         dict(row(dkv, bwd_src, dkv["replaces"], trained["launches"]["flash_attention_bwd_dkv"]),
              d160=at160("flash_attention_bwd_dkv", slm_k2),
              d112=at_dim(d112, "flash_attention_bwd_dkv", zamba_step["launches"][1]), launches_one_step=stepped_by[1],
-             launches_mesh_step=mesh_step[1], launches_mesh_train=mesh_train[1]),
+             launches_mesh_step=mesh_step[1], launches_mesh_train=mesh_train[1],
+             launches_mesh_train_recurrent=rec_train[1]),
         dict(row(dq, bwd_src, dq["replaces"], trained["launches"]["flash_attention_bwd_dq"]),
              d160=at160("flash_attention_bwd_dq", slm_k3),
              d112=at_dim(d112, "flash_attention_bwd_dq", zamba_step["launches"][2]), launches_one_step=stepped_by[2],
-             launches_mesh_step=mesh_step[2], launches_mesh_train=mesh_train[2]),
+             launches_mesh_step=mesh_step[2], launches_mesh_train=mesh_train[2],
+             launches_mesh_train_recurrent=rec_train[2]),
         dict(row(wkv, "src/repro_torch/kernels/csrc/wkv6_scan.cu", wkv["replaces"],
                  served_rwkv["launches"]["wkv6_scan"]),
              launches_calibrate_kernel=calib_k["wkv6"]["launches"],
+             launches_mesh_prefill=recurrent["serve"][RWKV_ARCH]["baseline"]["prefill_k5"],
              pytorch_yardstick_ms=wkv["chunked_ms"], pytorch_yardstick="models.rwkv6.wkv_chunked"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -141,11 +141,17 @@ def wkv6(
     autograd would have to differentiate raises (in ``rk.wkv6_scan``) rather
     than computing the gradient some other way.
     """
-    if dist.is_dtensor(r):
-        mesh = r.device_mesh
-        B, H = r.shape[0], r.shape[2]
-        seq, bonus, state = (dist.kernel_placements(mesh, B, (H,), bd, hd) for bd, hd in ((0, 2), (None, 0), (0, 1)))
-        out, st = rk.wkv6_scan(*(dist.to_local_as(x, mesh, seq) for x in (r, k, v, logw)),
-                               dist.to_local_as(u, mesh, bonus), dist.to_local_as(state0, mesh, state), chunk=chunk)
-        return dist.from_local(out, mesh, seq), dist.from_local(st, mesh, state)
-    return rk.wkv6_scan(r, k, v, logw, u, state0, chunk=chunk)
+    return wkv6_on_shards(rk.wkv6_scan, r, k, v, logw, u, state0, chunk=chunk)
+
+
+def wkv6_on_shards(scan, r, k, v, logw, u, state0, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``scan(r, k, v, logw, u, state0, **kw)`` (the kernel, or a plain
+    version of it); on DTensors, on each rank's batch rows and heads with the
+    sequence whole (``dist.on_shards``), ``out`` back in that layout and the
+    state batch over the data axes and heads over ``model``. The bonus ``u``
+    takes the same heads, its gradient (a plain version's) summed over the
+    ranks that split the batch."""
+    whole, state = {0: 0, 1: 1, 2: 2, 3: 3}, {0: 0, 2: 1}
+    return dist.on_shards(lambda *a: scan(*a, **kw), r,
+                          [(r, whole), (k, whole), (v, whole), (logw, whole), (u, {2: 0}), (state0, state)],
+                          [whole, state], head_dim=2)

@@ -14,6 +14,15 @@ chunks of each layer. The shared attention block goes through
 ``transformer.flash_attention`` and ``transformer.decode_attention``: the
 flash kernel (K1) and the decode kernel (K4) on the card, at zamba2's head
 dim of 112.
+
+Under a mesh (DTensors) the chunked scan runs on each rank's batch rows and
+heads, the sequence whole (``_ssd_on_shards``): under ``sp`` the
+in-projection gathers the sequence, as every product does
+(``dist.rows_flattenable``), so the causal conv and the scan see it whole,
+and ``w_out``'s partial sums are reduced back to the sequence-sharded stream
+by the plan's ``"hidden"`` constraint. The prefill writes the shared block's
+K/V on each rank's shard (``dist.write_rows``) and decode writes the states
+and conv tails in place (``dist.write``).
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import losses
 from repro_torch.models import module as nn
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding import dist
 from repro_torch.sharding.plan import ShardingPlan
 
 Params = Dict[str, Any]
@@ -84,6 +94,17 @@ def ssd_chunked(
         ys.append(y)
     y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B_, T, H, P)
     return y, S
+
+
+def _ssd_on_shards(x, dt, A, Bm, Cm, state0, chunk: int):
+    """``ssd_chunked``; on DTensors, on each rank's batch rows and heads with
+    the sequence whole (``dist.on_shards``); ``B`` and ``C``, which every
+    head reads, whole on ``model``, their gradients summed over its ranks."""
+    same, rows = {0: 0, 1: 1, 2: 2, 3: 3}, {0: 0, 1: 1}
+    return dist.on_shards(lambda *a: ssd_chunked(*a, chunk=chunk), x,
+                          [(x, same), (dt, {0: 0, 1: 1, 2: 2}), (A, {2: 0}), (Bm, rows), (Cm, rows),
+                           (state0, {0: 0, 2: 1})],
+                          [same, {0: 0, 2: 1}], head_dim=2)
 
 
 def ssd_step(x, dt, A, Bm, Cm, state):
@@ -169,7 +190,7 @@ def mamba_seq(
     dtv = F.softplus(dt.float() + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"])
     xh = plan.act(xin.reshape(B, T, H, P), "heads")
-    y, state = ssd_chunked(xh, dtv, A, Bc, Cc, state0, chunk=cfg.ssm.chunk)
+    y, state = _ssd_on_shards(xh, dtv, A, Bc, Cc, state0, chunk=cfg.ssm.chunk)
     y = y + p["D"][None, None, :, None] * xh.float()
     y = y.reshape(B, T, d_inner).to(torch.bfloat16)
     y = nn.rmsnorm_apply(p["out_norm"], y) * F.silu(z.float()).to(torch.bfloat16)
@@ -301,24 +322,29 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, plan: Shardi
     state0 = _zero_state(cfg, B, h.device)
     positions = torch.arange(T, device=h.device)
     rope = nn.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    cache = {name: torch.empty(shape, dtype=dt, device=h.device)
-             for name, (shape, dt) in cache_spec(cfg, B, T).items()}
+    spec = cache_spec(cfg, B, T)
+    # under a mesh the K/V caches are DTensors in the cache plan's placements
+    # from the start, each rank writing its shard (``dist.write_rows``)
+    cache = {name: plan.new(shape, dt, "cache", h.device, init="empty")
+             for name, (shape, dt) in spec.items() if name in ("attn_k", "attn_v")}
+    states, tails = [], []
 
     layers = nn.unbind_layers(params["layers"])
     start = 0
     for g, size in enumerate(_group_sizes(cfg)):
         if cfg.attn_every:
             h, kr, v = _attn_prefill_block(cfg, params["shared_attn"], h, plan, positions, rope)
-            cache["attn_k"][g].copy_(kr)
-            cache["attn_v"][g].copy_(v)
+            dist.write_rows(cache["attn_k"][g], 1, 0, kr)
+            dist.write_rows(cache["attn_v"][g], 1, 0, v)
         for i in range(start, start + size):
             y, state, tail = mamba_seq(cfg, layers[i], h, plan, state0)
             h = plan.act(h + y, "hidden")
-            cache["ssm"][i].copy_(state)
-            cache["conv"][i].copy_(tail)
+            states.append(state)
+            tails.append(tail)
         start += size
 
-    cache["ssm"] = plan.act(cache["ssm"], "state")
+    cache["ssm"] = plan.act(torch.stack(states), "state")
+    cache["conv"] = torch.stack(tails)
     for name in ("attn_k", "attn_v"):
         if name in cache:
             cache[name] = plan.act(cache[name], "cache")
@@ -349,8 +375,8 @@ def decode_step(cfg, params, token, cache, pos: Union[int, torch.Tensor], plan: 
             q = nn.apply_rope(q, pos_arr, cfg.rope_theta, tables=rope)
             k = nn.apply_rope(k, pos_arr, cfg.rope_theta, tables=rope)
             kc, vc = cache["attn_k"][g], cache["attn_v"][g]
-            kc[:, pos : pos + 1].copy_(k)
-            vc[:, pos : pos + 1].copy_(v)
+            dist.write_rows(kc, 1, pos, k)
+            dist.write_rows(vc, 1, pos, v)
             out = tfm.decode_attention(q, kc, vc, kv_len=kv_len)
             xs = xs + nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, 1, -1))
             xs = xs + tfm._mlp(cfg, lp["mlp"], tfm._norm(cfg, lp["mlp_norm"], xs), plan)
@@ -359,8 +385,8 @@ def decode_step(cfg, params, token, cache, pos: Union[int, torch.Tensor], plan: 
             st, tail = cache["ssm"][i], cache["conv"][i]
             y, st2, tail2 = mamba_step(cfg, layers[i], x, st, tail)
             x = x + y
-            st.copy_(st2)
-            tail.copy_(tail2)
+            dist.write(st, st2)
+            dist.write(tail, tail2)
         start += size
 
     logits = tfm.logits_fn(cfg, params, x[:, None, :], plan)[:, 0, :]

@@ -93,7 +93,7 @@ def rmsnorm_init(d: int, *, device, dtype=torch.float32, stack: Sequence[int] = 
 
 def rmsnorm_apply(p: Params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    var = dist.reduced(xf.square().mean(dim=-1, keepdim=True))
     y = xf * torch.rsqrt(var + eps) * p["scale"].float()
     return y.to(x.dtype)
 
@@ -107,8 +107,8 @@ def layernorm_init(d: int, *, device, dtype=torch.float32, stack: Sequence[int] 
 
 def layernorm_apply(p: Params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    mean = dist.reduced(xf.mean(dim=-1, keepdim=True))
+    var = dist.reduced(xf.var(dim=-1, keepdim=True, unbiased=False))
     y = (xf - mean) * torch.rsqrt(var + eps)
     y = y * p["scale"].float() + p["bias"].float()
     return y.to(x.dtype)

@@ -42,6 +42,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeSuite
 from repro_torch.models import module as nn
 from repro_torch.models.model_api import Model
+from repro_torch.sharding import dist
 from repro_torch.sharding.plan import ShardingPlan
 
 Params = Dict[str, Any]
@@ -73,11 +74,24 @@ def conv_init(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int, devic
     return {"w": nn.trunc_normal(gen, (kh, kw, cin, cout), std, dtype, device)}
 
 
+def _on_rows(fn, x: torch.Tensor, *weights: torch.Tensor) -> torch.Tensor:
+    """``fn(x, *weights)``; where ``x`` is a DTensor, on each rank's own
+    images, the weights whole, their gradients summed over the ranks that
+    split the batch (``dist.on_shards``): DTensor's convolution rule
+    (``torch.distributed.tensor._tp_conv``) splits the input's last spatial
+    dim only, and it has no rule for a max-pool."""
+    return dist.on_shards(lambda *a: (fn(*a),), x, [(x, {0: 0})] + [(w, {}) for w in weights], [{0: 0}])[0]
+
+
 def conv_apply(p: Params, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """NHWC ``x`` convolved with the HWIO kernel ``p["w"]``, ``"SAME"``
     padding, NHWC out. Symmetric padding goes to the convolution itself, an
     asymmetric one to ``F.pad`` first."""
-    w = p["w"].to(x.dtype)
+    return _on_rows(lambda xl, w: _conv(xl, w, stride), x, p["w"])
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    w = w.to(x.dtype)
     k = w.shape[0]
     (hl, hh), (wl, wh) = same_pads(x.shape[1], k, stride), same_pads(x.shape[2], k, stride)
     if (hl, wl) == (hh, wh):
@@ -95,22 +109,33 @@ def bn_init(c: int, device) -> Params:
 
 def bn_apply(p: Params, x: torch.Tensor, plan: Optional[ShardingPlan] = None, eps: float = 1e-5) -> torch.Tensor:
     """Batch statistics over (N, H, W), population variance, in f32. Where
-    each rank holds some rows of the batch (``plan.batch_sum``, the zero
-    step), the statistics are the whole batch's: its sums over the ranks."""
+    the batch is split over ranks the statistics are the whole batch's, its
+    sums over the ranks: on a DTensor (the baseline and sp steps) a sum over
+    the sharded batch dim is a partial sum, made whole (``dist.reduced``);
+    where each rank holds plain rows of the batch (the zero step) they are
+    summed by ``plan.batch_sum``. A DTensor step's plan has no ``batch_sum``,
+    so no sum is taken twice."""
     xf = _compute(x)
-    if plan is None or plan.batch_sum is None:
+    if dist.is_dtensor(xf):
+        total, n = dist.reduced, xf.numel() // xf.shape[-1]
+    elif plan is not None and plan.batch_sum is not None:
+        total = plan.batch_sum
+        n = total(torch.tensor(float(xf.numel() // xf.shape[-1]), dtype=xf.dtype, device=xf.device))
+    else:
         y = F.batch_norm(xf.permute(0, 3, 1, 2), None, None, p["scale"], p["bias"], training=True, eps=eps)
         return y.permute(0, 2, 3, 1).to(x.dtype)
-    n = plan.batch_sum(torch.tensor(float(xf.numel() // xf.shape[-1]), dtype=xf.dtype, device=xf.device))
-    mean = plan.batch_sum(xf.sum(dim=(0, 1, 2))) / n
-    var = plan.batch_sum((xf - mean).square().sum(dim=(0, 1, 2))) / n
+    mean = total(xf.sum(dim=(0, 1, 2))) / n
+    var = total((xf - mean).square().sum(dim=(0, 1, 2))) / n
     return ((xf - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]).to(x.dtype)
 
 
 def max_pool_same(x: torch.Tensor, k: int = 3, stride: int = 2) -> torch.Tensor:
     """The reference's ``reduce_window(max, init -inf, "SAME")`` of NHWC ``x``."""
-    y = F.max_pool2d(_pad_same(x, k, stride, float("-inf")).permute(0, 3, 1, 2), k, stride)
-    return y.permute(0, 2, 3, 1)
+
+    def pool(xl):
+        return F.max_pool2d(_pad_same(xl, k, stride, float("-inf")).permute(0, 3, 1, 2), k, stride).permute(0, 2, 3, 1)
+
+    return _on_rows(pool, x)
 
 
 def _bottleneck_init(gen, cin: int, width: int, cout: int, device) -> Params:
@@ -190,7 +215,7 @@ def _build_resnet(cfg: ModelConfig) -> Model:
     def loss(params, batch, plan: ShardingPlan):
         lf = _compute(forward(cfg, params, batch["images"], plan))
         labels = batch["labels"].long()
-        nll = torch.logsumexp(lf, dim=-1) - lf.gather(-1, labels[:, None])[:, 0]
+        nll = torch.logsumexp(lf, dim=-1) - dist.gather_last(lf, labels)
         ce = nll.mean()
         acc = (lf.argmax(dim=-1) == labels).float().mean()
         return ce, {"ce": ce, "accuracy": acc}

@@ -14,6 +14,11 @@ Prefill sends a CUDA tensor to the WKV6 kernel (``ops.wkv6``) and a CPU
 tensor to ``wkv_chunked``, where the reference sends a TPU array to its
 Pallas kernel and anything else to ``wkv_chunked``. ``forward`` on the CPU is
 differentiable; the kernel has no backward, here as in the reference.
+
+Under a mesh (DTensors) the scan, the kernel or ``wkv_chunked``, and the
+decode step's ``wkv_step`` run on each rank's batch rows and heads
+(``ops.wkv6_on_shards``), the plan's ``"heads"`` layout with the sequence
+whole; the states come back in the ``"state"`` layout.
 """
 from __future__ import annotations
 
@@ -25,10 +30,11 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ops import wkv6
+from repro_torch.kernels.ops import wkv6, wkv6_on_shards
 from repro_torch.models import losses
 from repro_torch.models import module as nn
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding import dist
 from repro_torch.sharding.plan import ShardingPlan
 
 Params = Dict[str, Any]
@@ -93,6 +99,14 @@ def wkv_step(r, k, v, logw, u, state):
     out = torch.einsum("bhk,bhkv->bhv", rf, state + u[None, :, :, None] * kv)
     state = w[..., None] * state + kv
     return out, state
+
+
+def _wkv_step_on_shards(r, k, v, logw, u, state):
+    """``wkv_step``; on DTensors, on each rank's batch rows and heads, the
+    state's layout, as ``ops.wkv6_on_shards`` runs the scan."""
+    same = {0: 0, 1: 1}
+    return dist.on_shards(wkv_step, r, [(r, same), (k, same), (v, same), (logw, same), (u, {1: 0}), (state, same)],
+                          [same, same], head_dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +210,10 @@ def time_mix_seq(
     B, T, d = x.shape
     s = cfg.ssm
     H, K = d // s.head_dim, s.head_dim
+    # under sp the sequence is whole before the shift, which reads each
+    # position's predecessor: the five projections below would gather it
+    # anyway (``dist.rows_flattenable``), so one gather here serves them all
+    x = dist.whole_on(x, 1)
     xp = _token_shift(x, x_prev)
     mu = p["mu"]
     xr, xk, xv, xw, xg = (_lerp(x, xp, mu[i]) for i in range(5))
@@ -204,11 +222,11 @@ def time_mix_seq(
     v = nn.dense_apply({"w": p["w_v"]}, xv).reshape(B, T, H, K)
     g = nn.dense_apply({"w": p["w_g"]}, xg)
     logw = _decay(p, xw).reshape(B, T, H, K)
-    r, k = plan.act(r, "heads"), plan.act(k, "heads")
-    if x.device.type == "cuda":
-        out, state = wkv6(r, k, v, logw, p["bonus_u"], state0, chunk=s.chunk)
-    else:
-        out, state = wkv_chunked(r, k, v, logw, p["bonus_u"], state0, chunk=s.chunk)
+    # the scan's layout: batch over the data axes, heads over ``model``, the
+    # sequence whole on every rank
+    r, k, v, logw = (plan.act(t, "heads") for t in (r, k, v, logw))
+    scan = wkv6 if x.device.type == "cuda" else functools.partial(wkv6_on_shards, wkv_chunked)
+    out, state = scan(r, k, v, logw, p["bonus_u"], state0, chunk=s.chunk)
     out = plan.act(out.to(torch.bfloat16), "heads")
     out = nn.layernorm_apply(p["ln_out"], out.reshape(B, T, d))  # group-norm-ish
     out = out * F.silu(g.float()).to(out.dtype)
@@ -226,6 +244,7 @@ def _channel_mix(p: Params, xk: torch.Tensor, xr: torch.Tensor) -> torch.Tensor:
 def channel_mix_seq(
     cfg: ModelConfig, p: Params, x: torch.Tensor, x_prev: Optional[torch.Tensor] = None
 ):
+    x = dist.whole_on(x, 1)  # under sp, as ``time_mix_seq`` does
     xp = _token_shift(x, x_prev)
     y = _channel_mix(p, _lerp(x, xp, p["mu"][0]), _lerp(x, xp, p["mu"][1]))
     return y, x[:, -1, :]
@@ -331,7 +350,7 @@ def decode_step(cfg, params, token, cache, _pos, plan: ShardingPlan):
         v = nn.dense_apply({"w": tm["w_v"]}, xv).reshape(B, H, K)
         g = nn.dense_apply({"w": tm["w_g"]}, xg)
         logw = _decay(tm, xw).reshape(B, H, K)
-        out, wkv_new = wkv_step(r, k, v, logw, tm["bonus_u"], wkv)
+        out, wkv_new = _wkv_step_on_shards(r, k, v, logw, tm["bonus_u"], wkv)
         out = nn.layernorm_apply(tm["ln_out"], out.to(torch.bfloat16).reshape(B, d))
         out = out * F.silu(g.float()).to(out.dtype)
         x = x + nn.dense_apply({"w": tm["w_out"]}, out)
@@ -341,9 +360,9 @@ def decode_step(cfg, params, token, cache, _pos, plan: ShardingPlan):
         x_cm = cm_x.to(xn_cm.dtype)
         x = x + _channel_mix(cm, _lerp(xn_cm, x_cm, cm["mu"][0]), _lerp(xn_cm, x_cm, cm["mu"][1]))
         # carries: the *inputs* each mixer saw this step (token-shift sources)
-        wkv.copy_(wkv_new)
-        tm_x.copy_(xn_tm)
-        cm_x.copy_(xn_cm)
+        dist.write(wkv, wkv_new)
+        dist.write(tm_x, xn_tm)
+        dist.write(cm_x, xn_cm)
 
     logits = _logits(cfg, params, x)
     cache = {"wkv": plan.act(cache["wkv"], "state"), "tm_x": cache["tm_x"], "cm_x": cache["cm_x"]}

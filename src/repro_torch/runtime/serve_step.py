@@ -5,11 +5,11 @@ and the eager greedy loop that joins them.
 The ``jit_*`` builders keep the reference's names and return eager callables
 over DTensors placed by ``param_shardings``/``cache_shardings``
 (``sharding.dist.distribute`` places whole tensors there). The decode step
-writes its new K/V into the cache's local shards, the twin of the
-reference's donated cache. ``baseline`` and ``serve`` run DTensors through
-the dense, vlm, moe and encdec models (another family raises, ROADMAP.md
-Queue 1 item 2);
-``zero`` gathers the weights and runs any family on each rank's batch rows.
+writes its new K/V and recurrent states into the cache's local shards, the
+twin of the reference's donated cache. ``baseline`` and ``serve`` run
+DTensors through the model of every serving family; ``zero`` gathers the
+weights and runs any family on each rank's batch rows. ResNet has no
+serving path: its steps raise the model's own error when called.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ShapeSuite
 from repro_torch.models.model_api import Model
 from repro_torch.models.module import tree_map
-from repro_torch.runtime.train_step import param_shapes, require_sharded_family
+from repro_torch.runtime.train_step import param_shapes
 from repro_torch.sharding import dist
 from repro_torch.sharding.plan import (
     NamedSharding,
@@ -113,7 +113,6 @@ def _sharded(variant: str, plan: ShardingPlan, build, out_specs):
 def jit_decode_step(model: Model, mesh, suite: ShapeSuite, variant: str = "baseline"):
     """Decode step at cache position ``suite.seq_len - 1`` + (param, token,
     cache shardings, plan). The cache is updated in place."""
-    require_sharded_family(model.cfg, variant)
     plan = make_plan(model.cfg, mesh, suite, variant=variant)
     p_sh = param_shardings(model, mesh, variant)
     c_sh = cache_shardings(model, mesh, suite, plan)
@@ -135,7 +134,6 @@ def jit_decode_step(model: Model, mesh, suite: ShapeSuite, variant: str = "basel
 def jit_prefill_step(model: Model, mesh, suite: ShapeSuite, variant: str = "baseline"):
     """Prefill step + (param, batch shardings, plan); its cache comes back in
     ``cache_shardings``' placements."""
-    require_sharded_family(model.cfg, variant)
     plan = make_plan(model.cfg, mesh, suite, variant=variant)
     p_sh = param_shardings(model, mesh, variant)
     b_sh = {"tokens": NamedSharding(mesh, plan.spec("tokens"))}

@@ -15,10 +15,13 @@ batch there, as ``jax.device_put`` does. The state is updated in place, the
 twin of donation. Two kinds of step:
 
   * ``baseline`` and ``sp``: DTensors flow through the model, ``plan.act``
-    redistributes the activations, and the attention kernels run on local
-    shards (``kernels/ops.py``). The dense, vlm, moe and encdec families so
-    far: another family raises ``NotImplementedError`` (ROADMAP.md, Queue 1
-    item 2);
+    redistributes the activations, and the kernels and the plain recurrences
+    (the chunked WKV6 and SSD scans, ResNet's convolutions) run on each
+    rank's local shards (``kernels/ops.py``, ``sharding.dist.on_shards``).
+    Every family. On the card a sharded rwkv6 train step raises, as the
+    single-device one does: its scan is the WKV6 kernel, which has no
+    backward (nor has the reference's), and nothing scans some other way
+    there; off the card it differentiates the plain ``wkv_chunked``;
   * ``zero``: each step gathers the weights and runs the unchanged model on
     plain local tensors with the null plan, each device computing whole
     examples; the gradients are summed to the parameters' shards
@@ -132,19 +135,6 @@ def build_train_step(
 # sharding glue
 # ---------------------------------------------------------------------------
 
-#: families whose model runs on DTensors (the baseline, sp and serve variants)
-SHARDED_FAMILIES = ("dense", "vlm", "moe", "encdec")
-
-
-def require_sharded_family(cfg, variant: str) -> None:
-    """The variants that shard activations run DTensors through the model,
-    which the families of ``SHARDED_FAMILIES`` take so far; the others raise."""
-    if variant != "zero" and cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"variant {variant!r} under a mesh runs the {', '.join(SHARDED_FAMILIES)} families; the "
-            f"{cfg.family} family ({cfg.name}) runs there as 'zero' (ROADMAP.md, Queue 1 item 2)"
-        )
-
 
 def param_shapes(model: Model):
     """The parameter tree on the meta device: shapes and types, no storage."""
@@ -227,7 +217,6 @@ def jit_train_step(
     """
     if not donate:
         raise NotImplementedError("jit_train_step updates the state in place; donate=False has no counterpart")
-    require_sharded_family(model.cfg, variant)
     plan = make_plan(model.cfg, mesh, suite, variant=variant)
     st_sh = state_shardings(model, mesh, variant)
     b_sh = batch_shardings(model, mesh, suite, plan)

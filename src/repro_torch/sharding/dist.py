@@ -76,6 +76,39 @@ def replicated(x):
     return x if list(x.placements) == want else x.redistribute(x.device_mesh, want)
 
 
+def _whole_partials(x):
+    from torch.distributed.tensor import Replicate
+
+    want = [Replicate() if pl.is_partial() else pl for pl in x.placements]
+    return x if list(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+class _Reduced(torch.autograd.Function):
+    """Partial placements reduced to ``Replicate``, and in backward the
+    gradient's partial placements too (a ``Partial(sum)`` gradient of a
+    ``Partial(avg)`` value, which DTensor's own backward cannot convert)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _whole_partials(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_partials(g)
+
+
+def reduced(x):
+    """``x`` with each partial placement reduced to ``Replicate`` (its other
+    placements kept), or ``x``: a statistic over a sharded dim (a norm's
+    mean), made whole before it meets the shards. Left partial, DTensor
+    brings the shards to the statistic's ``Partial(avg)`` instead, which
+    gathers them and carries the partial type on to the next product, whose
+    ``Partial(sum)`` gradient DTensor then cannot convert back."""
+    if not is_dtensor(x) or not any(pl.is_partial() for pl in x.placements):
+        return x
+    return _Reduced.apply(x)
+
+
 def whole_on(x, dim: int):
     """``x`` with dim ``dim`` unsharded (its other placements kept), or ``x``."""
     if not is_dtensor(x):
@@ -238,7 +271,12 @@ def kernel_placements(mesh, batch: int, heads: Sequence[int], batch_dim: Optiona
 
 
 def to_local_as(x, mesh, placements) -> torch.Tensor:
-    """``x`` (a DTensor) redistributed to ``placements``, as its local shard."""
+    """``x`` (a DTensor, or a plain tensor every rank holds whole)
+    redistributed to ``placements``, as its local shard."""
+    if not is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        x = from_local(x, mesh, [Replicate()] * mesh.ndim)
     if list(x.placements) != list(placements):
         x = x.redistribute(mesh, placements)
     return x.to_local()
@@ -253,6 +291,8 @@ def local_operand(w, like, dims: dict) -> torch.Tensor:
     ``like`` is split on a dim ``w`` lacks (its examples), as FSDP sums them."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
+    if not is_dtensor(w):  # a tensor every rank holds whole
+        w = from_local(w, like.device_mesh, [Replicate()] * like.device_mesh.ndim)
     want, grad = [], []
     for pl in like.placements:
         if pl.is_shard() and pl.dim in dims:
@@ -264,6 +304,35 @@ def local_operand(w, like, dims: dict) -> torch.Tensor:
     if list(w.placements) != want:
         w = w.redistribute(w.device_mesh, want)
     return w.to_local(grad_placements=grad)
+
+
+def on_shards(fn, like, operands, out_dims, head_dim: Optional[int] = None):
+    """``fn`` on each rank's local shards, the results as DTensors, for a
+    computation with no DTensor rule (a recurrence whose einsums flatten the
+    batch and heads into one dim sharded twice, on which DTensor's
+    propagation fails; a convolution). ``like`` (a DTensor) sets the layout:
+    its batch (dim 0) over the data axes and, with ``head_dim``, its heads
+    over ``model`` (``kernel_placements``), the rest whole. Each of
+    ``operands`` is a pair ``(tensor, dims)``, ``dims`` mapping a dim of
+    ``like`` to the operand's dim that matches it: the operand is sharded
+    there as ``like`` is, whole elsewhere, and its gradient summed over the
+    ranks that split ``like`` on a dim it lacks (``local_operand``; a plain
+    tensor counts as whole on every rank). Result ``i`` of ``fn`` comes back
+    sharded as ``like`` is on the dims ``out_dims[i]`` maps. A plain
+    ``like``: ``fn`` on the operands as they are."""
+    if not is_dtensor(like):
+        return fn(*(t for t, _ in operands))
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = like.device_mesh
+    layout = kernel_placements(mesh, like.shape[0], () if head_dim is None else (like.shape[head_dim],), 0, head_dim)
+    placed = like if list(like.placements) == layout else like.redistribute(mesh, layout)
+    outs = fn(*(local_operand(placed if t is like else t, placed, dims) for t, dims in operands))
+
+    def placements_of(dims):
+        return [Shard(dims[pl.dim]) if pl.is_shard() and pl.dim in dims else Replicate() for pl in placed.placements]
+
+    return tuple(from_local(o, mesh, placements_of(d)) for o, d in zip(outs, out_dims))
 
 
 def gather_last(x, idx):
@@ -308,6 +377,16 @@ def from_local(x: torch.Tensor, mesh, placements):
 # ---------------------------------------------------------------------------
 
 
+def write(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``. Where ``dst`` is a DTensor, into its local shard:
+    ``src`` is brought to ``dst``'s placements and each rank copies its own
+    part (a recurrent state replaced whole, as a decode step replaces it)."""
+    if not is_dtensor(dst):
+        dst.copy_(full(src))
+        return
+    dst.to_local().copy_(to_local_as(src, dst.device_mesh, dst.placements))
+
+
 def write_rows(dst: torch.Tensor, dim: int, start: int, src: torch.Tensor) -> None:
     """``dst.narrow(dim, start, n).copy_(src)``, n = src.shape[dim]. Where
     ``dst`` is a DTensor, into its local shard: ``src`` is brought to ``dst``'s
@@ -317,12 +396,10 @@ def write_rows(dst: torch.Tensor, dim: int, start: int, src: torch.Tensor) -> No
     if not is_dtensor(dst):
         dst.narrow(dim, start, src.shape[dim]).copy_(full(src))
         return
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import Replicate
 
     mesh = dst.device_mesh
     want = [Replicate() if pl.is_shard(dim) else pl for pl in dst.placements]
-    if not is_dtensor(src):
-        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim, run_check=False)
     src_l = to_local_as(src, mesh, want)
     dst_l = dst.to_local()
     # this shard's first row on dim: the mesh dims that shard it, in mesh order

@@ -132,16 +132,28 @@ def test_full_size_cell_lowers_on_fake_tensors(granite_cell):
     assert mem["temp_bytes"] < 256 * 4096 * cfg.padded_vocab * 4
 
 
-def test_skip_and_fail_cells(tmp_path):
+def _broken_lowering(*_args, **_kwargs):
+    raise RuntimeError("planted lowering fault")
+
+
+def test_skip_and_fail_cells(tmp_path, monkeypatch):
     assert dryrun.main(["--arch", "granite-3-2b", "--shape", "long_500k", "--out", str(tmp_path)]) == 0
     skip = json.loads((tmp_path / "granite-3-2b__long_500k__single.json").read_text())
     assert skip == {"cell": "granite-3-2b__long_500k__single", "status": "SKIP",
                     "reason": "full-attention arch: O(S^2) at 500k — skipped per DESIGN.md"}
-    assert dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "train_4k", "--mesh", "both",
+    # the rwkv family lowers on both meshes (its decode step on each rank's batch rows and heads)
+    assert dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "decode_32k", "--mesh", "both",
+                        "--out", str(tmp_path)]) == 0
+    for mesh in ("single", "multi"):
+        ok = json.loads((tmp_path / f"rwkv6-1.6b__decode_32k__{mesh}.json").read_text())
+        assert ok["status"] == "OK" and ok["roofline"]["chips"] == (256 if mesh == "single" else 512)
+    # a cell whose lowering raises is recorded FAIL with its error, and the command exits 1
+    monkeypatch.setattr(dryrun, "lower_cell", _broken_lowering)
+    assert dryrun.main(["--arch", "zamba2-7b", "--shape", "decode_32k", "--mesh", "both",
                         "--out", str(tmp_path)]) == 1
     for mesh in ("single", "multi"):
-        fail = json.loads((tmp_path / f"rwkv6-1.6b__train_4k__{mesh}.json").read_text())
-        assert fail["status"] == "FAIL" and "Queue 1 item 2" in fail["error"]
+        fail = json.loads((tmp_path / f"zamba2-7b__decode_32k__{mesh}.json").read_text())
+        assert fail["status"] == "FAIL" and "planted lowering fault" in fail["error"]
     import torch.distributed as tdist
 
     assert not tdist.is_initialized()  # each cell's fake group is gone, a failed one's too
@@ -184,6 +196,7 @@ def test_cells_of_two_archs_in_one_process(tmp_path):
 def test_report_renders_the_ports_records(granite_cell, tmp_path, monkeypatch):
     _, out = granite_cell
     dryrun.main(["--arch", "granite-3-2b", "--shape", "long_500k", "--out", str(out)])
+    monkeypatch.setattr(dryrun, "lower_cell", _broken_lowering)
     dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "train_4k", "--out", str(out)])
     monkeypatch.setattr(benchmarks.common, "DRYRUN_DIR", out)
     text = report.fmt_dryrun()

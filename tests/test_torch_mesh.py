@@ -139,17 +139,27 @@ def test_null_plan_and_no_mesh():
     assert tuple(plan.spec("hidden")) == ()
 
 
-def test_families_without_sharded_activations_raise_with_their_roadmap_item():
-    mesh = tplan.AbstractMesh((2, 4), ("data", "model"))
+def test_families_without_sharded_activations_raise_with_their_roadmap_item(one_rank):
+    """No family raises the sharded path's refusal any more: the hybrid, rwkv
+    and resnet families build the train step under every variant and the
+    serve steps under every serving variant; ResNet's serve steps, called,
+    raise the model's own error, as the reference's do. (The steps run in
+    the 2 x 4 family files and ``test_torch_mesh_reference.py``.)"""
     suite = base.ShapeSuite("t", 32, 8, "train")
+    psuite, dsuite = base.ShapeSuite("p", 32, 8, "prefill"), base.ShapeSuite("d", 33, 8, "decode")
     opt = adamw.AdamWConfig()
     for arch in ("zamba2-7b", "rwkv6-1.6b", "resnet_small"):
         model = build_model(CONFIGS[arch].reduced())
-        for variant in ("baseline", "sp", "serve"):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-                ts.jit_train_step(model, mesh, suite, opt, variant=variant)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            serve.jit_decode_step(model, mesh, suite, variant="baseline")
+        for variant in ("baseline", "sp", "zero"):
+            step, _, _, plan = ts.jit_train_step(model, one_rank, suite, opt, variant=variant)
+            assert callable(step) and plan.mesh is one_rank
+        for variant in ("baseline", "serve", "zero"):
+            prefill, *_ = serve.jit_prefill_step(model, one_rank, psuite, variant=variant)
+            decode, *_ = serve.jit_decode_step(model, one_rank, dsuite, variant=variant)
+            if arch == "resnet_small":
+                for step, args in ((prefill, ({}, {})), (decode, ({}, {}, {}))):
+                    with pytest.raises(NotImplementedError, match="CNN classifier has no autoregressive serving path"):
+                        step(*args)
 
 
 def test_jit_train_step_refuses_to_keep_the_callers_state():

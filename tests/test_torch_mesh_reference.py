@@ -42,8 +42,12 @@ from repro_torch.runtime import serve_step as serve
 from repro_torch.runtime import train_step as ts
 from repro_torch.sharding import dist
 from repro_torch.sharding.plan import make_plan
+from torch_mesh_family import RECURRENT_CACHES
 
 ARCHS = ["llava-next-34b", "olmoe-1b-7b", "deepseek-moe-16b", "whisper-base"]
+#: the recurrent families and resnet, which trains only
+TRAIN_ARCHS = ARCHS + ["rwkv6-1.6b", "zamba2-7b", "resnet_small"]
+SERVE_ARCHS = ARCHS + ["rwkv6-1.6b", "zamba2-7b"]
 #: read (the largest over the variants): loss 1.7e-4 (llava), 3.8e-3
 #: (olmoe), 3.5e-3 (deepseek), 4.1e-4 (whisper); gradient norm 6e-4, 2e-3,
 #: 3.8e-3, 4.5e-4 of the reference's; prefill logits 0.017, 0.0078, 0.016,
@@ -82,7 +86,7 @@ def _np(x) -> np.ndarray:
 
 
 @pytest.mark.parametrize("variant", ["baseline", "sp"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_jit_train_step_of_each_family_on_one_device_mesh_matches_the_reference(arch, variant, one_rank):
     jcfg, cfg = JCONFIGS[arch].reduced(), CONFIGS[arch].reduced()
     jsuite, suite = jbase.ShapeSuite("t", S_TRAIN, B, "train"), base.ShapeSuite("t", S_TRAIN, B, "train")
@@ -110,16 +114,17 @@ def test_jit_train_step_of_each_family_on_one_device_mesh_matches_the_reference(
 
 
 @pytest.mark.parametrize("variant", ["baseline", "serve"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_jit_prefill_and_decode_steps_of_each_family_on_one_device_mesh_match_the_reference(arch, variant, one_rank):
     jcfg, cfg = JCONFIGS[arch].reduced(), CONFIGS[arch].reduced()
     jmodel, model = jbuild_model(jcfg), build_model(cfg)
     jparams = jmodel.init(jax.random.key(0))
     params = from_jax_params(jax.device_get(jparams), "cpu")
-    prompt = synthetic.batch_for(cfg, base.ShapeSuite("p", S_PROMPT, B, "prefill"), seed=0)
+    S = _prompt_len(cfg)
+    prompt = synthetic.batch_for(cfg, base.ShapeSuite("p", S, B, "prefill"), seed=0)
     prompt.pop("labels", None)
 
-    jpsuite, psuite = jbase.ShapeSuite("p", S_PROMPT, B, "prefill"), base.ShapeSuite("p", S_PROMPT, B, "prefill")
+    jpsuite, psuite = jbase.ShapeSuite("p", S, B, "prefill"), base.ShapeSuite("p", S, B, "prefill")
     jstep, jp_sh, jb_sh, _ = jserve.jit_prefill_step(jmodel, _jmesh(), jpsuite, variant=variant)
     jlast, jcache = _strict(jstep, jax.device_put(jparams, jp_sh),
                             jax.device_put({k: jnp.asarray(v) for k, v in prompt.items()}, jb_sh))
@@ -131,7 +136,7 @@ def test_jit_prefill_and_decode_steps_of_each_family_on_one_device_mesh_match_th
     assert set(cache) == set(jcache)
     for name in cache:
         assert dist.is_dtensor(cache[name]) and tuple(cache[name].shape) == tuple(jcache[name].shape), name
-        err = float(np.max(np.abs(_np(cache[name]) - _np(jcache[name]))))
+        err = _cache_err(name, _np(cache[name]), _np(jcache[name]))
         assert err < TOL_LOGITS, ("prefill cache", name, err)
 
     # one decode step from the reference's prefilled cache, grown by a slot
@@ -140,7 +145,7 @@ def test_jit_prefill_and_decode_steps_of_each_family_on_one_device_mesh_match_th
     inputs = {"token": tok}
     if cfg.enc_layers:
         inputs["frames"] = prompt["frames"]
-    jdsuite, dsuite = jbase.ShapeSuite("d", S_PROMPT + 1, B, "decode"), base.ShapeSuite("d", S_PROMPT + 1, B, "decode")
+    jdsuite, dsuite = jbase.ShapeSuite("d", S + 1, B, "decode"), base.ShapeSuite("d", S + 1, B, "decode")
     jstep, jp_sh, jtok_sh, jc_sh, _ = jserve.jit_decode_step(jmodel, _jmesh(), jdsuite, variant=variant)
     want, _ = _strict(jstep, jax.device_put(jparams, jp_sh),
                       jax.device_put({k: jnp.asarray(v) for k, v in inputs.items()}, jtok_sh),
@@ -150,7 +155,26 @@ def test_jit_prefill_and_decode_steps_of_each_family_on_one_device_mesh_match_th
     got, cache2 = step(dist.distribute(params, p_sh), dist.distribute(from_jax_params(inputs, "cpu"), tok_sh), tcache)
     err = float(np.max(np.abs(_np(got) - _np(want))))
     assert err < TOL_LOGITS, ("decode logits", err)
-    assert cache2["k"] is tcache["k"]  # written in place, the twin of donation
+    # written in place, the twin of donation: the caller's cache holds what
+    # the step returns (zamba2's K/V come back in the cache plan's layout,
+    # redistributed from the reference's batch-sharded one)
+    assert all(torch.equal(dist.full(cache2[n]), dist.full(tcache[n])) for n in tcache)
+    if "k" in tcache:
+        assert cache2["k"] is tcache["k"]
+
+
+def _prompt_len(cfg) -> int:
+    """31 tokens; a recurrent family's prompt is three of its chunks, since
+    the plain scans (the reference's and the port's) assert that the chunk
+    divides the sequence."""
+    return S_PROMPT if cfg.ssm is None else 3 * cfg.ssm.chunk
+
+
+def _cache_err(name: str, got: np.ndarray, want: np.ndarray) -> float:
+    """The largest error of a cache leaf; a recurrent state's relative to its
+    largest element (at least 1), as ``torch_mesh_family.py`` reads it."""
+    err = float(np.max(np.abs(got - want)))
+    return err / max(1.0, float(np.max(np.abs(want)))) if name in RECURRENT_CACHES else err
 
 
 def test_two_moe_archs_of_other_top_k_on_one_layout_in_one_process(one_rank):

@@ -1,0 +1,53 @@
+"""The rwkv family's sharded steps (rwkv6-1.6b reduced: the token shift,
+lerps, data-dependent decay, WKV6 scan and ``ln_out`` on DTensors, heads
+over ``model``) on a 2 x 4 (data, model) gloo mesh, eight processes, against
+the port's single-device path (``torch_mesh_family.py`` runs them). The
+prompt is three chunks long: ``wkv_chunked`` asserts that the chunk divides
+the sequence, as the reference's does (the card's K5 masks a short last
+chunk). The train steps run the plain ``wkv_chunked`` on DTensors; on the
+card a sharded train step raises, since K5 has no backward (nor has the
+reference's kernel).
+
+Last, the DTensor boundary of ``ops.wkv6``, which runs K5 on the card, on
+the CPU: K5's plain version on each rank's batch rows and heads equals the
+whole call, and so do the gradients of every input (the bonus's summed over
+the ranks that split the batch).
+"""
+import pytest
+
+from torch_mesh_family import check_decode, check_prefill, check_train, run_family
+
+ARCH = "rwkv6-1.6b"
+
+
+@pytest.fixture(scope="module")
+def found(tmp_path_factory):
+    return run_family(ARCH, ARCH, tmp_path_factory.mktemp("rwkv"), extra=("wkv6",))
+
+
+@pytest.mark.parametrize("variant", ["baseline", "sp"])
+def test_sharded_train_step_matches_single_device(found, variant):
+    check_train(found["train"], variant)
+
+
+@pytest.mark.parametrize("variant", ["baseline", "serve"])
+def test_sharded_prefill_matches_single_device(found, variant):
+    check_prefill(found["serve"], variant)
+
+
+@pytest.mark.parametrize("variant", ["baseline", "serve"])
+def test_sharded_decode_matches_single_device(found, variant):
+    check_decode(found["serve"], variant)
+
+
+def test_wkv6_on_local_shards_equals_the_whole_call(found):
+    r = found["wkv6"]
+    # f32 on both sides, the same token-by-token recurrence on each head
+    assert r["out_err"] < 1e-5 and r["state_err"] < 1e-5, r
+    # the scan's layout: batch over data, heads over model (out is (B, T, H, V), the state (B, H, K, V))
+    assert r["out_placements"] == [0, 2] and r["state_placements"] == [0, 1], r
+
+
+def test_wkv6_gradients_on_local_shards_equal_the_whole_calls(found):
+    # r, k, v, logw, the bonus u and the initial state, relative to each one's largest element
+    assert max(found["wkv6"]["grad_err"]) < 1e-5, found["wkv6"]
