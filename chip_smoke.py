@@ -55,7 +55,13 @@ weights from a seed:
     peaks and ``fits`` against the same jobs measured in this process and
     each instance's budget), then naive collocation measured: k = 2, 4, 7
     processes of resnet_small training together on the card, beside the
-    naive model's prediction;
+    naive model's prediction; then the LM workloads (phase_collocate_lm):
+    granite-3-2b's train_4k step at full width, accumulated from micro
+    batches of 2 to a global batch of COLLOCATE_LM_BATCH, over every cell of
+    the grid in this process, its counted step's kernel entries (K1-K3 seen
+    by the op counters) against the launch counters and the FLOP reckoning;
+    granite's prefill and decode cells on the whole card; llama3-8b skipped,
+    its train state beyond the card, nothing allocated;
   * the calibration loop -- each kernel family's calibration measurement
     (``kernels/calibration.py``: K1, K4 and K5 at their calibration shapes,
     timed between CUDA events) held against its plain version; then
@@ -117,7 +123,12 @@ from repro_torch.kernels import rwkv6_scan as rk  # noqa: E402
 from repro_torch.models import attention, moe, resnet, rwkv6, transformer  # noqa: E402
 from repro_torch.models.model_api import build_model  # noqa: E402
 from repro_torch.core.device import get_sku  # noqa: E402
-from repro_torch.core.instance import JobSpec, measure_job  # noqa: E402
+from repro_torch.core.instance import InstanceRecord, InstanceRuntime, JobSpec, measure_job  # noqa: E402
+from repro_torch.core import instance  # noqa: E402
+from repro_torch.core.metrics import collocation_speedup  # noqa: E402
+from repro_torch.core.partitioner import partition  # noqa: E402
+from repro_torch.core.profiles import Placement  # noqa: E402
+from repro_torch.telemetry import counts  # noqa: E402
 from repro_torch.core.calib.records import CharDB  # noqa: E402
 from repro_torch.kernels import calibration  # noqa: E402
 from repro_torch.launch import calibrate, collocate, simulate, train  # noqa: E402
@@ -187,6 +198,13 @@ NAIVE_TIMEOUT_S = 300
 # the characterization's command, in a process of its own: its limit, and how
 # far its peaks may lie from the same jobs measured in this process
 COLLOCATE_TIMEOUT_S, PEAK_LIMIT = 300, 1.25
+# the LM characterization (phase_collocate_lm): granite-3-2b at full width and
+# TRAIN_SEQ under ``collocate.characterize_workload`` at this global batch, so
+# a step accumulates COLLOCATE_LM_BATCH // collocate.LM_MICRO_BATCH micro
+# batches (the CLI's LM_SUITE, batch 256, runs apart from this script); its
+# serving cells at the shapes of phase_serve; the workload it must skip, whose
+# reckoned train state exceeds the card
+COLLOCATE_LM_BATCH, COLLOCATE_LM_SKIPPED = 16, "llama3-8b"
 # a step line of the launcher's log (``--log-every 1``): the step's host ms
 STEP_LINE = re.compile(r"\[train\] step (\d+)/\d+ loss=\S+ step_time=([0-9.]+)ms")
 # one process of the naive runs: warm-up, "ready", wait for the start file, train
@@ -893,12 +911,9 @@ def phase_decode(cfg) -> dict:
     return out
 
 
-def live_pairs(B, H, Sq, Skv, causal, q_offset=0) -> int:
-    """(query row, key) pairs that attention does not mask, over all heads."""
-    if not causal:
-        return B * H * Sq * Skv
-    per_row = torch.clamp(q_offset + torch.arange(Sq) + 1, max=Skv)
-    return B * H * int(per_row.sum())
+# (query row, key) pairs that attention does not mask, over all heads: the
+# package's count, which the op counters' kernel entries use too
+live_pairs = fa.live_pairs
 
 
 def flash_bwd_case(gen, B, Sq, Skv, H, KVH, D, causal, q_offset=0, dtype=torch.bfloat16,
@@ -1416,7 +1431,7 @@ def wkv6_work(B, T, H, in_bytes) -> tuple:
     K = rk.HEAD_SIZE
     n = B * T * H
     nbytes = n * K * (3 * in_bytes + 4 + 4) + H * K * 4 + 2 * B * H * K * K * 4
-    return n * 4 * K * K, n * (K * K + 6 * K), nbytes
+    return rk.flops(B, T, H), n * (K * K + 6 * K), nbytes
 
 
 def wkv6_chunked_ops(B, T, H) -> int:
@@ -3149,6 +3164,191 @@ def phase_collocate(resnet_runs: list) -> dict:
     return {"solos": char["solos"], "naive": readings}
 
 
+KERNEL_COUNTERS = (("flash_attention_fwd", fa, "launch_count"), ("flash_attention_bwd_dkv", fa, "dkv_launch_count"),
+                   ("flash_attention_bwd_dq", fa, "dq_launch_count"), ("decode_attention", da, "launch_count"),
+                   ("wkv6_scan", rk, "launch_count"))
+
+
+def launch_counts() -> dict:
+    """K1-K5's launch counters, by the names their wrappers report to the op counters."""
+    return {name: getattr(mod, attr) for name, mod, attr in KERNEL_COUNTERS}
+
+
+def reset_launch_counts() -> None:
+    for _, mod, attr in KERNEL_COUNTERS:
+        setattr(mod, attr, 0)
+
+
+@contextlib.contextmanager
+def counted_steps_recorded(record: list):
+    """Inside the block every step that ``telemetry.counts.count_step`` counts
+    (``measure_job``'s counted step) appends (the launch counters' deltas
+    across it, its kernel entries, its counted FLOPs) to ``record``: the two
+    ways of seeing the kernels, side by side. A rebinding made by this script
+    only."""
+    saved = counts.count_step
+
+    def counting(fn, inputs):
+        before = launch_counts()
+        out, c = saved(fn, inputs)
+        after = launch_counts()
+        record.append(({k: after[k] - before[k] for k in after}, dict(c.kernels), c.flops))
+        return out, c
+
+    counts.count_step = counting
+    try:
+        yield
+    finally:
+        counts.count_step = saved
+
+
+def require_entries(what: str, counted: tuple, want: dict) -> None:
+    """One counted step's launches, by the counters and by its kernel entries,
+    both ``want`` ({name: launches}, the rest 0)."""
+    deltas, entries, _ = counted
+    by_entries = {name: entries.get(name, (0, 0.0))[0] for name in deltas}
+    expected = {name: want.get(name, 0) for name in deltas}
+    require(deltas == expected and by_entries == expected,
+            f"{what}: launches {deltas}, kernel entries {by_entries}, expected {expected}")
+
+
+def phase_collocate_lm(cfg, trained: dict, served: dict) -> dict:
+    """The LM workloads of the characterization, on the card, in this process.
+
+    (a) granite-3-2b at full width and TRAIN_SEQ, global batch
+    COLLOCATE_LM_BATCH (g micro batches of LM_MICRO_BATCH a step) through
+    ``collocate.characterize_workload`` over every cell of the grid: every
+    cell OK and measured, the counted step's K1/K2/K3 entries equal to the
+    launch counters across it, g x (2L, L, L), their FLOPs 22·D·live
+    pairs·L·g, every launch of the phase in whole steps; readings: the count
+    over the reckoning 8·N·tokens + 22·D·pairs·L·g, the solo step over g x
+    phase_train's median (within SOLO_LIMIT), tokens/s, the peak and the MIG
+    profiles it fits, F2's speedup of 1g.10gb parallel over 7g.80gb.
+    (b) granite's prefill at (BATCH, PROMPT) and decode step at (BATCH,
+    PROMPT + NEW) through ``InstanceRuntime.characterize`` on the whole card:
+    each step within SOLO_LIMIT of phase_serve's median, K1 L a prefill and K4
+    L a decode step by entries and by counters. (c) COLLOCATE_LM_SKIPPED is
+    skipped with its reckoned state, the card's allocation unchanged."""
+    t0 = time.perf_counter()
+    L, H, D = cfg.n_layers, cfg.n_heads, cfg.resolved_head_dim
+    g = COLLOCATE_LM_BATCH // collocate.LM_MICRO_BATCH
+    suite = ShapeSuite("train_4k", TRAIN_SEQ, COLLOCATE_LM_BATCH, "train")
+    sku = get_sku(collocate.SKU)
+    measurements, counted = {}, []
+    whole = (max(1, -(-instance.WARMUP_STEPS // g)) + max(1, -(-instance.TIMED_STEPS // g)) + 1)
+    per_step = {"flash_attention_fwd": 2 * L * g, "flash_attention_bwd_dkv": L * g, "flash_attention_bwd_dq": L * g}
+
+    # ---- (a) the accumulated train step over the grid
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp, counted_steps_recorded(counted):
+        done = collocate.characterize_workload(ARCH, cfg, suite, collocate.LM_SAMPLES, DEV, Path(tmp), measurements,
+                                               grad_accum=g)
+        cells = {c["group"]: c for c in done["cells"]}
+    train_launches = launch_counts()
+    train_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    m = measurements[(ARCH, suite, g)]
+    pairs = live_pairs(collocate.LM_MICRO_BATCH, H, TRAIN_SEQ, TRAIN_SEQ, True)
+    kernel_flops = 22 * D * pairs * L * g
+    tokens = COLLOCATE_LM_BATCH * TRAIN_SEQ
+    leaves = list(tree_leaves(build_model(cfg).init(torch.Generator(device="cpu"), "meta")))
+    n_params = sum(p.numel() for p in leaves)
+    # the products' weights (the f32 norm scales are none) and the tied
+    # embedding, which the head multiplies forward and backward only (6 a
+    # parameter and token); checkpoint's recompute of a layer stops once what
+    # backward needs is rebuilt, so the last product, the MLP's down
+    # projection (2 d f a token), runs twice, not three times
+    n_matmul = sum(p.numel() for p in leaves if p.dtype == torch.bfloat16)
+    n_embed = cfg.vocab * cfg.d_model
+    exact = tokens * (8 * (n_matmul - n_embed) - 2 * cfg.d_model * cfg.d_ff * L + 6 * n_embed)
+    solo = cells["non-MIG"]["records"][0]
+    full_one = InstanceRecord(**cells[f"{sku.full_profile} one"]["records"][0])
+    par = [InstanceRecord(**r) for r in cells[f"{sku.profile_order[0]} parallel"]["records"]]
+    out = {
+        "arch": cfg.name, "seq": TRAIN_SEQ, "global_batch": COLLOCATE_LM_BATCH, "grad_accum": g,
+        "cells": len(done["cells"]), "failures": done["failures"], "whole_steps": whole,
+        "launches": train_launches, "counted_step": {"launches": counted[0][0] if counted else None,
+                                                     "entries": counted[0][1] if counted else None},
+        "kernel_flops": {k: f for k, (_, f) in m.kernels.items()}, "kernel_flops_reckoned": kernel_flops,
+        "counted_flops": m.flops, "reckoned_flops": 8 * n_params * tokens + kernel_flops,
+        "counted_over_reckoned": m.flops / (8 * n_params * tokens + kernel_flops),
+        "kernel_share_of_counted_flops": kernel_flops / m.flops,
+        "counted_over_exact": m.flops / (exact + kernel_flops),
+        "exact_reckoned": "tokens (8 (bf16 weights - tied embedding) - 2 d_ff d L + 6 tied embedding) + the kernels'",
+        "solo_step_ms": solo["step_s"] * 1e3, "phase_train_median_step_device_ms": trained["median_step_device_ms"],
+        "solo_over_g_train_steps": solo["step_s"] * 1e3 / (g * trained["median_step_device_ms"]),
+        "tokens_per_s": tokens / solo["step_s"], "peak_bytes": m.peak_bytes,
+        "mig_profiles_fitting": sorted({grp.split()[0] for grp, c in cells.items()
+                                        if grp.endswith(" one") and c["records"][0]["fits"]}),
+        "compute_ms": solo["compute_s"] * 1e3, "memory_ms": solo["memory_s"] * 1e3, "bound": solo["bound"],
+        f"collocation_speedup_{sku.profile_order[0]}_parallel_vs_{sku.full_profile}": collocation_speedup(par, full_one),
+        "wall_s": train_s,
+        "reckoned": "8 N tokens (forward, backward, remat's second forward) + 22 D live pairs L g "
+                    "(K1 4 D twice a layer, K2 8 D, K3 6 D)",
+    }
+    emit("collocate_lm", **out)
+    require(done["failures"] == 0 and done["skipped"] is None, f"granite's LM characterization: {done['failures']} "
+            f"failed, skipped {done['skipped']}")
+    n_cells = len(collocate.paper_experiment_grid([ARCH], suite, sku=sku)) + 2 * len(collocate.SHARED_KS)
+    require(len(cells) == n_cells and all(c["status"] == "OK" and c["measured"] for c in done["cells"]),
+            f"{len(cells)} LM cells of {n_cells}, or one not OK or measured nothing")
+    require(len(counted) == 1, f"{len(counted)} counted steps, expected 1")
+    require_entries("the counted accumulated step", counted[0], per_step)
+    require(train_launches == {k: whole * per_step.get(k, 0) for k in train_launches},
+            f"the phase launched {train_launches}, expected {whole} whole steps of {per_step}")
+    by_kernel = {"flash_attention_fwd": 8 * D * pairs * L * g, "flash_attention_bwd_dkv": 8 * D * pairs * L * g,
+                 "flash_attention_bwd_dq": 6 * D * pairs * L * g}
+    require(out["kernel_flops"] == by_kernel and sum(out["kernel_flops"].values()) == kernel_flops,
+            f"kernel FLOPs {out['kernel_flops']}, expected {by_kernel}")
+    require(1 / SOLO_LIMIT <= out["solo_over_g_train_steps"] <= SOLO_LIMIT,
+            f"solo step {out['solo_step_ms']:.1f} ms against {g} x phase_train's {trained['median_step_device_ms']:.1f}")
+
+    # ---- (b) serving through InstanceRuntime.characterize, the whole card
+    inst = partition(DEV, [Placement(sku.full_profile, 0)], partitioned=False, sku=sku)[0]
+    rt = InstanceRuntime(inst, partitioned=False, sku=sku, measurements=measurements)
+    serving = {}
+    for kind, seq, kernel, median in (("prefill", PROMPT, "flash_attention_fwd", "prefill_device_ms_median"),
+                                      ("decode", PROMPT + NEW, "decode_attention", "decode_step_device_ms_median")):
+        job = JobSpec(f"{ARCH}#{kind}", ARCH, ShapeSuite(f"{kind}_{seq}", seq, BATCH, kind))
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        counted.clear()
+        with counted_steps_recorded(counted):
+            rec = rt.characterize(job)
+        launches = launch_counts()
+        torch.cuda.empty_cache()
+        serving[kind] = {"batch": BATCH, "seq": seq, "step_ms": rec.step_s * 1e3, "phase_serve_ms": served[median],
+                         "over_phase_serve": rec.step_s * 1e3 / served[median], "bound": rec.bound,
+                         "compute_ms": rec.compute_s * 1e3, "memory_ms": rec.memory_s * 1e3,
+                         "peak_bytes": rec.peak_bytes_per_device, "launches": launches,
+                         "counted_step": counted[0][:2] if counted else None,
+                         "measured": rt.measured_fields(job), "wall_s": time.perf_counter() - t1}
+        require(len(counted) == 1, f"{kind}: {len(counted)} counted steps, expected 1")
+        require_entries(f"the counted {kind} step", counted[0], {kernel: L})
+        require(1 / SOLO_LIMIT <= serving[kind]["over_phase_serve"] <= SOLO_LIMIT,
+                f"{kind} step {serving[kind]['step_ms']:.2f} ms against phase_serve's {served[median]:.2f}")
+    emit("collocate_lm_serve", arch=cfg.name, **serving)
+
+    # ---- (c) a workload whose state exceeds the card: skipped, nothing allocated
+    skip_cfg, skip_suite, samples, skip_g = collocate.workload_suite(COLLOCATE_LM_SKIPPED)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        skipped = collocate.characterize_workload(COLLOCATE_LM_SKIPPED, skip_cfg, skip_suite, samples, DEV, Path(tmp),
+                                                  measurements, grad_accum=skip_g)
+        written = sorted(f.name for f in Path(tmp).iterdir())
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    emit("collocate_lm_skip", skipped=skipped["skipped"], cells=len(skipped["cells"]), written=written,
+         memory_allocated_before=held, memory_allocated_after=after)
+    require(skipped["skipped"] is not None and skipped["skipped"]["state_bytes"] > skipped["skipped"]["budget_bytes"]
+            and not skipped["cells"] and not written and skipped["failures"] == 0,
+            f"{COLLOCATE_LM_SKIPPED} was not skipped: {skipped}")
+    require(after == held, f"skipping {COLLOCATE_LM_SKIPPED} moved the card's allocation {held} -> {after}")
+    emit("collocate_lm_wall", seconds=time.perf_counter() - t0)
+    return {"train": out, "serve": serving}
+
+
 def calibration_kernel(kernel: str, counters: dict) -> dict:
     """One family's calibration measurement on the card: its launches, and
     the kernel's outputs held against the plain version on the same inputs,
@@ -3317,6 +3517,9 @@ def main() -> None:
     resnet_runs = phase_resnet()["runs"]
     torch.cuda.empty_cache()
     phase_collocate(resnet_runs)
+    torch.cuda.empty_cache()
+    lm = phase_collocate_lm(cfg, trained, served[cfg.name])
+    torch.cuda.empty_cache()
     calib = phase_calibrate()
     calib_k = calib["kernels"]
 
@@ -3384,24 +3587,30 @@ def main() -> None:
              launches_serve=served_by["flash_attention_fwd"], launches_one_step=stepped_by[0],
              launches_mesh_step=mesh_step[0], launches_mesh_prefill=meshed["serve"]["baseline"]["prefill_k1"],
              launches_mesh_train=mesh_train[0], launches_mesh_prefill_families=mesh_prefill,
-             launches_mesh_train_recurrent=rec_train[0], launches_mesh_prefill_recurrent=rec_prefill),
+             launches_mesh_train_recurrent=rec_train[0], launches_mesh_prefill_recurrent=rec_prefill,
+             launches_collocate_lm={"train": lm["train"]["launches"]["flash_attention_fwd"],
+                                    "prefill": lm["serve"]["prefill"]["launches"]["flash_attention_fwd"],
+                                    "decode_cache_fill": lm["serve"]["decode"]["launches"]["flash_attention_fwd"]}),
         dict(row(decode, "src/repro_torch/kernels/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:126", served[cfg.name]["launches"]["decode_attention"]),
              launches_calibrate_kernel=calib_k["decode_attention"]["launches"],
              d160=at160("decode_attention", slm_served["decode_attention"]),
              d112=at_dim(d112, "decode_attention", served[ZAMBA_ARCH]["launches"]["decode_attention"]),
              launches_serve=served_by["decode_attention"], launches_mesh_decode=meshed["serve"]["baseline"]["decode_k4"],
-             launches_mesh_decode_families=mesh_decode, launches_mesh_decode_recurrent=rec_decode),
+             launches_mesh_decode_families=mesh_decode, launches_mesh_decode_recurrent=rec_decode,
+             launches_collocate_lm=lm["serve"]["decode"]["launches"]["decode_attention"]),
         dict(row(dkv, bwd_src, dkv["replaces"], trained["launches"]["flash_attention_bwd_dkv"]),
              d160=at160("flash_attention_bwd_dkv", slm_k2),
              d112=at_dim(d112, "flash_attention_bwd_dkv", zamba_step["launches"][1]), launches_one_step=stepped_by[1],
              launches_mesh_step=mesh_step[1], launches_mesh_train=mesh_train[1],
-             launches_mesh_train_recurrent=rec_train[1]),
+             launches_mesh_train_recurrent=rec_train[1],
+             launches_collocate_lm=lm["train"]["launches"]["flash_attention_bwd_dkv"]),
         dict(row(dq, bwd_src, dq["replaces"], trained["launches"]["flash_attention_bwd_dq"]),
              d160=at160("flash_attention_bwd_dq", slm_k3),
              d112=at_dim(d112, "flash_attention_bwd_dq", zamba_step["launches"][2]), launches_one_step=stepped_by[2],
              launches_mesh_step=mesh_step[2], launches_mesh_train=mesh_train[2],
-             launches_mesh_train_recurrent=rec_train[2]),
+             launches_mesh_train_recurrent=rec_train[2],
+             launches_collocate_lm=lm["train"]["launches"]["flash_attention_bwd_dq"]),
         dict(row(wkv, "src/repro_torch/kernels/csrc/wkv6_scan.cu", wkv["replaces"],
                  served_rwkv["launches"]["wkv6_scan"]),
              launches_calibrate_kernel=calib_k["wkv6"]["launches"],

@@ -4,11 +4,14 @@
 ``JobSpec``, ``InstanceRecord`` and ``compute_discount`` are the reference's.
 ``InstanceRuntime`` is rewritten for one CUDA card: the reference lowers the
 job's step on the instance's sub-mesh and prices the compiled program; the
-port runs the job's real train step (``launch/lowering.py::build_cell``) and
-measures it, once per (arch, suite), in ``measure_job``:
+port runs the job's real step (``launch/lowering.py::build_cell``: the train
+step with ``job.grad_accum`` microbatches, the prefill, or one decode step)
+and measures it, once per (arch, suite, grad_accum), in ``measure_job``:
 
   * ``step_s``: the median of ``TIMED_STEPS`` steps after ``WARMUP_STEPS``,
-    by CUDA events (by the host clock on the CPU);
+    by CUDA events (by the host clock on the CPU). A step of g microbatches
+    counts as g steps toward both: ceil(WARMUP_STEPS / g) whole steps warm
+    up and ceil(TIMED_STEPS / g) are timed, at least one each;
   * ``peak_bytes_per_device``: ``torch.cuda.max_memory_allocated`` over the
     timed steps, its counter reset after the warm-up, less what the process
     held before the job was built (not measured on the CPU, where it is 0).
@@ -16,10 +19,14 @@ measures it, once per (arch, suite), in ``measure_job``:
     there, in workspaces sized to the memory that is free, and only in a
     process that has not tuned these shapes yet: with it in, the peak would
     depend on what the process ran before;
-  * FLOPs, bytes, collectives and the fingerprint of one more step, traced
-    (``telemetry/counts.py``); the bytes by the reference's fused traffic
-    model (``telemetry/hlo.py``), as the reference's record reads
-    ``hlo_flops_bytes``.
+  * FLOPs, bytes, collectives and the fingerprint of one more whole step,
+    traced (``telemetry/counts.py``; on the card each launch of a
+    hand-written kernel is an entry of its own, with the FLOPs of its
+    products); the bytes by the reference's fused traffic model
+    (``telemetry/hlo.py``), as the reference's record reads
+    ``hlo_flops_bytes``;
+  * the step's output is finite: the loss of a train step, the logits of a
+    prefill or decode step.
 
 A record of the whole card (``partitioned=False``, the "non-MIG" solo) carries
 the measured step. A MIG instance cannot be carved without root and
@@ -145,23 +152,26 @@ class InstanceRecord:
 
 @dataclasses.dataclass(frozen=True)
 class JobMeasurement:
-    """One job's train step as it ran on one device; every cell that places
-    the job reuses it (the program is the same on every instance)."""
+    """One job's step as it ran on one device; every cell that places the
+    job reuses it (the program is the same on every instance)."""
 
     step_s: float  # median of the timed steps
     peak_bytes: float  # 0.0 where not measured (the CPU)
-    flops: float  # FlopCounterMode over one traced step
+    flops: float  # the op counters over one traced step
     bytes: float  # telemetry/hlo.py's traffic model over the same step
     fingerprint: str
     collectives: Dict
     peak_flops: float  # the card's peak for the type the products compute in
     model_flops: float
     measured: Tuple[str, ...]  # fields of a whole-card record this measured
+    #: the hand-written kernels' entries in the counted step: name ->
+    #: (launches, FLOPs); none off the card, where their plain versions run
+    kernels: Dict[str, Tuple[int, float]] = dataclasses.field(default_factory=dict)
 
 
 def measure_job(job: JobSpec, cfg, device: torch.device) -> JobMeasurement:
-    """Build ``job``'s train step from the model config ``cfg`` on ``device``
-    and measure it (module docstring)."""
+    """Build ``job``'s step from the model config ``cfg`` on ``device`` and
+    measure it (module docstring)."""
     from repro_torch.launch.lowering import active_params, build_cell
     from repro_torch.launch.train import cudnn_flags
     from repro_torch.telemetry.counts import count_step
@@ -170,32 +180,35 @@ def measure_job(job: JobSpec, cfg, device: torch.device) -> JobMeasurement:
     if on_card:
         torch.cuda.synchronize(device)
         held = torch.cuda.memory_allocated(device)
-    model, state, batch, step = build_cell(cfg, job.suite, device)
+    g = job.grad_accum
+    warmup, timed = max(1, math.ceil(WARMUP_STEPS / g)), max(1, math.ceil(TIMED_STEPS / g))
+    model, state, batch, step = build_cell(cfg, job.suite, device, grad_accum=g)
     times = []
     with cudnn_flags():
-        for i in range(WARMUP_STEPS + TIMED_STEPS):
-            if on_card and i == WARMUP_STEPS:
+        for i in range(warmup + timed):
+            if on_card and i == warmup:
                 torch.cuda.synchronize(device)
                 torch.cuda.reset_peak_memory_stats(device)
             if on_card:
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 start.record()
-                state, metrics = step(state, batch)
+                state, out = step(state, batch)
                 end.record()
                 end.synchronize()
                 seconds = start.elapsed_time(end) * 1e-3
             else:
                 t0 = time.perf_counter()
-                state, metrics = step(state, batch)
+                state, out = step(state, batch)
                 seconds = time.perf_counter() - t0
-            if i >= WARMUP_STEPS:
+            if i >= warmup:
                 times.append(seconds)
-        loss = float(metrics["loss"])
+        what = "loss" if job.suite.kind == "train" else "logits"
+        finite = bool(torch.isfinite(out[what]).all())
         peak = float(torch.cuda.max_memory_allocated(device) - held) if on_card else 0.0
         _, counts = count_step(lambda: step(state, batch), inputs=(state, batch))
-    if not math.isfinite(loss):
-        raise FloatingPointError(f"{job.name}: loss {loss} after {WARMUP_STEPS + TIMED_STEPS} steps")
-    del state, batch
+    if not finite:
+        raise FloatingPointError(f"{job.name}: {what} not finite after {warmup + timed} steps")
+    del state, batch, out
     if on_card:
         torch.cuda.empty_cache()
     return JobMeasurement(
@@ -209,15 +222,16 @@ def measure_job(job: JobSpec, cfg, device: torch.device) -> JobMeasurement:
         model_flops=rl.model_flops(cfg, job.suite, active_params(cfg, model.param_count())),
         measured=("step_s", "peak_bytes_per_device", "hlo_fingerprint") if on_card
         else ("step_s", "hlo_fingerprint"),
+        kernels=counts.kernels,
     )
 
 
 class InstanceRuntime:
     """An instance of the card plus the machinery to characterize jobs on it.
 
-    ``measurements`` maps (arch, suite) to the job's ``JobMeasurement``; pass
-    one dict to every runtime of a characterization so that each job is
-    measured once.
+    ``measurements`` maps (arch, suite, grad_accum) to the job's
+    ``JobMeasurement``; pass one dict to every runtime of a characterization
+    so that each job is measured once.
     """
 
     def __init__(
@@ -226,7 +240,7 @@ class InstanceRuntime:
         *,
         partitioned: bool = True,
         sku=None,
-        measurements: Optional[Dict[Tuple[str, ShapeSuite], JobMeasurement]] = None,
+        measurements: Optional[Dict[Tuple[str, ShapeSuite, int], JobMeasurement]] = None,
     ):
         from repro_torch.core.device import get_sku
 
@@ -253,7 +267,7 @@ class InstanceRuntime:
         ``job.arch`` unless ``measurements`` already holds it."""
         from repro_torch.configs.registry import get_config
 
-        key = (job.arch, job.suite)
+        key = (job.arch, job.suite, job.grad_accum)
         if key not in self.measurements:
             self.measurements[key] = measure_job(job, get_config(job.arch), self.inst.device)
         return self.measurements[key]
@@ -271,7 +285,8 @@ class InstanceRuntime:
     # -- characterization ---------------------------------------------------
 
     def characterize(self, job: JobSpec) -> InstanceRecord:
-        """Measure ``job`` (once) and derive the paper row for this instance."""
+        """Measure ``job`` (once) and derive the paper row for this instance;
+        a train, prefill or decode job, as the reference's takes any."""
         m = self.measure(job)
         share = self.sku.profile(self.profile).mem_units / self.sku.n_units
         report = rl.RooflineReport(

@@ -7,7 +7,9 @@ module checks what the kernel takes, chooses how many blocks of a thread block
 cluster share the sweep of one (batch, kv head) (from the shapes alone),
 allocates the output, launches on PyTorch's current stream and counts the
 launches. For a tensor on the CPU, and only then, it computes the same
-function with the plain version in ``kernels/ref.py``.
+function with the plain version in ``kernels/ref.py``. While an op counter is
+active each launch reports its work (``record_launch``): the valid cache
+rows, q and the output, and 4·D FLOPs per valid row and query head.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.telemetry import counts
 
 HEAD_DIMS = (64, 112, 128, 160)
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
@@ -115,6 +118,28 @@ def _check_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, o
             )
 
 
+def flops(B: int, H: int, D: int, kv_len: int) -> int:
+    """The decode kernel's (K4) product FLOPs: q·k and p·v, 4·D per valid
+    cache row and query head."""
+    return 4 * D * B * H * kv_len
+
+
+def record_launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, kv_len: Union[torch.Tensor, int],
+                  out: torch.Tensor) -> None:
+    """Report one launch to the active op counters, if any: q and the
+    caches' valid rows read, ``out`` written. A device ``kv_len`` is read on
+    the host here, and the valid rows sliced, outside the counters' sight."""
+    if not counts.recording():
+        return
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        n = int(kv_len.reshape(()).item() if isinstance(kv_len, torch.Tensor) else kv_len)
+        valid = [k_cache[:, :n], v_cache[:, :n]]
+    B, H, D = q.shape
+    counts.record_kernel("decode_attention", [q, *valid], [out], flops(B, H, D, n))
+
+
 def decode_attention(
     q: torch.Tensor,  # (B, H, D) one new token per sequence
     k_cache: torch.Tensor,  # (B, Smax, KVH, D)
@@ -173,4 +198,5 @@ def decode_attention(
         why = _build.LAUNCH_ERRORS.get(err, f"CUDA error {err}")
         raise RuntimeError(f"decode_attention kernel launch failed: {why}")
     launch_count += 1
+    record_launch(q, k_cache, v_cache, kv_len, out)
     return out

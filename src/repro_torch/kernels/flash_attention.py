@@ -10,6 +10,12 @@ PyTorch's current stream and counts the launches. For a tensor on the CPU, and
 only then, it computes the same functions with the plain versions in
 ``kernels/ref.py``. ``kernels/ops.py`` wires the two directions together as a
 ``torch.autograd.Function``.
+
+Each launch also reports its work to the op counters while one is active
+(``telemetry/counts.py::record_kernel``): its operands and outputs, and the
+FLOPs of its products on the (query row, key) pairs the mask leaves live
+(``live_pairs``): 4·D a pair forward (q·k, p·v), 8·D for the dk/dv kernel
+(q·k, do·v, p·do, ds·q) and 6·D for the dq kernel (q·k, do·v, ds·k).
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.telemetry import counts
 
 #: head dims of the forward kernel (K1) and of the backward kernels (K2, K3);
 #: a call at another head dim raises before any launch
@@ -129,6 +136,43 @@ def tile_plan(G: int, rows: int) -> TilePlan:
     if G <= rows:
         return TilePlan(rows, rows // G, G, 1)
     return TilePlan(rows, 1, rows, -(-G // rows))
+
+
+def live_pairs(B: int, H: int, Sq: int, Skv: int, causal: bool, q_offset: int = 0) -> int:
+    """(query row, key) pairs that attention does not mask, over the batch
+    and all H query heads: under the causal mask row i sees
+    min(q_offset + i + 1, Skv) keys."""
+    if not causal:
+        return B * H * Sq * Skv
+    first = q_offset + 1  # the keys row 0 sees
+    below = max(0, min(Sq, Skv - first + 1))  # rows that see fewer than Skv keys
+    return B * H * (below * first + below * (below - 1) // 2 + (Sq - below) * Skv)
+
+
+def fwd_flops(B: int, H: int, Sq: int, Skv: int, D: int, causal: bool, q_offset: int = 0) -> int:
+    """The forward kernel's (K1) product FLOPs: q·k and p·v, 4·D a live pair."""
+    return 4 * D * live_pairs(B, H, Sq, Skv, causal, q_offset)
+
+
+def bwd_dkv_flops(B: int, H: int, Sq: int, Skv: int, D: int, causal: bool, q_offset: int = 0) -> int:
+    """The dk/dv kernel's (K2) product FLOPs: q·k, do·v, p·do and ds·q, 8·D a
+    live pair."""
+    return 8 * D * live_pairs(B, H, Sq, Skv, causal, q_offset)
+
+
+def bwd_dq_flops(B: int, H: int, Sq: int, Skv: int, D: int, causal: bool, q_offset: int = 0) -> int:
+    """The dq kernel's (K3) product FLOPs: q·k, do·v and ds·k, 6·D a live pair."""
+    return 6 * D * live_pairs(B, H, Sq, Skv, causal, q_offset)
+
+
+def record_launch(name: str, flops_of, q: torch.Tensor, k: torch.Tensor, ins, outs, *, causal: bool,
+                  q_offset: int) -> None:
+    """Report one launch of the flash kernel ``name`` (q (B,KVH,Sq,G,D), k
+    (B,KVH,Skv,D)) to the active op counters, if any: the tensors ``ins`` it
+    reads and ``outs`` it writes, and ``flops_of``'s count of its products."""
+    if counts.recording():
+        B, KVH, Sq, G, D = q.shape
+        counts.record_kernel(name, ins, outs, flops_of(B, KVH * G, Sq, k.shape[2], D, causal, q_offset))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -250,6 +294,7 @@ def flash_attention_fwd(
         )
     _raise_on(err, "forward")
     launch_count += 1
+    record_launch("flash_attention_fwd", fwd_flops, q, k, [q, k, v], [o, lse], causal=causal, q_offset=q_offset)
     return o, lse
 
 
@@ -356,6 +401,8 @@ def launch_bwd_dq(q, k, v, o, do, lse, delta, dq, *, causal: bool, scale: float,
         )
     _raise_on(err, "dq")
     dq_launch_count += 1
+    record_launch("flash_attention_bwd_dq", bwd_dq_flops, q, k, [q, k, v, o, do, lse], [dq, delta], causal=causal,
+                  q_offset=q_offset)
 
 
 def launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, *, causal: bool, scale: float, q_offset: int = 0) -> None:
@@ -370,3 +417,5 @@ def launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, *, causal: bool, scale: floa
         )
     _raise_on(err, "dk/dv")
     dkv_launch_count += 1
+    record_launch("flash_attention_bwd_dkv", bwd_dkv_flops, q, k, [q, k, v, do, lse, delta], [dk, dv],
+                  causal=causal, q_offset=q_offset)

@@ -8,7 +8,9 @@ allocates the outputs, picks how many blocks share the value columns of one
 (batch, head), launches on PyTorch's current stream and counts the launches. For a tensor on the CPU, and only then, it computes the
 same function with the plain version ``kernels/ref.py::wkv6_reference``.
 The kernel has no backward: on the card a call that autograd would have to
-differentiate raises.
+differentiate raises. While an op counter is active each launch reports its
+work (``record_launch``): its operands and outputs, and the products of the
+recurrence, 4·K² a (token, head).
 
 Unlike the reference, which raises when ``T`` is not a multiple of the chunk,
 the kernel masks a short last chunk: any ``T >= 1`` is taken.
@@ -21,6 +23,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.telemetry import counts
 
 HEAD_SIZE = 64
 CHUNK = 64
@@ -103,6 +106,21 @@ def _check_cuda(r, k, v, logw, u, state0) -> None:
         raise ValueError("the wkv6 kernel puts batch and head on grid axes of at most 65535")
 
 
+def flops(B: int, T: int, H: int) -> int:
+    """The WKV6 kernel's (K5) product FLOPs: the recurrence's r_t·S and
+    k_t v_t^T, 2·K² each a (token, head), which the chunked form does as
+    matrix products (K = V = HEAD_SIZE)."""
+    return 4 * HEAD_SIZE * HEAD_SIZE * B * T * H
+
+
+def record_launch(r, k, v, logw, u, state0, out, state) -> None:
+    """Report one launch to the active op counters, if any: r, k, v, logw,
+    u and state0 read, out and the final state written."""
+    if counts.recording():
+        B, T, H, _ = r.shape
+        counts.record_kernel("wkv6_scan", [r, k, v, logw, u, state0], [out, state], flops(B, T, H))
+
+
 def wkv6_scan(
     r: torch.Tensor,  # (B, T, H, K)
     k: torch.Tensor,  # (B, T, H, K)
@@ -149,4 +167,5 @@ def wkv6_scan(
     if err != 0:
         raise RuntimeError(f"wkv6_scan kernel launch failed: CUDA error {err}")
     launch_count += 1
+    record_launch(r, k, v, logw, u, state0, out, state)
     return out, state

@@ -4,8 +4,8 @@ twin of ``repro.launch.lowering``).
 The reference lowers a step function on a mesh and hands back the compiled
 program for its costs. PyTorch runs eagerly and has no program to hand back:
 
-  * ``build_cell`` builds what ``launch/train.py`` builds, on one device,
-    ready to run and to measure (``core/instance.py``);
+  * ``build_cell`` builds the step of a train, prefill or decode suite, on
+    one device, ready to run and to measure (``core/instance.py``);
   * ``lower_cell`` builds the sharded step of ``runtime/`` on a mesh and
     traces one call of it on fake tensors (``FakeTensorMode``: shapes and
     types, no storage, nothing runs) under the op counters, which also
@@ -25,11 +25,11 @@ import contextlib
 import dataclasses
 from typing import Dict
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ShapeSuite
 from repro_torch.configs.registry import get_config
+from repro_torch.convert import from_jax_params
 from repro_torch.data import synthetic
 from repro_torch.models.model_api import build_model
 from repro_torch.models.module import tree_map
@@ -59,30 +59,59 @@ def _batch(cfg, suite: ShapeSuite, seed: int) -> dict:
     return synthetic.batch_for(cfg, suite, seed=seed)
 
 
-def build_cell(cfg, suite: ShapeSuite, device, *, seed: int = 0):
-    """The train step of the model ``cfg`` under ``suite`` on ``device``, as
-    the launcher builds it: the model, random parameters and a zero AdamW
-    state from ``seed``, the synthetic batch of step 0 on ``device``, and the
-    step function. Returns ``(model, state, batch, step)``.
+def build_cell(cfg, suite: ShapeSuite, device, *, seed: int = 0, grad_accum: int = 1):
+    """The step of the model ``cfg`` under ``suite`` on ``device``, with random
+    parameters from ``seed`` and the synthetic batch of step 0 on ``device``,
+    as the reference's ``lower_cell`` builds it. Returns ``(model, state,
+    batch, step)``; ``step(state, batch)`` returns ``(state, out)``:
 
-    Train suites only: prefill and decode cells are not ported yet
-    (ROADMAP.md, Queue 1).
+      * train suites: the launcher's train step (``grad_accum`` microbatches
+        a step, ``runtime/train_step.py``), its state the parameters and a
+        zero AdamW state, ``out`` its metrics (``"loss"``);
+      * prefill suites: the model's prefill of the batch at the suite's batch
+        and length; the state is the parameters, ``out["logits"]`` the last
+        position's logits;
+      * decode suites: one decode step at the last slot of
+        ``model.cache_spec(global_batch, seq_len)``, the cache filled first by a
+        prefill of ``seq_len - 1`` tokens and the token its greedy choice, as
+        ``greedy_generate`` does; the state is ``{"params", "cache"}`` (the step
+        writes its slot in place), ``out["logits"]`` the step's logits.
     """
-    if suite.kind != "train":
-        raise NotImplementedError(
-            f"suite {suite.name!r} is a {suite.kind} suite: only train suites are "
-            "characterized by the port yet (ROADMAP.md, Queue 1)"
-        )
     model = build_model(cfg)
-    opt_cfg = adamw.AdamWConfig()
-    step = ts.build_train_step(model, make_plan(cfg, None), opt_cfg)
+    plan = make_plan(cfg, None)
     gen = torch.Generator(device=device).manual_seed(seed)
-    state = ts.init_train_state(model, gen, opt_cfg, device)
-    batch = {
-        k: torch.from_numpy(np.asarray(v)).to(device)
-        for k, v in _batch(cfg, suite, seed).items()
-    }
-    return model, state, batch, step
+    batch = from_jax_params(_batch(cfg, suite, seed), device)
+    if suite.kind == "train":
+        opt_cfg = adamw.AdamWConfig()
+        step = ts.build_train_step(model, plan, opt_cfg, grad_accum=grad_accum)
+        return model, ts.init_train_state(model, gen, opt_cfg, device), batch, step
+    if grad_accum != 1:
+        raise ValueError(f"a {suite.kind} suite takes no gradient accumulation, not {grad_accum}")
+    params = model.init(gen, device)
+    batch.pop("labels", None)
+    if suite.kind == "prefill":
+        prefill = serve.build_prefill(model, plan)
+
+        def prefill_step(state, batch):
+            last, _ = prefill(state, batch)
+            return state, {"logits": last}
+
+        return model, params, batch, prefill_step
+    S = suite.seq_len  # a decode suite
+    prompt = dict(batch, tokens=batch["tokens"][:, : S - 1])
+    last, cache = serve.build_prefill(model, plan)(params, prompt)
+    cache = serve.pad_cache(cache, 1)
+    decode = serve.build_decode(model, plan, S - 1)
+    token = torch.argmax(last, dim=-1).to(torch.int32)
+    step_batch = {"token": token}
+    if "frames" in batch:  # the encoder-decoder's input, as the decode step's input_specs name it
+        step_batch["frames"] = batch["frames"]
+
+    def decode_step(state, batch):
+        logits, _ = decode(state["params"], batch, state["cache"])
+        return state, {"logits": logits}
+
+    return model, {"params": params, "cache": cache}, step_batch, decode_step
 
 
 # ---------------------------------------------------------------------------

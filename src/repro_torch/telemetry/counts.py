@@ -24,7 +24,16 @@ none, so the port counts the step as it runs, once, under one dispatch mode,
     peak: the trio's f32 convolutions run outside the tensor cores;
   * the bytes of the storages the counted ops hold live, and their peak
     (``live``, ``peak``): each output's storage counted once from its first
-    op until Python frees it, beside the inputs ``hold`` names.
+    op until Python frees it, beside the inputs ``hold`` names;
+  * the hand-written kernels (``KERNEL_OPS``). On the card a kernel wrapper
+    launches its kernel through ``ctypes``, which dispatches no aten op, so
+    the wrapper reports each launch to the active logs itself
+    (``record_kernel``): one entry, under the kernel's name, with its
+    operands, its outputs and the FLOPs of the products it performs on the
+    pairs it does not mask (the formula beside each wrapper). ``OpLog``
+    takes it into ``ops``, ``trace``, ``flops`` and ``product_dtypes`` as it
+    takes an aten op, and raises for an entry it cannot take. Off the card
+    the wrappers run their plain versions, aten ops counted as before.
 
 Under a mesh every count is a device's, as the reference's post-SPMD program
 is: an op on DTensors is let through (``NotImplemented``) to DTensor's own
@@ -97,6 +106,32 @@ class CollectiveOp:
     @property
     def total_raw_bytes(self) -> float:
         return float(self.bytes_result) * self.multiplier
+
+
+#: the hand-written kernels' entries (``record_kernel``), by the name each
+#: wrapper reports: K1, K2, K3, K4 and K5
+KERNEL_OPS = frozenset(
+    ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "decode_attention", "wkv6_scan")
+)
+#: the logs active in this process, innermost last. A process-wide list and
+#: not the dispatch mode's own thread-local stack: autograd runs a CUDA
+#: backward, and so the backward kernels' launches, on a thread of its own.
+_ACTIVE: List["OpLog"] = []
+
+
+def recording() -> bool:
+    """Whether an ``OpLog`` is active, so that a kernel wrapper has a launch
+    to report (and, for the decode kernel, a device length to read)."""
+    return bool(_ACTIVE)
+
+
+def record_kernel(name: str, ins: List[torch.Tensor], outs: List[torch.Tensor], flops: float) -> None:
+    """Report one launch of the hand-written kernel ``name`` to every active
+    ``OpLog``: the tensors it reads (``ins``; a view of only what it reads,
+    as the decode kernel's valid cache rows), those it writes (``outs``) and
+    the FLOPs of its products. Each log raises if it cannot take the entry."""
+    for log in tuple(_ACTIVE):
+        log.record_kernel(name, ins, outs, flops)
 
 
 def _tensors(tree) -> List[torch.Tensor]:
@@ -188,7 +223,30 @@ class OpLog(TorchDispatchMode):
         from torch._guards import active_fake_mode
 
         self._fake_mode = active_fake_mode()
-        return super().__enter__()
+        out = super().__enter__()
+        _ACTIVE.append(self)
+        return out
+
+    def __exit__(self, exc_type, exc_value, traceback):
+        _ACTIVE.remove(self)
+        return super().__exit__(exc_type, exc_value, traceback)
+
+    def record_kernel(self, name: str, ins: List[torch.Tensor], outs: List[torch.Tensor], flops: float) -> None:
+        """Take one launch of a hand-written kernel (``record_kernel``) as
+        ``__torch_dispatch__`` takes an aten op. Raises for an entry it cannot
+        take: a name outside ``KERNEL_OPS`` (the traffic model would not
+        count its bytes) or FLOPs that are not a finite count."""
+        if name not in KERNEL_OPS:
+            raise ValueError(f"kernel {name!r} cannot be recorded: not one of {sorted(KERNEL_OPS)}")
+        flops = float(flops)
+        if not 0.0 <= flops < float("inf"):
+            raise ValueError(f"kernel {name!r} cannot be recorded with {flops} FLOPs")
+        self.ops.append(f"{name}{[tuple(t.shape) for t in ins]}->{[tuple(t.shape) for t in outs]}")
+        self.flops += flops
+        self.product_dtypes[ins[0].dtype] += 1
+        for t in outs:
+            self._track(t)
+        self.trace.append((name, shape_bytes(ins), shape_bytes(outs), flops))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._guards import active_fake_mode
@@ -319,6 +377,19 @@ class StepCounts:
     fingerprint: str
     collectives: Dict
     product_dtype: torch.dtype
+    #: the hand-written kernels' entries: name -> (launches, FLOPs)
+    kernels: Dict[str, Tuple[int, float]] = dataclasses.field(default_factory=dict)
+
+
+def kernel_entries(log: OpLog) -> Dict[str, Tuple[int, float]]:
+    """{kernel name: (entries, FLOPs)} of the hand-written kernels in the
+    log's trace."""
+    out: Dict[str, Tuple[int, float]] = {}
+    for name, _, _, flops in log.trace:
+        if name in KERNEL_OPS:
+            n, f = out.get(name, (0, 0.0))
+            out[name] = (n + 1, f + flops)
+    return out
 
 
 def count_step(fn: Callable[[], Any], inputs: Any) -> Tuple[Any, StepCounts]:
@@ -337,4 +408,5 @@ def count_step(fn: Callable[[], Any], inputs: Any) -> Tuple[Any, StepCounts]:
         fingerprint=log.fingerprint(),
         collectives=collective_summary(log.collectives),
         product_dtype=dtypes[0][0] if dtypes else torch.bfloat16,
+        kernels=kernel_entries(log),
     )

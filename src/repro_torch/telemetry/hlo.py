@@ -48,7 +48,16 @@ with the reference's rules (``hlo_flops_bytes``):
     collective-permute                     all_to_all_single, their legacy
                                            forms, broadcast, send/recv,
                                            shard_dim_alltoall
+    none off the TPU                       the hand-written kernels' entries
+                                           (``KERNEL_OPS``, on the card): each
+                                           reads its operands and writes its
+                                           outputs once
     =====================================  =====================================
+
+    The reference's program has no op for its kernels off the TPU: there its
+    ``ops`` run their plain ``ref`` versions, whose products and reductions
+    it counts as above. On the card the port's kernels run instead, and each
+    launch is one entry of the trace (``OpLog.record_kernel``).
 
   * collectives: ``CollectiveOp``, ``shape_bytes`` and ``collective_summary``
     are ``telemetry/counts.py``'s, re-exported here under the reference's
@@ -62,7 +71,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-from repro_torch.telemetry.counts import CollectiveOp, OpLog, collective_summary, shape_bytes
+from repro_torch.telemetry.counts import KERNEL_OPS, CollectiveOp, OpLog, collective_summary, shape_bytes
 
 __all__ = ["CollectiveOp", "HBM_OPS", "collective_summary", "hlo_flops_bytes", "shape_bytes"]
 
@@ -88,7 +97,7 @@ HBM_OPS = frozenset(
     "all_reduce all_gather_into_tensor reduce_scatter_tensor all_to_all_single broadcast allreduce_ "
     "allgather_ _allgather_base_ allgather_into_tensor_coalesced_ reduce_scatter_ _reduce_scatter_base_ "
     "alltoall_ alltoall_base_ broadcast_ send recv_ shard_dim_alltoall".split()
-)
+) | KERNEL_OPS  # the hand-written kernels: the reference's program has no such op off the TPU
 
 
 def hlo_flops_bytes(log: OpLog, inputs: Any) -> Dict[str, float]:

@@ -159,8 +159,14 @@ def test_collective_containment_reads_the_counted_groups():
 
 
 def test_collocate_refuses_a_workload_beyond_the_trio(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        collocate.main(["--workloads", "granite-3-2b", "--device", "cpu", "--out", str(tmp_path)])
+    """A key beyond the trio, once refused, is characterized at the
+    reference's ``LM_SUITE`` (train_4k), its step accumulated to the suite's
+    batch; ``tests/test_torch_collocate_lm.py`` holds every family."""
+    rc = collocate.main(["--workloads", "granite-3-2b", "--device", "cpu", "--reduced", "--out", str(tmp_path)])
+    assert rc == 0
+    solo = json.loads((tmp_path / "granite-3-2b__non-MIG.json").read_text())
+    assert solo["status"] == "OK" and solo["suite"] == "train_4k" and solo["samples_per_epoch"] == 1_281_167
+    assert solo["records"][0]["shape"] == "train_4k" and solo["measured"] == ["step_s", "hlo_fingerprint"]
 
 
 def test_counts_of_one_matmul_and_one_conv_are_2mnk():
