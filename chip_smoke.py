@@ -62,6 +62,18 @@ weights from a seed:
     by the op counters) against the launch counters and the FLOP reckoning;
     granite's prefill and decode cells on the whole card; llama3-8b skipped,
     its train state beyond the card, nothing allocated;
+  * the examples/ twins (phase_examples), each through its ``main(argv)``:
+    quickstart at llama3-8b's full width and depth 2 (head_dim 128, four
+    query heads a KV head; K1-K4 against their plain versions at the
+    shapes the twin gives them, one step at batch 2, seq 4096 against the
+    non-kernel path, then 30 steps, the checkpoint restored bit for bit, 8
+    tokens generated with every K1 and K4 call held to its plain version on
+    its own inputs), train_lm's lm-100m at its own size (200 steps, the
+    loss falls), the sweep's seven granite-3-2b jobs at depth 2 on the
+    card's seven 1g.10gb instances, alone and then each in a thread on a
+    stream of its own (traces equal bit for bit, solo peaks within the
+    instances' budgets), and the failover (the resumed job against an
+    uninterrupted run);
   * the calibration loop -- each kernel family's calibration measurement
     (``kernels/calibration.py``: K1, K4 and K5 at their calibration shapes,
     timed between CUDA events) held against its plain version; then
@@ -89,6 +101,7 @@ import contextlib
 import ctypes
 import dataclasses
 import hashlib
+import importlib.util
 import json
 import os
 import re
@@ -112,6 +125,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import torch.nn.functional as F  # noqa: E402
 from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
+from repro_torch.checkpoint.store import CheckpointStore  # noqa: E402
 from repro_torch.configs.base import ShapeSuite  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.convert import from_jax_params  # noqa: E402
@@ -1624,45 +1638,46 @@ def wkv_probe():
 
 
 @contextlib.contextmanager
+def rebound(mod, name: str, wrap):
+    """Inside the block ``mod.<name>`` is ``wrap(the original)``; a rebinding
+    made by this script only."""
+    saved = getattr(mod, name)
+    setattr(mod, name, wrap(saved))
+    try:
+        yield
+    finally:
+        setattr(mod, name, saved)
+
+
 def flash_launches_per_step(record: list, times: list):
-    """Inside the block every train step that ``launch.train.run`` builds
+    """Inside the block every train step that ``runtime.train_step`` builds
     appends its (K1, K2, K3) launch counts to ``record`` and its (host ms,
     device ms) to ``times``: the host clock from the call to the end of its
     work on the device (the launcher waits there anyway, for the loss), the
-    device's by CUDA events. Like ``torch_attention_path``, a rebinding made
-    by this script only."""
-    saved = train_step.build_train_step
+    device's by CUDA events."""
+    def wrap(saved):
+        def build(*args, **kwargs):
+            step = saved(*args, **kwargs)
 
-    def build(*args, **kwargs):
-        step = saved(*args, **kwargs)
+            def counted(state, batch):
+                before = (fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count)
+                out, host_ms, device_ms = timed(lambda: step(state, batch))
+                after = (fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count)
+                record.append(tuple(a - b for a, b in zip(after, before)))
+                times.append((host_ms, device_ms))
+                return out
 
-        def counted(state, batch):
-            before = (fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count)
-            out, host_ms, device_ms = timed(lambda: step(state, batch))
-            after = (fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count)
-            record.append(tuple(a - b for a, b in zip(after, before)))
-            times.append((host_ms, device_ms))
-            return out
+            return counted
 
-        return counted
+        return build
 
-    train_step.build_train_step = build
-    try:
-        yield
-    finally:
-        train_step.build_train_step = saved
+    return rebound(train_step, "build_train_step", wrap)
 
 
-@contextlib.contextmanager
 def train_config(cfg):
     """Inside the block ``launch.train.run`` trains ``cfg`` whatever ``--arch``
-    names (the depth-2 resume check); a rebinding made by this script only."""
-    saved = train.get_config
-    train.get_config = lambda arch: cfg
-    try:
-        yield
-    finally:
-        train.get_config = saved
+    names (the depth-2 resume check)."""
+    return rebound(train, "get_config", lambda saved: lambda arch: cfg)
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> tuple:
@@ -3450,6 +3465,264 @@ def phase_calibrate() -> dict:
     return {"kernels": kernels, "launches": launches, "pairs": pairs}
 
 
+# the examples/ twins (phase_examples), each through its main(argv) in this
+# process at its own defaults on the card: quickstart's llama3-8b at full
+# width and depth 2 (head_dim 128, G = 4; its one-step check at the training
+# setup), train_lm's lm-100m, the sweep's seven granite-3-2b jobs and the
+# failover's three (full width, depth 2)
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples"
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module; its ``main`` is called by the phase."""
+    spec = importlib.util.spec_from_file_location(f"example_{name}", EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def launch_deltas(record: list):
+    """A wrapper that appends the K1-K5 launch counts of each call to ``record``."""
+    def wrap(fn):
+        def counted(*args, **kwargs):
+            before = launch_counts()
+            out = fn(*args, **kwargs)
+            after = launch_counts()
+            record.append({k: after[k] - before[k] for k in after})
+            return out
+        return counted
+    return wrap
+
+
+def wall_of(record: list):
+    """A wrapper that appends the host seconds of each call to ``record``."""
+    def wrap(fn):
+        def clocked(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            record.append(time.perf_counter() - t0)
+            return out
+        return clocked
+    return wrap
+
+
+def step_medians(times: list, skip: int = 3) -> dict:
+    """Medians of (host ms, device ms) step readings past the first ``skip``."""
+    return {"median_step_ms": statistics.median(t[0] for t in times[skip:]),
+            "median_step_device_ms": statistics.median(t[1] for t in times[skip:])}
+
+
+def probed_calls(fn_wrapped, records: dict):
+    """A wrapper that runs each call inside ``attention_probed(records)``."""
+    def call(*args, **kwargs):
+        with attention_probed(records):
+            return fn_wrapped(*args, **kwargs)
+    return call
+
+
+def example_quickstart() -> dict:
+    """llama3-8b at full width and depth 2 (head_dim 128, G 4: a shape the
+    other phases do not give K1-K4): K1-K4 against their plain versions at
+    the shapes the twin gives them (training (4, 64) causal, forward and
+    backward; the caches of the generate loop); ``one_step`` at the training
+    setup (batch 2, seq 4096) against the non-kernel path; then the twin's
+    main: 30 steps, the checkpoint round trip (bit for bit), 8 tokens
+    generated with every K1 and K4 call held to its plain version on its own
+    inputs (``attention_probed``); K1 2L a step and L in the prefill, K2/K3 L
+    a step, K4 L in each of the 7 decode steps."""
+    qs = load_example("quickstart_torch")
+    cfg = qs.quickstart_config()
+    L, H, KVH, D = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    require(cfg.remat and D == 128 and cfg.q_groups == 4 and cfg.vocab == 128256
+            and not cfg.tie_embeddings, f"llama3-8b's widths: {cfg}")
+    gen = torch.Generator(device=DEV).manual_seed(25)
+    B, S, prompt = qs.SUITE.global_batch, qs.SUITE.seq_len, 8
+    smax = prompt + qs.NEW_TOKENS
+    kernels = {
+        "flash_attention_fwd": [flash_case(gen, B, S, S, H, KVH, D, True),            # the 30 steps' shape
+                                flash_case(gen, 2, prompt, prompt, H, KVH, D, True)],  # the prefill's
+        "flash_attention_bwd": [flash_bwd_case(gen, B, S, S, H, KVH, D, True, repeat=True)],
+        "decode_attention": decode_case(gen, 2, smax, H, KVH, D, [prompt + 1, smax - 1, smax]),
+        "tolerance": {"o": TOL_BF16, "lse": TOL_LSE},
+    }
+    one = one_step(cfg, build_model(cfg), make_plan(cfg, None))
+    torch.cuda.empty_cache()
+    per_step, times, ckpt_s, probed = [], [], [], {}
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp, flash_launches_per_step(per_step, times), \
+            rebound(qs, "round_trip", wall_of(ckpt_s)), \
+            rebound(qs, "greedy_generate", lambda fn: probed_calls(fn, probed)):
+        t0 = time.perf_counter()
+        r = qs.main(["--ckpt-dir", f"{tmp}/ckpt"])
+        wall = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = {"flash_attention_fwd": qs.STEPS * 2 * L + L, "flash_attention_bwd_dkv": qs.STEPS * L,
+                "flash_attention_bwd_dq": qs.STEPS * L, "decode_attention": L * (qs.NEW_TOKENS - 1),
+                "wkv6_scan": 0}
+    tokens = r["tokens"]
+    generate_calls = {
+        name: {"calls": len(recs), "elements_beyond": sum(rec[0] for rec in recs),
+               "worst_err_over_allowed": max((rec[1] for rec in recs), default=0.0),
+               "max_abs_err": max((rec[2] for rec in recs), default=0.0)}
+        for name, recs in probed.items()}
+    out = {
+        "arch": cfg.name, "layers": L, "head_dim": D, "q_groups": cfg.q_groups,
+        "params": build_model(cfg).param_count(), "suite": dataclasses.astuple(qs.SUITE),
+        "kernels": kernels,
+        "one_step": {k: one[k] for k in ("batch", "seq", "loss_abs_err", "grad_rel_l2_attention_max",
+                                         "grad_rel_l2_other_max", "launches")},
+        "generate_attention_calls": generate_calls,
+        "generate_tolerance": f"{TOL_ROW_RMS} * rms(row) + 1 ulp, against kernels/ref.py in f32",
+        "losses": r["losses"], "grad_norms": r["grad_norms"], **step_medians(times),
+        "ckpt_exact": r["ckpt_exact"], "ckpt_step": r["ckpt_step"], "ckpt_bytes": ckpt_bytes,
+        "ckpt_round_trip_s": ckpt_s[0], "tokens": tokens.tolist(), "wall_s": wall, "peak_memory_gb": peak_gb,
+        "launches": launches, "launches_expected": expected,
+    }
+    emit("example_quickstart", **out)
+    require(launches == expected, f"quickstart launched {launches}, expected {expected}")
+    require(generate_calls["flash_attention_fwd"]["calls"] == L
+            and generate_calls["decode_attention"]["calls"] == L * (qs.NEW_TOKENS - 1),
+            f"the generate loop's probed attention calls {generate_calls}")
+    require(all(rec["elements_beyond"] == 0 for rec in generate_calls.values()),
+            f"a K1 or K4 call of the generate loop is beyond its plain version's tolerance: {generate_calls}")
+    require(all(c == (2 * L, L, L) for c in per_step) and len(per_step) == qs.STEPS,
+            f"quickstart's per-step (K1, K2, K3) {per_step}")
+    require(r["ckpt_exact"] and r["ckpt_step"] == qs.STEPS, "the checkpoint did not restore the saved state")
+    require(np.isfinite(r["losses"]).all() and np.isfinite(r["grad_norms"]).all(), f"losses {r['losses']}")
+    require(tuple(tokens.shape) == (2, qs.NEW_TOKENS) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.padded_vocab, f"generated {tokens}")
+    del r, tokens
+    return out
+
+
+def example_train_lm() -> dict:
+    """lm-100m through the launcher at the reference's defaults (200 steps,
+    batch 8, seq 256): the loss falls; remat off, so K1-K3 L a step each."""
+    tl = load_example("train_lm_torch")
+    cfg = tl.LM100M
+    L = cfg.n_layers
+    require(not cfg.remat and cfg.resolved_head_dim == 64, f"lm-100m: {cfg}")
+    per_step, times = [], []
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp, flash_launches_per_step(per_step, times):
+        r = tl.main(["--ckpt-dir", f"{tmp}/ckpt"])
+    launches = launch_counts()
+    steps = r["steps"]
+    expected = {"flash_attention_fwd": steps * L, "flash_attention_bwd_dkv": steps * L,
+                "flash_attention_bwd_dq": steps * L, "decode_attention": 0, "wkv6_scan": 0}
+    tokens = 8 * 256
+    out = {"arch": cfg.name, "params": build_model(cfg).param_count(), "steps": steps,
+           "batch": 8, "seq": 256, **{k: r[k] for k in ("first_loss", "final_loss", "head_mean_loss",
+                                                         "tail_mean_loss", "mean_step_ms", "wall_s")},
+           **step_medians(times), "tokens_per_s": tokens / (r["mean_step_ms"] * 1e-3),
+           "pipeline": r["pipeline"], "launches": launches, "launches_expected": expected}
+    emit("example_train_lm", **out)
+    require(steps == 200 and r["final_loss"] < r["first_loss"] and r["tail_mean_loss"] < r["head_mean_loss"],
+            f"lm-100m's loss did not fall: {out}")
+    require(launches == expected, f"train_lm launched {launches}, expected {expected}")
+    return out
+
+
+def example_sweep() -> dict:
+    """Seven granite-3-2b jobs (full width, depth 2) on the
+    card's seven 1g.10gb instances, alone and then each in a thread on a
+    stream of its own: the twin raises unless the traces are equal bit for
+    bit; each solo peak within its instance's budget; the collocated peak
+    within PEAK_LIMIT x the solo peaks' sum and the card; each pass's K1-K3
+    launches the jobs' steps x (2L, L, L)."""
+    sw = load_example("collocated_hparam_sweep_torch")
+    passes = []
+    torch.cuda.empty_cache()
+    with rebound(sw, "run_pass", launch_deltas(passes)):
+        r = sw.main([])
+    cfg, solo, par = r["config"], r["solo"], r["par"]
+    L, n_jobs = cfg.n_layers, len(r["instances"])
+    steps = len(next(iter(solo["traces"].values())))
+    expected = {"flash_attention_fwd": n_jobs * steps * 2 * L, "flash_attention_bwd_dkv": n_jobs * steps * L,
+                "flash_attention_bwd_dq": n_jobs * steps * L, "decode_attention": 0, "wkv6_scan": 0}
+    budgets = {a.job.name: inst.hbm_budget_bytes for a, inst in zip(r["schedule"].assignments, r["instances"])}
+    card = torch.cuda.get_device_properties(DEV).total_memory
+    out = {
+        "arch": cfg.name, "layers": L, "params": build_model(cfg).param_count(), "jobs": n_jobs,
+        "profiles": sorted({inst.label for inst in r["instances"]}), "steps": steps,
+        "seq": r["suite"].seq_len, "batch": r["suite"].global_batch,
+        "solo_wall_s": solo["wall_s"], "collocated_wall_s": par["wall_s"], "speedup": r["speedup"],
+        "solo_job_wall_s": solo["job_wall_s"], "collocated_job_wall_s": par["job_wall_s"],
+        "solo_peak_bytes": solo["peaks"], "budget_bytes": budgets,
+        "solo_peak_share_of_budget_max": max(solo["peaks"][n] / budgets[n] for n in budgets),
+        "collocated_peak_bytes": par["device_peak"], "solo_peaks_sum_bytes": sum(solo["peaks"].values()),
+        "card_bytes": card, "traces_equal": all(par["traces"][n] == solo["traces"][n] for n in budgets),
+        "final_losses": {n: t[-1] for n, t in par["traces"].items()}, "winner": r["winner"],
+        "launches_solo": passes[0], "launches_collocated": passes[1], "launches_expected": expected,
+    }
+    emit("example_sweep", **out)
+    require(out["traces_equal"], "a collocated trace differs from its solo trace")
+    require(all(solo["peaks"][n] <= budgets[n] for n in budgets), "a solo peak exceeds its instance's budget")
+    require(par["device_peak"] <= PEAK_LIMIT * out["solo_peaks_sum_bytes"] and par["device_peak"] <= card,
+            f"collocated peak {par['device_peak']} beyond {PEAK_LIMIT} x {out['solo_peaks_sum_bytes']} or the card")
+    require(passes[0] == expected and passes[1] == expected,
+            f"sweep launches solo {passes[0]}, collocated {passes[1]}, expected {expected}")
+    return out
+
+
+def example_failover() -> dict:
+    """Three granite-3-2b jobs (full width, depth 2), 4 steps,
+    unit 0 fails, repack, 4 more: the killed job's 8 losses within TOL_RESUME
+    of an uninterrupted run of the same job; the survivors keep their
+    instances; every job ends with 8 losses; K1-K3 (2L, L, L) a step."""
+    el = load_example("elastic_failover_torch")
+    per_step, times = [], []
+    reset_launch_counts()
+    torch.cuda.empty_cache()
+    with flash_launches_per_step(per_step, times):
+        r = el.main([])
+    launches = launch_counts()
+    cfg, event, traces = r["config"], r["event"], r["traces"]
+    L, total = cfg.n_layers, el.STEPS_BEFORE + el.STEPS_AFTER
+    before = {a.job.name: a.placement for a in r["schedule"].assignments}
+    after = {a.job.name: a.placement for a in event.new_schedule.assignments}
+    uninterrupted = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in event.killed_jobs:
+            inst = el.instance_of(DEV, after[name], el.SKU)
+            uninterrupted[name] = el.train_steps(inst, cfg, r["suite"], CheckpointStore(f"{tmp}/{name}"), name,
+                                                 total, seed=el.job_seed(name))
+    rel = {n: max(abs(a - b) / abs(b) for a, b in zip(traces[n], uninterrupted[n])) for n in uninterrupted}
+    expected = {"flash_attention_fwd": len(traces) * total * 2 * L, "flash_attention_bwd_dkv": len(traces) * total * L,
+                "flash_attention_bwd_dq": len(traces) * total * L, "decode_attention": 0, "wkv6_scan": 0}
+    out = {"arch": cfg.name, "layers": L, "seq": r["suite"].seq_len, "batch": r["suite"].global_batch,
+           "killed": list(event.killed_jobs), "survivors": list(event.survivors),
+           "moved": {n: [before[n].start, after[n].start] for n in event.killed_jobs},
+           "traces": traces, "uninterrupted": uninterrupted, "resume_rel_err_max": rel, "rtol": TOL_RESUME,
+           **step_medians(times, skip=1), "launches": launches, "launches_expected": expected}
+    emit("example_failover", **out)
+    require(event.killed_jobs and all(v <= TOL_RESUME for v in rel.values()),
+            f"a resumed trace is not the uninterrupted one: {rel}")
+    require(all(after[n] == before[n] for n in event.survivors), "a survivor was moved")
+    require(all(len(t) == total and np.isfinite(t).all() for t in traces.values()) and set(traces) == set(before),
+            f"traces {traces}")
+    require(launches == expected, f"failover launched {launches}, expected {expected}")
+    require(len(per_step) == len(traces) * total and all(c == (2 * L, L, L) for c in per_step),
+            f"failover's per-step (K1, K2, K3) {per_step}, expected {(2 * L, L, L)} each")
+    return out
+
+
+def phase_examples() -> dict:
+    """The four examples/ twins on the card, each through its ``main(argv)``."""
+    out = {"quickstart": example_quickstart()}
+    torch.cuda.empty_cache()
+    out["train_lm"] = example_train_lm()
+    torch.cuda.empty_cache()
+    out["sweep"] = example_sweep()
+    torch.cuda.empty_cache()
+    out["failover"] = example_failover()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     device = phase_device()
@@ -3520,6 +3793,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     lm = phase_collocate_lm(cfg, trained, served[cfg.name])
     torch.cuda.empty_cache()
+    examples = phase_examples()
     calib = phase_calibrate()
     calib_k = calib["kernels"]
 
@@ -3573,6 +3847,17 @@ def main() -> None:
     rec_decode = {a: r["baseline"]["decode_k4"] for a, r in recurrent["serve"].items() if r["baseline"]["decode_k4"]}
     slm_served = served[slm_cfg.name]["launches"]
     slm_k1, slm_k2, slm_k3 = slm_step["launches"]
+
+    one_k123 = dict(zip(("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
+                        examples["quickstart"]["one_step"]["launches"]))
+
+    def by_example(name):
+        """A kernel's launches in each run of phase_examples."""
+        ex = examples
+        return {"quickstart_one_step": one_k123.get(name, 0), "quickstart": ex["quickstart"]["launches"][name],
+                "train_lm": ex["train_lm"]["launches"][name], "sweep_solo": ex["sweep"]["launches_solo"][name],
+                "sweep_collocated": ex["sweep"]["launches_collocated"][name],
+                "failover": ex["failover"]["launches"][name]}
     emit("wall", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": [
         dict(row(flash, "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -3590,7 +3875,8 @@ def main() -> None:
              launches_mesh_train_recurrent=rec_train[0], launches_mesh_prefill_recurrent=rec_prefill,
              launches_collocate_lm={"train": lm["train"]["launches"]["flash_attention_fwd"],
                                     "prefill": lm["serve"]["prefill"]["launches"]["flash_attention_fwd"],
-                                    "decode_cache_fill": lm["serve"]["decode"]["launches"]["flash_attention_fwd"]}),
+                                    "decode_cache_fill": lm["serve"]["decode"]["launches"]["flash_attention_fwd"]},
+             launches_examples=by_example("flash_attention_fwd")),
         dict(row(decode, "src/repro_torch/kernels/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:126", served[cfg.name]["launches"]["decode_attention"]),
              launches_calibrate_kernel=calib_k["decode_attention"]["launches"],
@@ -3598,19 +3884,22 @@ def main() -> None:
              d112=at_dim(d112, "decode_attention", served[ZAMBA_ARCH]["launches"]["decode_attention"]),
              launches_serve=served_by["decode_attention"], launches_mesh_decode=meshed["serve"]["baseline"]["decode_k4"],
              launches_mesh_decode_families=mesh_decode, launches_mesh_decode_recurrent=rec_decode,
-             launches_collocate_lm=lm["serve"]["decode"]["launches"]["decode_attention"]),
+             launches_collocate_lm=lm["serve"]["decode"]["launches"]["decode_attention"],
+             launches_examples=by_example("decode_attention")),
         dict(row(dkv, bwd_src, dkv["replaces"], trained["launches"]["flash_attention_bwd_dkv"]),
              d160=at160("flash_attention_bwd_dkv", slm_k2),
              d112=at_dim(d112, "flash_attention_bwd_dkv", zamba_step["launches"][1]), launches_one_step=stepped_by[1],
              launches_mesh_step=mesh_step[1], launches_mesh_train=mesh_train[1],
              launches_mesh_train_recurrent=rec_train[1],
-             launches_collocate_lm=lm["train"]["launches"]["flash_attention_bwd_dkv"]),
+             launches_collocate_lm=lm["train"]["launches"]["flash_attention_bwd_dkv"],
+             launches_examples=by_example("flash_attention_bwd_dkv")),
         dict(row(dq, bwd_src, dq["replaces"], trained["launches"]["flash_attention_bwd_dq"]),
              d160=at160("flash_attention_bwd_dq", slm_k3),
              d112=at_dim(d112, "flash_attention_bwd_dq", zamba_step["launches"][2]), launches_one_step=stepped_by[2],
              launches_mesh_step=mesh_step[2], launches_mesh_train=mesh_train[2],
              launches_mesh_train_recurrent=rec_train[2],
-             launches_collocate_lm=lm["train"]["launches"]["flash_attention_bwd_dq"]),
+             launches_collocate_lm=lm["train"]["launches"]["flash_attention_bwd_dq"],
+             launches_examples=by_example("flash_attention_bwd_dq")),
         dict(row(wkv, "src/repro_torch/kernels/csrc/wkv6_scan.cu", wkv["replaces"],
                  served_rwkv["launches"]["wkv6_scan"]),
              launches_calibrate_kernel=calib_k["wkv6"]["launches"],

@@ -14,7 +14,8 @@ The port does not carve real MIG instances: that needs root and
 characterization prices each from the job measured on the whole card
 (``core/instance.py``). ``device_grid``, ``rows_per_unit``, ``instance_mesh``
 and ``profile_mesh_shape`` have no counterpart: they arrange and cut a grid of
-chips, and one card has none.
+chips, and one card has none. ``partition_homogeneous`` has one: it cuts no
+grid, only lays out the most instances of one profile.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from repro_torch.core.device import get_sku
-from repro_torch.core.profiles import Placement
+from repro_torch.core.profiles import Placement, homogeneous_layout
 
 
 def device_memory_bytes(device: torch.device) -> int:
@@ -76,6 +77,12 @@ def partition(
         )
         for pl in placements
     ]
+
+
+def partition_homogeneous(device: torch.device, profile: str, *, sku=None, **kw) -> List[InstanceDevice]:
+    """The paper's 'parallel' device group: max instances of one profile
+    (seven ``1g.10gb`` instances of an ``h100-80gb``, each one memory unit)."""
+    return partition(device, homogeneous_layout(profile, sku=sku), sku=sku, **kw)
 
 
 def verify_disjoint(instances: Sequence[InstanceDevice]) -> None:

@@ -41,6 +41,7 @@ LAUNCH_ERRORS = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: nvcc processes started since import: stays put while libraries are reused
 n_compiles = 0
@@ -140,6 +141,15 @@ def load(name: str) -> ctypes.CDLL:
                 raise KeyError(f"no kernel source csrc/{name}.cu")
             _libs[name] = ctypes.CDLL(str(paths[name]))
         return _libs[name]
+
+
+def count_launch(namespace: Dict[str, int], name: str) -> None:
+    """Adds one to the launch counter ``name`` of a wrapper module (its
+    ``globals()``) under one lock: jobs that launch from threads of their own
+    (``examples/collocated_hparam_sweep_torch.py``) lose no count, as an
+    unguarded ``+= 1`` can."""
+    with _count_lock:
+        namespace[name] += 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -157,7 +157,6 @@ def decode_attention(
     tensor the kernel writes and returns (it may be a view into a wider
     buffer); on the CPU it is filled with the plain version's result.
     """
-    global launch_count
     _check(q, k_cache, v_cache)
     if q.requires_grad or k_cache.requires_grad or v_cache.requires_grad:
         raise NotImplementedError(
@@ -197,6 +196,6 @@ def decode_attention(
     if err != 0:
         why = _build.LAUNCH_ERRORS.get(err, f"CUDA error {err}")
         raise RuntimeError(f"decode_attention kernel launch failed: {why}")
-    launch_count += 1
+    _build.count_launch(globals(), "launch_count")
     record_launch(q, k_cache, v_cache, kv_len, out)
     return out

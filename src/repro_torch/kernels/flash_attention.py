@@ -261,7 +261,6 @@ def flash_attention_fwd(
     written to and returned as; on the CPU it is filled with the plain
     version's o.
     """
-    global launch_count
     _check(q, k, v)
     B, KVH, Sq, G, D = q.shape
     Skv = k.shape[2]
@@ -293,7 +292,7 @@ def flash_attention_fwd(
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, "forward")
-    launch_count += 1
+    _build.count_launch(globals(), "launch_count")
     record_launch("flash_attention_fwd", fwd_flops, q, k, [q, k, v], [o, lse], causal=causal, q_offset=q_offset)
     return o, lse
 
@@ -392,7 +391,6 @@ def _raise_on(err: int, what: str) -> None:
 def launch_bwd_dq(q, k, v, o, do, lse, delta, dq, *, causal: bool, scale: float, q_offset: int = 0) -> None:
     """One launch of the dq kernel (CUDA tensors only): fills ``dq`` and
     ``delta`` = sum_d o * do, (B,KVH,Sq,G) f32, which the dk/dv kernel reads."""
-    global dq_launch_count
     args = _bwd_args(q, k, v, lse, delta, {"o": o, "do": do, "dq": dq}, DQ_TILE_ROWS, causal, scale, q_offset)
     with torch.cuda.device(q.device):
         err = _bwd_kernels()[1](
@@ -400,7 +398,7 @@ def launch_bwd_dq(q, k, v, o, do, lse, delta, dq, *, causal: bool, scale: float,
             delta.data_ptr(), dq.data_ptr(), *args, torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, "dq")
-    dq_launch_count += 1
+    _build.count_launch(globals(), "dq_launch_count")
     record_launch("flash_attention_bwd_dq", bwd_dq_flops, q, k, [q, k, v, o, do, lse], [dq, delta], causal=causal,
                   q_offset=q_offset)
 
@@ -408,7 +406,6 @@ def launch_bwd_dq(q, k, v, o, do, lse, delta, dq, *, causal: bool, scale: float,
 def launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, *, causal: bool, scale: float, q_offset: int = 0) -> None:
     """One launch of the dk/dv kernel (CUDA tensors only): fills ``dk`` and
     ``dv``. ``delta`` is what ``launch_bwd_dq`` wrote, on the same stream."""
-    global dkv_launch_count
     args = _bwd_args(q, k, v, lse, delta, {"do": do, "dk": dk, "dv": dv}, DKV_TILE_ROWS, causal, scale, q_offset)
     with torch.cuda.device(q.device):
         err = _bwd_kernels()[0](
@@ -416,6 +413,6 @@ def launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, *, causal: bool, scale: floa
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *args, torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, "dk/dv")
-    dkv_launch_count += 1
+    _build.count_launch(globals(), "dkv_launch_count")
     record_launch("flash_attention_bwd_dkv", bwd_dkv_flops, q, k, [q, k, v, do, lse, delta], [dk, dv],
                   causal=causal, q_offset=q_offset)

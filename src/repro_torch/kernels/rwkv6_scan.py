@@ -136,7 +136,6 @@ def wkv6_scan(
     ``chunk`` is part of the reference's signature; the kernel is built for
     chunks of 64 and raises for any other.
     """
-    global launch_count
     _check(r, k, v, logw, u, state0)
     if r.device.type == "cpu":
         return ref.wkv6_reference(r, k, v, logw, u, state0)
@@ -166,6 +165,6 @@ def wkv6_scan(
         )
     if err != 0:
         raise RuntimeError(f"wkv6_scan kernel launch failed: CUDA error {err}")
-    launch_count += 1
+    _build.count_launch(globals(), "launch_count")
     record_launch(r, k, v, logw, u, state0, out, state)
     return out, state
