@@ -9,7 +9,12 @@ at head_dim 160 (stablelm-12b, with a guard case on the first 160 columns of
 buffers 192 wide), K1-K4 at head_dim 112 (zamba2-7b, a guard case on
 buffers 128 wide) and at one query head a KV head (deepseek-moe-16b's and
 whisper-base's shapes, K2/K3 at whisper's cross attention), K5 at
-rwkv6-1.6b's. Then it drives the port's entry points at full size, random
+rwkv6-1.6b's; and K1-K4 on the work of each rank of a ``model`` axis of 16
+that divides the query heads but not the KV heads (phase_shards: K1-K3 on
+each rank's query heads and the KV head they read at granite-3-2b's and
+llama3-8b's training shapes, K4 with its log-sum-exp on each rank's rows of
+sequence-sharded decode caches, merged), against the whole-head and
+whole-cache calls. Then it drives the port's entry points at full size, random
 weights from a seed:
 
   * serving, granite-3-2b, stablelm-12b, rwkv6-1.6b, deepseek-moe-16b and
@@ -193,6 +198,11 @@ WHISPER_ARCH, WHISPER_FRAMES, WHISPER_PROMPT = "whisper-base", 1500, 416
 # cross attention of its 6 decoder layers
 SERVE_LAUNCHES = {"deepseek-moe-16b": (28, 28 * (NEW - 1)), "zamba2-7b": (3, 3 * (NEW - 1)),
                   "whisper-base": (18, 12 * (NEW - 1))}
+# phase_shards: the ranks of a ``model`` axis of 16, one after another on the
+# card (granite-3-2b, llama3-8b, stablelm-12b and qwen2-72b there split their
+# query heads but not their 8 KV heads), and decode_32k's sequence length,
+# over which the caches of those ranks are split
+SHARD_TP, SHARD_SEQ, QUICKSTART_ARCH = 16, 32768, "llama3-8b"
 # the paper's workload trio: batch 32, steps through the launcher, and the
 # samples of an epoch (launch/collocate.py: CIFAR-10's 45,000 training images,
 # ImageNet's 1,281,167)
@@ -844,11 +854,13 @@ def decode_case(gen, B, Smax, H, KVH, D, lens, dtype=torch.bfloat16, by_rows=Fal
     return cases
 
 
-def decode_timed(gen, B, smax, H, KVH, D, kv_n) -> dict:
+def decode_timed(gen, B, smax, H, KVH, D, kv_n, lse: bool = False) -> dict:
     """K4 at one bf16 shape and kv_len: its time beside the plain version's,
     one library call's (with the backend it ran) and the bound. As in the
     model, every layer has its own cache, so a launch finds its cache cold:
-    the launches cycle over more layers than the 50 MB L2 holds."""
+    the launches cycle over more layers than the 50 MB L2 holds. With
+    ``lse``, also the time of flash-decode's partial (o in f32 and the
+    log-sum-exp), ``kernel_lse_ms``, in turns with the plain output."""
     layers = 8
     q = randn(gen, (B, H, D))
     kc = randn(gen, (layers, B, smax, KVH, D))
@@ -863,6 +875,11 @@ def decode_timed(gen, B, smax, H, KVH, D, kv_n) -> dict:
         return run
 
     kernel_ms = gpu_ms(cycle(lambda a, b: da.decode_attention(q, a, b, kv_len)), iters=40)
+    timed_lse = {}
+    if lse:
+        timed_lse["kernel_lse_ms"] = gpu_ms(cycle(lambda a, b: da.decode_attention(q, a, b, kv_len, return_lse=True)),
+                                            iters=40)
+        timed_lse["kernel_again_ms"] = gpu_ms(cycle(lambda a, b: da.decode_attention(q, a, b, kv_len)), iters=40)
     plain_ms = gpu_ms(cycle(lambda a, b: ref.decode_attention_reference(q, a, b, kv_len=kv_len)), iters=8)
     # yardstick only: one library call over the valid prefix of the cache, in
     # place. Which call is settled by the installed PyTorch (enable_gqa came
@@ -893,7 +910,7 @@ def decode_timed(gen, B, smax, H, KVH, D, kv_n) -> dict:
     return {
         "shape": f"q ({B},{H},{D}) caches ({B},{smax},{KVH},{D}) bf16 kv_len {kv_n}",
         "kv_splits": da.n_splits(B, KVH, H // KVH, smax, _build.sm_count(0)),
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "kernel_ms": kernel_ms, **timed_lse, "plain_ms": plain_ms, "library_ms": library_ms,
         "library_call": library_call, "library_backend": backend, "library_vs_kernel_max_abs_err": lib_err,
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "bound_reckoned": f"max({flops:.4g} FLOP / 989 TFLOP/s, {nbytes:.4g} B / 3.35 TB/s)",
@@ -1388,6 +1405,180 @@ def phase_g7(cfg) -> dict:
     out = {"arch": cfg.name, "flash_attention_fwd": flash, "decode_attention": decode, "flash_attention_bwd": bwd,
            "tolerance": f"{TOL_ROW_RMS} * rms(row) + 1 ulp at the training shape, {TOL_BF16} at the small ones"}
     emit("kernel_g7", **out)
+    return out
+
+
+class EmulatedRank:
+    """What ``dist.head_split`` reads of a ``DeviceMesh``: rank ``rank`` of a
+    ``model`` axis of ``tp`` ranks. It lets one card do, in turn, the work
+    that each rank of a (data, model) mesh would do."""
+
+    def __init__(self, tp: int, rank: int):
+        self.mesh_dim_names, self.mesh, self.rank = ("data", "model"), torch.empty(1, tp), rank
+
+    def get_local_rank(self, name: str) -> int:
+        require(name == dist.TP_AXIS, f"no mesh dim {name}")
+        return self.rank
+
+
+def shard_flash_case(gen, B, S, H, KVH, D, tp) -> dict:
+    """K1, K2 and K3 on each of ``tp`` ``model`` ranks' query heads and the KV
+    heads those read (``dist.head_split``), as the sharded steps run them
+    where ``model`` divides the query heads but not the KV heads: the ranks'
+    o, lse and dq concatenated and their dk, dv summed over the ranks that
+    share a KV head (in f32, as the partial sum over ``model`` adds them),
+    against the whole-head calls and against the plain versions."""
+    q, do = randn(gen, (B, S, H, D)), randn(gen, (B, S, H, D))
+    k, v = randn(gen, (B, S, KVH, D)), randn(gen, (B, S, KVH, D))
+    kw = dict(causal=True, scale=D**-0.5)
+    o_w, lse_w = fa.flash_attention_fwd(ops._fold(q, KVH), ops._kv_fold(k), ops._kv_fold(v), **kw)
+    dq_w, dk_w, dv_w = fa.flash_attention_bwd(ops._fold(q, KVH), ops._kv_fold(k), ops._kv_fold(v), o_w, lse_w,
+                                              ops._fold(do, KVH), **kw)
+    o_w, dq_w, lse_w = ops._unfold(o_w), ops._unfold(dq_w), lse_w.permute(0, 2, 1, 3).reshape(B, S, H)
+    dk_w, dv_w = dk_w.permute(0, 2, 1, 3), dv_w.permute(0, 2, 1, 3)
+    o, dq, lse = torch.empty_like(q), torch.empty_like(q), torch.empty(B, S, H, device=DEV)
+    dk, dv = torch.zeros(k.shape, device=DEV), torch.zeros(v.shape, device=DEV)
+    launches0 = fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count
+    groups = set()
+    for r in range(tp):
+        pick = dist.head_split(EmulatedRank(tp, r), H, KVH)
+        heads = slice(r * H // tp, (r + 1) * H // tp)
+        kl, vl = k[:, :, pick], v[:, :, pick]  # views of the whole K/V, read in place
+        kvh = kl.shape[2]
+        qf, dof = ops._fold(q[:, :, heads], kvh), ops._fold(do[:, :, heads], kvh)
+        groups.add((kvh, qf.shape[3]))
+        o_r, lse_r = fa.flash_attention_fwd(qf, ops._kv_fold(kl), ops._kv_fold(vl), **kw)
+        dq_r, dk_r, dv_r = fa.flash_attention_bwd(qf, ops._kv_fold(kl), ops._kv_fold(vl), o_r, lse_r, dof, **kw)
+        o[:, :, heads], dq[:, :, heads] = ops._unfold(o_r), ops._unfold(dq_r)
+        lse[:, :, heads] = lse_r.permute(0, 2, 1, 3).reshape(B, S, -1)
+        dk[:, :, pick] += dk_r.permute(0, 2, 1, 3).float()
+        dv[:, :, pick] += dv_r.permute(0, 2, 1, 3).float()
+    torch.cuda.synchronize()
+    launches = [a - b for a, b in zip((fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count), launches0)]
+    require(launches == [tp] * 3, f"the ranks' calls launched {launches}, not {tp} of each kernel")
+    label = f"shards of flash B{B} S{S} H{H} KVH{KVH} D{D} over {tp} model ranks"
+    out = {"shape": f"q ({B},{S},{H},{D}) k/v ({B},{S},{KVH},{D}) bf16 causal, {tp} ranks",
+           "local_groups": sorted(groups), "launches": dict(zip(("fwd", "dkv", "dq"), launches))}
+    # against the whole-head calls: the same kernels, other tiles of rows
+    out["vs_whole"] = {"o": check_rows(label + " o vs whole", o, o_w)["max_abs_err"],
+                       "lse": check(label + " lse vs whole", lse, lse_w, TOL_LSE),
+                       "dq": check_rows(label + " dq vs whole", dq, dq_w)["max_abs_err"]}
+    for name, got, want in (("dk", dk, dk_w), ("dv", dv, dv_w)):
+        floor = TOL_GRAD_FLOOR * want.float().square().mean().sqrt().item()
+        out["vs_whole"][name] = check_rows(f"{label} {name} vs whole", got.to(want.dtype), want, floor)["max_abs_err"]
+    del o_w, dq_w, dk_w, dv_w
+    torch.cuda.empty_cache()
+    # against the plain versions of the whole call
+    o_ref, lse_ref = ref.mha_reference_with_lse(q, k, v, **kw)
+    out["vs_plain"] = {"o": check_rows(label + " o", o, o_ref)["max_abs_err"],
+                       "lse": check(label + " lse", lse, lse_ref, TOL_LSE)}
+    del o_ref, lse_ref
+    torch.cuda.empty_cache()
+    lse_f = lse.reshape(B, S, KVH, H // KVH).permute(0, 2, 1, 3).contiguous()
+    want = ref.flash_attention_bwd_reference(ops._fold(q, KVH), ops._kv_fold(k), ops._kv_fold(v), ops._fold(o, KVH),
+                                             lse_f, ops._fold(do, KVH), **kw)
+    for name, got, w in (("dq", dq, ops._unfold(want[0])), ("dk", dk, want[1].permute(0, 2, 1, 3)),
+                         ("dv", dv, want[2].permute(0, 2, 1, 3))):
+        floor = TOL_GRAD_FLOOR * w.float().square().mean().sqrt().item()
+        out["vs_plain"][name] = check_rows(f"{label} {name}", got.to(w.dtype), w, floor)["max_abs_err"]
+    del want
+    torch.cuda.empty_cache()
+    return out
+
+
+def stacked_reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+    """The all-reduce over the emulated ranks, whose partials are stacked on dim 0."""
+    return t.amax(0, keepdim=True) if op == "max" else t.sum(0, keepdim=True)
+
+
+def shard_decode_case(gen, B, smax, H, KVH, D, tp, lens) -> list:
+    """K4 with its log-sum-exp on each of ``tp`` sequence shards of one
+    layer's caches, as each rank of a sequence-sharded cache runs it, the
+    partials merged (``ops.merge_partials``), against K4 on the whole caches
+    and the plain version, at each kv_len of ``lens``: shards past kv_len
+    must give o = 0 and lse = -inf, and nothing may be NaN."""
+    q = randn(gen, (B, H, D))
+    kc, vc = randn(gen, (B, smax, KVH, D)), randn(gen, (B, smax, KVH, D))
+    rows = smax // tp
+    kv_len = torch.zeros(1, dtype=torch.int32, device=DEV)
+    cases = []
+    for n in lens:
+        kv_len.fill_(n)
+        launches0 = da.launch_count
+        parts = [da.decode_attention(q, kc[:, r * rows:(r + 1) * rows], vc[:, r * rows:(r + 1) * rows],
+                                     ops.local_kv_len(kv_len, r * rows, rows), return_lse=True) for r in range(tp)]
+        o, lse = torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
+        merged = ops.merge_partials(o, lse, stacked_reduce, q.dtype)[0]
+        whole = da.decode_attention(q, kc, vc, kv_len)
+        torch.cuda.synchronize()
+        require(da.launch_count - launches0 == tp + 1, "the decode wrapper did not count the shards' launches")
+        label = f"decode shards B{B} Smax{smax} H{H} KVH{KVH} D{D} over {tp} ranks kv_len={n}"
+        empty = [r for r in range(tp) if r * rows >= n]
+        require(all(bool(torch.isneginf(lse[r]).all()) and bool((o[r] == 0).all()) for r in empty),
+                f"{label}: a shard past kv_len gave other than o = 0, lse = -inf")
+        require(not merged.isnan().any(), f"{label}: the merge gave NaN")
+        want_o, want_lse = zip(*(ref.decode_attention_reference(q, kc[:, r * rows:(r + 1) * rows],
+                                                                vc[:, r * rows:(r + 1) * rows],
+                                                                kv_len=max(0, min(n - r * rows, rows)), return_lse=True)
+                                 for r in range(tp)))
+        live = [r for r in range(tp) if r not in empty]
+        plain = ref.decode_attention_reference(q, kc, vc, kv_len=n)
+        cases.append({
+            "B": B, "Smax": smax, "H": H, "KVH": KVH, "D": D, "kv_len": n, "empty_shards": len(empty),
+            "shard_o_max_abs_err": check(label + " shard o", o[live], torch.stack(want_o)[live], TOL_BF16),
+            "shard_lse_max_abs_err": check(label + " shard lse", lse[live], torch.stack(want_lse)[live], TOL_LSE),
+            "merged_vs_whole_max_abs_err": check(label + " merged vs whole", merged, whole, TOL_BF16),
+            "merged_max_abs_err": check_rows(label + " merged", merged, plain)["max_abs_err"],
+        })
+    return cases
+
+
+def phase_shards() -> dict:
+    """The per-rank work of the sharded steps where ``model`` (16 ranks)
+    divides the query heads but not the KV heads, one rank after another on
+    this card, at full width: K1-K3 on each rank's 2 query heads and the KV
+    head they read (local group 2) at granite-3-2b's (head_dim 64) and
+    llama3-8b's (head_dim 128) training shapes (batch 2, seq 4096); K4 with
+    its log-sum-exp on each rank's 2048 of the 32768 rows of decode_32k's
+    caches (a device's 8 sequences), merged, against K4 on the whole caches,
+    at kv_len that fills every shard, ends mid-shard (shards past it
+    empty), ends on a shard's edge and leaves all but the first shard empty.
+    Then each kernel timed on one rank's part, K4 with and without the
+    log-sum-exp, and K1-K4 at llama3-8b's own shapes (head_dim 128, G 4) timed
+    alone beside their bounds and the library calls."""
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    out = {"tp": SHARD_TP, "flash": {}, "decode": {}, "timed": {}}
+    rows = SHARD_SEQ // SHARD_TP
+    archs = [get_config(arch) for arch in (ARCH, QUICKSTART_ARCH)]
+    launches0 = {name: getattr(mod, attr) for name, mod, attr in KERNEL_COUNTERS}
+    for cfg in archs:
+        H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        out["flash"][cfg.name] = shard_flash_case(gen, TRAIN_BATCH, TRAIN_SEQ, H, KVH, D, SHARD_TP)
+        out["decode"][cfg.name] = shard_decode_case(gen, BATCH, SHARD_SEQ, H, KVH, D, SHARD_TP,
+                                                    [SHARD_SEQ, 5 * rows + 77, 2 * rows, 1])
+        torch.cuda.empty_cache()
+    # the checks' launches: the ranks' calls and the whole-head and whole-cache ones
+    out["launches"] = {name: getattr(mod, attr) - launches0[name] for name, mod, attr in KERNEL_COUNTERS}
+    for cfg in archs:
+        # one rank's part: 2 query heads, their KV head; K4 on a shard's rows, with and without the lse
+        H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        out["timed"][cfg.name] = {
+            "flash_attention_fwd": flash_fwd_timed(gen, TRAIN_BATCH, TRAIN_SEQ, H // SHARD_TP, 1, D),
+            **dict(zip(("flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
+                       flash_bwd_timed(gen, TRAIN_BATCH, TRAIN_SEQ, H // SHARD_TP, 1, D))),
+            "decode_attention": decode_timed(gen, BATCH, rows, H, KVH, D, rows, lse=True),
+        }
+        torch.cuda.empty_cache()
+    cfg = archs[1]
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    out["timed"]["d128_g4"] = {
+        "flash_attention_fwd": flash_fwd_timed(gen, TRAIN_BATCH, TRAIN_SEQ, H, KVH, D),
+        **dict(zip(("flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
+                   flash_bwd_timed(gen, TRAIN_BATCH, TRAIN_SEQ, H, KVH, D))),
+        "decode_attention": decode_timed(gen, BATCH, PROMPT + NEW, H, KVH, D, PROMPT + NEW // 2),
+    }
+    torch.cuda.empty_cache()
+    emit("shards", **out)
     return out
 
 
@@ -3736,6 +3927,7 @@ def main() -> None:
     d112 = phase_d112(get_config(ZAMBA_ARCH))
     phase_g1()
     phase_g7(get_config(LLAVA_ARCH))
+    shards = phase_shards()
     rwkv_cfg = get_config(RWKV_ARCH)
     wkv = phase_wkv6(rwkv_cfg)
     torch.cuda.empty_cache()
@@ -3836,7 +4028,8 @@ def main() -> None:
     # In phase mesh_families, by arch: K1-K3 in one sharded train step
     # (launches_mesh_train, baseline), K1 in the sharded prefill
     # (launches_mesh_prefill) and K4 in the sharded decode step
-    # (launches_mesh_decode), baseline.
+    # (launches_mesh_decode), baseline. In phase shards: K1-K4 on the 16
+    # emulated model ranks' parts, checked and timed (launches_shards).
     bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     mesh_step = meshed["train"]["baseline"]["launches_per_step"][0]
     mesh_train = [{a: r["baseline"]["launches_per_step"][0][i] for a, r in families["train"].items()} for i in range(3)]
@@ -3876,7 +4069,8 @@ def main() -> None:
              launches_collocate_lm={"train": lm["train"]["launches"]["flash_attention_fwd"],
                                     "prefill": lm["serve"]["prefill"]["launches"]["flash_attention_fwd"],
                                     "decode_cache_fill": lm["serve"]["decode"]["launches"]["flash_attention_fwd"]},
-             launches_examples=by_example("flash_attention_fwd")),
+             launches_examples=by_example("flash_attention_fwd"),
+             launches_shards=shards["launches"]["flash_attention_fwd"]),
         dict(row(decode, "src/repro_torch/kernels/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:126", served[cfg.name]["launches"]["decode_attention"]),
              launches_calibrate_kernel=calib_k["decode_attention"]["launches"],
@@ -3885,21 +4079,24 @@ def main() -> None:
              launches_serve=served_by["decode_attention"], launches_mesh_decode=meshed["serve"]["baseline"]["decode_k4"],
              launches_mesh_decode_families=mesh_decode, launches_mesh_decode_recurrent=rec_decode,
              launches_collocate_lm=lm["serve"]["decode"]["launches"]["decode_attention"],
-             launches_examples=by_example("decode_attention")),
+             launches_examples=by_example("decode_attention"),
+             launches_shards=shards["launches"]["decode_attention"]),
         dict(row(dkv, bwd_src, dkv["replaces"], trained["launches"]["flash_attention_bwd_dkv"]),
              d160=at160("flash_attention_bwd_dkv", slm_k2),
              d112=at_dim(d112, "flash_attention_bwd_dkv", zamba_step["launches"][1]), launches_one_step=stepped_by[1],
              launches_mesh_step=mesh_step[1], launches_mesh_train=mesh_train[1],
              launches_mesh_train_recurrent=rec_train[1],
              launches_collocate_lm=lm["train"]["launches"]["flash_attention_bwd_dkv"],
-             launches_examples=by_example("flash_attention_bwd_dkv")),
+             launches_examples=by_example("flash_attention_bwd_dkv"),
+             launches_shards=shards["launches"]["flash_attention_bwd_dkv"]),
         dict(row(dq, bwd_src, dq["replaces"], trained["launches"]["flash_attention_bwd_dq"]),
              d160=at160("flash_attention_bwd_dq", slm_k3),
              d112=at_dim(d112, "flash_attention_bwd_dq", zamba_step["launches"][2]), launches_one_step=stepped_by[2],
              launches_mesh_step=mesh_step[2], launches_mesh_train=mesh_train[2],
              launches_mesh_train_recurrent=rec_train[2],
              launches_collocate_lm=lm["train"]["launches"]["flash_attention_bwd_dq"],
-             launches_examples=by_example("flash_attention_bwd_dq")),
+             launches_examples=by_example("flash_attention_bwd_dq"),
+             launches_shards=shards["launches"]["flash_attention_bwd_dq"]),
         dict(row(wkv, "src/repro_torch/kernels/csrc/wkv6_scan.cu", wkv["replaces"],
                  served_rwkv["launches"]["wkv6_scan"]),
              launches_calibrate_kernel=calib_k["wkv6"]["launches"],

@@ -54,7 +54,14 @@
 //     the stream would not hide;
 //   * slots at or past kv_len are never used: tiles past it are not loaded,
 //     the tail of the last one is masked (p = 0). Smax need not divide
-//     anything.
+//     anything;
+//   * optionally the kernel writes the partial that flash-decode merges
+//     across the ranks that split a cache's sequence: o in f32, so that the
+//     merged output is rounded once, and each query head's log-sum-exp of
+//     the scaled scores over the valid rows, (B, H) f32. The cluster's
+//     combining blocks already hold each head's max and sum, so it costs one
+//     store a head. A cache with no valid row (kv_len 0, a shard past the
+//     sequence's end) gives o = 0 and lse = -inf.
 
 #include <cooperative_groups.h>
 
@@ -75,7 +82,8 @@ constexpr int R = 16 * NWARPS;  // cache rows a tile: 16 a warp
 struct DecodeParams {
   const void* q;      // (B, H, D), rows q_sb, q_sh elements apart, D contiguous
   const int* kv_len;  // 1 element, device
-  void* out;          // (B, H, D), rows o_sb, o_sh elements apart, D contiguous
+  void* out;          // (B, H, D), rows o_sb, o_sh elements apart, D contiguous; in T, or f32 with lse
+  float* lse;         // (B, H) contiguous, or null: the log-sum-exp of scale * q.k over the valid rows
   long long q_sb, q_sh, o_sb, o_sh;
   int H, G, Smax, n_gt;
   float scale;
@@ -314,7 +322,25 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ 
         at += w * cluster.map_shared_rank(res_acc, j)[idx];
       }
     }
-    static_cast<T*>(p.out)[b * p.o_sb + (kvh * p.G + g0 + h) * p.o_sh + d] = Cvt<T>::from_float(at / fmaxf(lt, 1e-30f));
+    const long long o_at = b * p.o_sb + (kvh * p.G + g0 + h) * p.o_sh + d;
+    if (p.lse == nullptr)
+      static_cast<T*>(p.out)[o_at] = Cvt<T>::from_float(at / fmaxf(lt, 1e-30f));
+    else
+      static_cast<float*>(p.out)[o_at] = at / fmaxf(lt, 1e-30f);
+  }
+  // flash-decode's log-sum-exp, one thread a head, in a loop of its own (in
+  // the loop above its registers would spill at D = 64): the same max and sum
+  // in the same order; scores are raw in m, so lse = scale * m + ln(sum)
+  if (p.lse != nullptr) {
+    for (int h = rank * NTHREADS + tid; h < HEADS; h += CL * NTHREADS) {
+      if (g0 + h >= p.G) continue;
+      float mt = NEG_INF;
+      for (int j = 0; j < CL; ++j) mt = fmaxf(mt, cluster.map_shared_rank(res_m, j)[h]);
+      float lt = 0.f;
+      for (int j = 0; j < CL; ++j)
+        lt += exp2_ftz((cluster.map_shared_rank(res_m, j)[h] - mt) * c2) * cluster.map_shared_rank(res_l, j)[h];
+      p.lse[b * p.H + kvh * p.G + g0 + h] = lt > 0.f ? fmaf(mt, p.scale, __logf(lt)) : __int_as_float(0xff800000);
+    }
   }
   cluster.sync();  // no block leaves while another still reads its partial
 }
@@ -390,16 +416,16 @@ int map_cache(CUtensorMap* map, const void* base, int dtype, const long long* s,
 
 }  // namespace
 
-// Strides are in elements: k b,s,kvh | v b,s,kvh | q b,h | out b,h. dtype: 0 = bf16,
-// 1 = f16. A block takes 8 query heads of one kv head (a group of more takes
+// Strides are in elements: k b,s,kvh | v b,s,kvh | q b,h | out b,h. lse: a (B, H)
+// f32 output, or null for none; with it out is f32, else in q's type. dtype: 0 = bf16, 1 = f16. A block takes 8 query heads of one kv head (a group of more takes
 // several blocks). n_split = blocks of the cluster that share one sweep (1 to
 // 16). Launches one kernel and returns cudaGetLastError(), or one of the
 // negative ERR_ codes of hopper.cuh without launching.
 extern "C" int decode_attention_launch(
-    const void* q, const void* k, const void* v, const int* kv_len, void* out, const long long* strides,
+    const void* q, const void* k, const void* v, const int* kv_len, void* out, float* lse, const long long* strides,
     int B, int H, int KVH, int D, int Smax, int n_split, float scale, int dtype, void* stream) {
   DecodeParams p;
-  p.q = q; p.kv_len = kv_len; p.out = out;
+  p.q = q; p.kv_len = kv_len; p.out = out; p.lse = lse;
   p.q_sb = strides[6]; p.q_sh = strides[7]; p.o_sb = strides[8]; p.o_sh = strides[9];
   p.H = H; p.G = H / KVH; p.Smax = Smax; p.n_gt = (p.G + HEADS - 1) / HEADS;
   p.scale = scale;

@@ -46,7 +46,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load("decode_attention").decode_attention_launch
         fn.argtypes = (
-            [ctypes.c_void_p] * 5
+            [ctypes.c_void_p] * 6
             + [ctypes.POINTER(ctypes.c_longlong)]
             + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -96,14 +96,15 @@ def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor) -> Non
         raise ValueError("q and the caches lie on different devices")
 
 
-def _check_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, out: torch.Tensor) -> None:
+def _check_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, out: torch.Tensor,
+                out_dtype: torch.dtype) -> None:
     D = q.shape[-1]
     if q.dtype not in _DTYPES:
         raise TypeError(f"the decode attention kernel takes bfloat16 or float16, not {q.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"the decode attention kernel is built for head_dim {HEAD_DIMS}, not {D}")
-    if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
-        raise ValueError(f"out {tuple(out.shape)} {out.dtype} must have q's shape, type and device")
+    if out.shape != q.shape or out.dtype != out_dtype or out.device != q.device:
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} must have q's shape and device, type {out_dtype}")
     for name, x in (("q", q), ("out", out), ("k_cache", k_cache), ("v_cache", v_cache)):
         # TMA reads the cache where it lies, and q and out are read and
         # written where they lie: last dim contiguous, every other stride a
@@ -125,10 +126,11 @@ def flops(B: int, H: int, D: int, kv_len: int) -> int:
 
 
 def record_launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, kv_len: Union[torch.Tensor, int],
-                  out: torch.Tensor) -> None:
+                  *outs: torch.Tensor) -> None:
     """Report one launch to the active op counters, if any: q and the
-    caches' valid rows read, ``out`` written. A device ``kv_len`` is read on
-    the host here, and the valid rows sliced, outside the counters' sight."""
+    caches' valid rows read, ``outs`` (the output, and the log-sum-exp where
+    asked for) written. A device ``kv_len`` is read on the host here, and the
+    valid rows sliced, outside the counters' sight."""
     if not counts.recording():
         return
     from torch.utils._python_dispatch import _disable_current_modes
@@ -137,7 +139,7 @@ def record_launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         n = int(kv_len.reshape(()).item() if isinstance(kv_len, torch.Tensor) else kv_len)
         valid = [k_cache[:, :n], v_cache[:, :n]]
     B, H, D = q.shape
-    counts.record_kernel("decode_attention", [q, *valid], [out], flops(B, H, D, n))
+    counts.record_kernel("decode_attention", [q, *valid], list(outs), flops(B, H, D, n))
 
 
 def decode_attention(
@@ -148,8 +150,12 @@ def decode_attention(
     *,
     scale: Optional[float] = None,
     out: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Returns (B, H, D) attention output in q's type.
+    return_lse: bool = False,
+):
+    """Returns (B, H, D) attention output in q's type; with ``return_lse``
+    flash-decode's partial instead: the output in f32, so that a merge of
+    partials rounds once, and the (B, H) f32 log-sum-exp of the scaled scores
+    over the valid rows (−inf, and o = 0, where no row is valid).
 
     On the card ``kv_len`` reaches the kernel as a 1-element int32 device
     tensor; pass one to change the length between launches with no host sync.
@@ -168,13 +174,17 @@ def decode_attention(
     scale = D**-0.5 if scale is None else scale
 
     if q.device.type == "cpu":
-        o = ref.decode_attention_reference(q, k_cache, v_cache, kv_len=kv_len, scale=scale)
-        return o if out is None else out.copy_(o)
+        res = ref.decode_attention_reference(q, k_cache, v_cache, kv_len=kv_len, scale=scale, return_lse=return_lse)
+        o, lse = res if return_lse else (res, None)
+        o = o if out is None else out.copy_(o)
+        return (o, lse) if return_lse else o
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu tensors, not {q.device}")
 
-    out = torch.empty_like(q) if out is None else out
-    _check_cuda(q, k_cache, v_cache, out)
+    out_dtype = torch.float32 if return_lse else q.dtype
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device) if out is None else out
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
+    _check_cuda(q, k_cache, v_cache, out, out_dtype)
     if isinstance(kv_len, torch.Tensor):
         if kv_len.numel() != 1 or kv_len.dtype != torch.int32 or kv_len.device != q.device:
             raise ValueError(
@@ -189,6 +199,7 @@ def decode_attention(
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             (ctypes.c_longlong * 10)(*strides),
             B, H, KVH, D, Smax, ns, float(scale), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -197,5 +208,6 @@ def decode_attention(
         why = _build.LAUNCH_ERRORS.get(err, f"CUDA error {err}")
         raise RuntimeError(f"decode_attention kernel launch failed: {why}")
     _build.count_launch(globals(), "launch_count")
-    record_launch(q, k_cache, v_cache, kv_len, out)
-    return out
+    outs = (out,) if lse is None else (out, lse)
+    record_launch(q, k_cache, v_cache, kv_len, *outs)
+    return out if lse is None else outs

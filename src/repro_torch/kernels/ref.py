@@ -106,8 +106,16 @@ def decode_attention_reference(
     *,
     kv_len: Union[torch.Tensor, int],
     scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Single-token decode attention against a (masked) KV cache."""
+    return_lse: bool = False,
+):
+    """Single-token decode attention against a (masked) KV cache.
+
+    With ``return_lse`` flash-decode's partial, as the decode kernel returns
+    it: o in f32 and the log-sum-exp of the scaled scores over the valid
+    rows, (B, H) f32; where no row is valid, lse = −inf and o = 0 (a shard of
+    the cache past ``kv_len``). Without it, o is the reference's
+    ``decode_attention_reference``'s, whose masked row is uniform instead.
+    """
     B, H, D = q.shape
     _, Smax, KVH, _ = k_cache.shape
     G = H // KVH
@@ -117,10 +125,14 @@ def decode_attention_reference(
     pos = torch.arange(Smax, device=q.device)
     if isinstance(kv_len, torch.Tensor):
         kv_len = kv_len.reshape(())
-    s = torch.where(pos[None, None, None, :] < kv_len, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    valid = pos[None, None, None, :] < kv_len
+    p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
-    return o.reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return o.reshape(B, H, D).to(q.dtype)
+    lse = torch.logsumexp(torch.where(valid, s, float("-inf")), dim=-1)  # -inf where no row is valid
+    o = torch.where(torch.isfinite(lse)[..., None], o, 0.0)
+    return o.reshape(B, H, D), lse.reshape(B, H)
 
 
 def wkv6_reference(

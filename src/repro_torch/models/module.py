@@ -82,9 +82,9 @@ def dense_apply(p: Params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> 
 
 
 def embedding_apply(p: Params, ids: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    # a sharded table is gathered first: DTensor's rule for a vocab-sharded
-    # lookup fails on batch-sharded ids
-    return torch.nn.functional.embedding(ids.long(), dist.replicated(p["table"])).to(compute_dtype)
+    # a vocab-sharded table is looked up in each rank's own rows
+    # (``dist.lookup``): DTensor's rule for such a lookup fails on batch-sharded ids
+    return dist.lookup(p["table"], ids.long()).to(compute_dtype)
 
 
 def rmsnorm_init(d: int, *, device, dtype=torch.float32, stack: Sequence[int] = ()) -> Params:

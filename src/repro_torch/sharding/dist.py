@@ -210,15 +210,38 @@ def owned_sum(parts) -> torch.Tensor:
     return total if mesh is None else all_sum(total, mesh)
 
 
-def all_sum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum of ``x`` over every rank of ``mesh`` (a new tensor; one
-    all-reduce a mesh dim)."""
+def all_sum(x: torch.Tensor, mesh, dims: Optional[Sequence[int]] = None, op: str = "sum") -> torch.Tensor:
+    """The sum (or, with ``op="max"``, the maximum) of ``x`` over the ranks of
+    ``mesh``'s dims ``dims`` (all of them by default): a new tensor, one
+    all-reduce a mesh dim. Not differentiable (``sum_over`` is)."""
     import torch.distributed as tdist
 
+    reduce_op = {"sum": tdist.ReduceOp.SUM, "max": tdist.ReduceOp.MAX}[op]
     x = x.clone()
-    for d in range(mesh.ndim):
-        tdist.all_reduce(x, group=mesh.get_group(d))
+    for d in range(mesh.ndim) if dims is None else dims:
+        tdist.all_reduce(x, op=reduce_op, group=mesh.get_group(d))
     return x
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of a local tensor over the ranks of some mesh dims; in backward
+    the identity: every rank goes on with the same sum (a replicated value),
+    so the gradient of each rank's part is the sum's gradient, as Megatron's
+    vocab-parallel loss takes it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        return all_sum(x, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def sum_over(x: torch.Tensor, mesh, dims: Sequence[int]) -> torch.Tensor:
+    """``all_sum(x, mesh, dims)``, differentiable (``_SumOver``); ``x`` where
+    ``dims`` is empty."""
+    return _SumOver.apply(x, mesh, tuple(dims)) if dims else x
 
 
 def batch_sum_over(mesh, axes):
@@ -251,7 +274,8 @@ def kernel_placements(mesh, batch: int, heads: Sequence[int], batch_dim: Optiona
     they divide it, heads (dim ``head_dim``; None for a tensor without one)
     over ``model`` when it divides every head count given, everything else
     replicated. With no head dim these are the placements in which each rank
-    holds whole examples."""
+    holds whole examples. An attention gives its query heads alone: its KV
+    heads follow them (``head_split``)."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = mesh.mesh_dim_names or ()
@@ -270,16 +294,110 @@ def kernel_placements(mesh, batch: int, heads: Sequence[int], batch_dim: Optiona
     return out
 
 
-def to_local_as(x, mesh, placements) -> torch.Tensor:
+def head_split(mesh, heads: int, kv_heads: int):
+    """The KV heads that this rank's query heads read, where a ``model`` of
+    more than one rank splits the query heads (``kernel_placements``; None
+    where it does not):
+    rank r of ``model`` holds the contiguous query heads [r·H/tp, (r+1)·H/tp),
+    and query head h reads KV head h // G (G = H / KVH). Returned as an index
+    into the KV head dim of whole KV heads:
+
+      * a slice of H/(tp·G) KV heads where the rank's heads are whole groups
+        (the local group size stays G; every case where ``model`` divides the
+        KV heads too);
+      * a slice of one KV head where they lie inside one group (local group
+        size H/tp: 2 for the 32/8-head archs at ``model`` 16, 4 for qwen2);
+      * a list of one KV head a query head where they span groups unevenly
+        (local group size 1: right, not faster; e.g. H 12, KVH 4 at
+        ``model`` 6; no registry arch at ``model`` 16).
+    """
+    names = mesh.mesh_dim_names or ()
+    if TP_AXIS not in names:
+        return None
+    tp = mesh.mesh.shape[names.index(TP_AXIS)]
+    if tp == 1 or heads % tp:
+        return None
+    local, group = heads // tp, heads // kv_heads
+    h0 = mesh.get_local_rank(TP_AXIS) * local
+    if local % group == 0:
+        return slice(h0 // group, (h0 + local) // group)
+    if group % local == 0:
+        return slice(h0 // group, h0 // group + 1)
+    return [h // group for h in range(h0, h0 + local)]
+
+
+def shard_rows(x, dim: int, placements=None):
+    """``(first row, rows)`` of ``x``'s local shard on ``dim`` (in
+    ``placements``, default its own): the mesh dims that shard ``dim`` split
+    it in mesh order, as DTensor lays even shards out; ``(0, x.shape[dim])``
+    for a plain tensor."""
+    dim %= x.dim()
+    rows, offset = x.shape[dim], 0
+    if not is_dtensor(x):
+        return offset, rows
+    mesh = x.device_mesh
+    for pl, size, c in zip(x.placements if placements is None else placements, mesh.mesh.shape,
+                           mesh.get_coordinate()):
+        if pl.is_shard(dim):
+            if rows % size:
+                raise ValueError(f"uneven shards: {rows} rows over {size}")
+            rows //= size
+            offset += c * rows
+    return offset, rows
+
+
+def sharded_on(x, dim: int) -> list:
+    """The mesh dims of more than one rank that shard tensor dim ``dim`` of
+    ``x`` (none for a plain tensor): a dim of one rank holds it whole."""
+    if not is_dtensor(x):
+        return []
+    sizes = x.device_mesh.mesh.shape
+    return [i for i, pl in enumerate(x.placements) if pl.is_shard(dim % x.dim()) and sizes[i] > 1]
+
+
+def to_local_as(x, mesh, placements, grad_placements=None) -> torch.Tensor:
     """``x`` (a DTensor, or a plain tensor every rank holds whole)
-    redistributed to ``placements``, as its local shard."""
+    redistributed to ``placements``, as its local shard; its gradient comes
+    back in ``grad_placements`` (default: ``placements``)."""
     if not is_dtensor(x):
         from torch.distributed.tensor import Replicate
 
         x = from_local(x, mesh, [Replicate()] * mesh.ndim)
     if list(x.placements) != list(placements):
         x = x.redistribute(mesh, placements)
-    return x.to_local()
+    return x.to_local(grad_placements=grad_placements)
+
+
+def lookup(table, ids) -> torch.Tensor:
+    """``F.embedding(ids, table)``. Where ``table`` is a DTensor whose rows
+    (the vocab) are sharded on mesh dims over which ``ids`` are replicated
+    (the reference's plan: the table over ``model``), each rank looks up in
+    its own rows, ids outside them giving zeros, and the parts are summed
+    over those dims; the table's other dims are gathered first. No rank holds
+    the table whole. Elsewhere the table is gathered whole."""
+    import torch.nn.functional as F
+
+    if not is_dtensor(table):
+        return F.embedding(ids, table)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    if not is_dtensor(ids):
+        ids = from_local(ids, mesh, [Replicate()] * mesh.ndim)
+    vocab = [tp.is_shard(0) and ip.is_replicate() and size > 1
+             for tp, ip, size in zip(table.placements, ids.placements, mesh.mesh.shape)]
+    if not any(vocab):
+        return F.embedding(ids, replicated(table))
+    want = [Shard(0) if v else Replicate() for v in vocab]
+    # the rows' gradient: each rank's own rows, summed over the ranks that split the ids
+    grad = [Shard(0) if v else (Partial() if ip.is_shard() else Replicate()) for v, ip in zip(vocab, ids.placements)]
+    rows = to_local_as(table, mesh, want, grad)
+    v0 = shard_rows(table, 0, want)[0]
+    il = ids.to_local()
+    inside = (il >= v0) & (il < v0 + rows.shape[0])
+    out = F.embedding(torch.where(inside, il - v0, 0), rows) * inside[..., None].to(rows.dtype)
+    parts = [Partial() if v else ip for v, ip in zip(vocab, ids.placements)]
+    return reduced(from_local(out, mesh, parts, (*ids.shape, table.shape[1])))
 
 
 def local_operand(w, like, dims: dict) -> torch.Tensor:
@@ -366,10 +484,17 @@ def topk_last(x, k: int):
     return from_local(vals, mesh, pl), from_local(idx, mesh, pl)
 
 
-def from_local(x: torch.Tensor, mesh, placements):
+def from_local(x: torch.Tensor, mesh, placements, shape=None):
+    """The DTensor whose local shard is ``x``; with ``shape`` (the global
+    shape), contiguous strides of it, as a DTensor op would give its output
+    (DTensor infers a stride of its own for a dim of one element, and the
+    products after it may then round differently)."""
     from torch.distributed.tensor import DTensor
 
-    return DTensor.from_local(x, mesh, placements, run_check=False)
+    if shape is None:
+        return DTensor.from_local(x, mesh, placements, run_check=False)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(x, mesh, placements, run_check=False, shape=torch.Size(shape), stride=stride)
 
 
 # ---------------------------------------------------------------------------
@@ -402,15 +527,7 @@ def write_rows(dst: torch.Tensor, dim: int, start: int, src: torch.Tensor) -> No
     want = [Replicate() if pl.is_shard(dim) else pl for pl in dst.placements]
     src_l = to_local_as(src, mesh, want)
     dst_l = dst.to_local()
-    # this shard's first row on dim: the mesh dims that shard it, in mesh order
-    rows, offset = dst.shape[dim], 0
-    coord = mesh.get_coordinate()
-    for pl, size, c in zip(dst.placements, mesh.mesh.shape, coord):
-        if pl.is_shard(dim):
-            if rows % size:
-                raise ValueError(f"write_rows needs even shards: {rows} rows over {size}")
-            rows //= size
-            offset += c * rows
+    offset, rows = shard_rows(dst, dim)
     lo, hi = max(start, offset), min(start + src.shape[dim], offset + rows)
     if lo < hi:
         dst_l.narrow(dim, lo - offset, hi - lo).copy_(src_l.narrow(dim, lo - start, hi - lo))

@@ -4,7 +4,8 @@ heads, self and cross caches and decode activations under DTensors) on a
 single-device path (``torch_mesh_family.py`` runs them)."""
 import pytest
 
-from torch_mesh_family import check_decode, check_prefill, check_train, run_family
+from torch_mesh_family import (ONE_HEAD, SEQ_SHARD_DECODE, VOCAB_SHARD, check_decode, check_local_shapes,
+                               check_prefill, check_train, run_family)
 
 ARCH = "whisper-base"
 
@@ -27,3 +28,15 @@ def test_sharded_prefill_matches_single_device(found, variant):
 @pytest.mark.parametrize("variant", ["baseline", "serve"])
 def test_sharded_decode_matches_single_device(found, variant):
     check_decode(found["serve"], variant)
+
+
+@pytest.mark.parametrize("variant", ["baseline", "sp"])
+def test_sharded_train_step_runs_each_ranks_part(found, variant):
+    check_local_shapes(found["train"][variant], flash=[ONE_HEAD], vocab=[VOCAB_SHARD], table=[VOCAB_SHARD])
+
+
+@pytest.mark.parametrize("variant", ["baseline", "serve"])
+def test_sharded_serving_runs_each_ranks_part(found, variant):
+    # the cross caches (8 frames) are sharded on their sequence too: 2 rows a rank
+    check_local_shapes(found["serve"]["prefill_" + variant], flash=[ONE_HEAD], table=[VOCAB_SHARD])
+    check_local_shapes(found["serve"]["decode_" + variant], decode=[[4, 2, 2, True], SEQ_SHARD_DECODE], table=[VOCAB_SHARD])

@@ -23,7 +23,8 @@ over the model axis; the decode's 0.038, the states 0.014 of 3e-2).
 """
 import pytest
 
-from torch_mesh_family import check_decode, check_prefill, check_train, run_family
+from torch_mesh_family import (ONE_HEAD, VOCAB_SHARD, check_decode, check_local_shapes, check_prefill, check_train,
+                               run_family)
 
 ARCH = "zamba2-7b"
 #: AdamW's first moment after step 1 (relative L2, worst leaf); see above
@@ -48,3 +49,16 @@ def test_sharded_prefill_matches_single_device(found, variant):
 @pytest.mark.parametrize("variant", ["baseline", "serve"])
 def test_sharded_decode_matches_single_device(found, variant):
     check_decode(found["serve"], variant)
+
+
+@pytest.mark.parametrize("variant", ["baseline", "sp"])
+def test_sharded_train_step_runs_each_ranks_part(found, variant):
+    check_local_shapes(found["train"][variant], flash=[ONE_HEAD], vocab=[VOCAB_SHARD], table=[VOCAB_SHARD])
+
+
+@pytest.mark.parametrize("variant", ["baseline", "serve"])
+def test_sharded_serving_runs_each_ranks_part(found, variant):
+    # the shared block's caches (25 rows: 24 prompt tokens and the new one) do not divide
+    # ``model``: replicated, so each rank takes its query head and the KV head it reads
+    check_local_shapes(found["serve"]["prefill_" + variant], flash=[ONE_HEAD], table=[VOCAB_SHARD])
+    check_local_shapes(found["serve"]["decode_" + variant], decode=[[1, 1, 25, False]], table=[VOCAB_SHARD])

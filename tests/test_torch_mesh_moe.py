@@ -14,7 +14,8 @@ one; its decode, the caches and the train steps to the common limits.
 """
 import pytest
 
-from torch_mesh_family import check_decode, check_prefill, check_train, run_family
+from torch_mesh_family import (ONE_HEAD, SEQ_SHARD_DECODE, VOCAB_SHARD, check_decode, check_local_shapes,
+                               check_prefill, check_train, run_family)
 
 #: the share of deepseek's prefill logits allowed beyond 6e-2 (read: 0.24%)
 DEEPSEEK_PREFILL_OUTLIERS = 5e-3
@@ -38,3 +39,14 @@ def test_sharded_prefill_matches_single_device(found, variant):
 @pytest.mark.parametrize("variant", ["baseline", "serve"])
 def test_sharded_decode_matches_single_device(found, variant):
     check_decode(found["serve"], variant)
+
+
+@pytest.mark.parametrize("variant", ["baseline", "sp"])
+def test_sharded_train_step_runs_each_ranks_part(found, variant):
+    check_local_shapes(found["train"][variant], flash=[ONE_HEAD], vocab=[VOCAB_SHARD], table=[VOCAB_SHARD])
+
+
+@pytest.mark.parametrize("variant", ["baseline", "serve"])
+def test_sharded_serving_runs_each_ranks_part(found, variant):
+    check_local_shapes(found["serve"]["prefill_" + variant], flash=[ONE_HEAD], table=[VOCAB_SHARD])
+    check_local_shapes(found["serve"]["decode_" + variant], decode=[SEQ_SHARD_DECODE], table=[VOCAB_SHARD])

@@ -15,7 +15,7 @@ the ranks that split the batch).
 """
 import pytest
 
-from torch_mesh_family import check_decode, check_prefill, check_train, run_family
+from torch_mesh_family import VOCAB_SHARD, check_decode, check_local_shapes, check_prefill, check_train, run_family
 
 ARCH = "rwkv6-1.6b"
 
@@ -51,3 +51,15 @@ def test_wkv6_on_local_shards_equals_the_whole_call(found):
 def test_wkv6_gradients_on_local_shards_equal_the_whole_calls(found):
     # r, k, v, logw, the bonus u and the initial state, relative to each one's largest element
     assert max(found["wkv6"]["grad_err"]) < 1e-5, found["wkv6"]
+
+
+@pytest.mark.parametrize("variant", ["baseline", "sp"])
+def test_sharded_train_step_runs_each_ranks_part(found, variant):
+    check_local_shapes(found["train"][variant], flash=[], vocab=[VOCAB_SHARD], table=[VOCAB_SHARD])
+
+
+@pytest.mark.parametrize("variant", ["baseline", "serve"])
+def test_sharded_serving_runs_each_ranks_part(found, variant):
+    # attention-free: the lookup and the loss alone meet the vocab's shards
+    check_local_shapes(found["serve"]["prefill_" + variant], flash=[], table=[VOCAB_SHARD])
+    check_local_shapes(found["serve"]["decode_" + variant], decode=[], table=[VOCAB_SHARD])

@@ -130,6 +130,52 @@ def routes_recorded(record: list, replay=None):
         moe.top_k_gates = saved
 
 
+@contextlib.contextmanager
+def local_shapes_recorded(found: dict):
+    """Inside the block, the local shapes that reach the kernels' plain
+    versions and the loss, as sets in ``found``: ``flash`` (KV heads, query
+    heads a KV head) of each flash call's folded q, ``decode`` (query heads,
+    KV heads, cache rows, whether the log-sum-exp was asked for) of each
+    decode call, ``vocab`` the vocab width of each loss shard
+    (``losses.shard_terms``), ``table`` the rows of each embedding table
+    looked up in. They show which path the sharded boundary took."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import losses
+
+    saved = fa.flash_attention_fwd, da.decode_attention, losses.shard_terms, F.embedding
+    for key in ("flash", "decode", "vocab", "table"):
+        found.setdefault(key, set())
+
+    def flash(q, *a, **kw):
+        found["flash"].add(tuple(q.shape[i] for i in (1, 3)))
+        return saved[0](q, *a, **kw)
+
+    def decode(q, k_cache, *a, **kw):
+        found["decode"].add((q.shape[1], k_cache.shape[2], k_cache.shape[1], bool(kw.get("return_lse"))))
+        return saved[1](q, k_cache, *a, **kw)
+
+    def terms(lf, *a, **kw):
+        found["vocab"].add(lf.shape[-1])
+        return saved[2](lf, *a, **kw)
+
+    def embedding(ids, weight, *a, **kw):
+        found["table"].add(weight.shape[0])
+        return saved[3](ids, weight, *a, **kw)
+
+    fa.flash_attention_fwd, da.decode_attention, losses.shard_terms, F.embedding = flash, decode, terms, embedding
+    try:
+        yield
+    finally:
+        fa.flash_attention_fwd, da.decode_attention, losses.shard_terms, F.embedding = saved
+
+
+def _sorted_shapes(found: dict) -> dict:
+    return {k: sorted(v) for k, v in found.items()}
+
+
 def _two_steps(step, state, batch):
     from repro_torch.models.module import tree_leaves
     from repro_torch.sharding import dist
@@ -172,9 +218,11 @@ def case_train(mesh, arch: str) -> dict:
     found = {"single": res}
     for variant in ("baseline", "sp"):
         step, st_sh, b_sh, _ = ts.jit_train_step(model, mesh, suite, opt, variant=variant)
-        with routes_recorded([], routes):
+        shapes = {}
+        with routes_recorded([], routes), local_shapes_recorded(shapes):
             res, got = _two_steps(step, dist.distribute(init(), st_sh), dist.distribute(batch, b_sh))
-        found[variant] = dict(res, moment_err=[_rel_l2(g, w) for g, w in zip(got, want)])
+        found[variant] = dict(res, moment_err=[_rel_l2(g, w) for g, w in zip(got, want)],
+                              local_shapes=_sorted_shapes(shapes))
     return found
 
 
@@ -216,18 +264,20 @@ def case_serve(mesh, arch: str) -> dict:
     for variant in ("baseline", "serve"):
         step, p_sh, b_sh, _ = serve.jit_prefill_step(model, mesh, ShapeSuite("p", S, B, "prefill"),
                                                      variant=variant)
-        with routes_recorded([], prefill_routes):
+        prefill_shapes, decode_shapes = {}, {}
+        with routes_recorded([], prefill_routes), local_shapes_recorded(prefill_shapes):
             got, c = step(dist.distribute(params, p_sh), dist.distribute(prompt, b_sh))
         diff = (got.full_tensor().float() - last.float()).abs()
         out["prefill_" + variant] = {
             "logits_err": float(diff.max()), "beyond": float((diff > TOL_LOGITS).float().mean()),
             "cache_err": max([float((c[n].full_tensor().float() - cache[n][:, :, :c[n].shape[2]].float()).abs().max())
                               for n in c if n not in recurrent], default=0.0),
-            "state_err": max([_state_err(c[n], cache[n]) for n in recurrent], default=0.0)}
+            "state_err": max([_state_err(c[n], cache[n]) for n in recurrent], default=0.0),
+            "local_shapes": _sorted_shapes(prefill_shapes)}
         step, p_sh, tok_sh, c_sh, _ = serve.jit_decode_step(model, mesh, ShapeSuite("d", S + 1, B, "decode"),
                                                             variant=variant)
         c = dist.distribute({k: v.clone() for k, v in cache.items()}, c_sh)
-        with routes_recorded([], decode_routes):
+        with routes_recorded([], decode_routes), local_shapes_recorded(decode_shapes):
             logits, _ = step(dist.distribute(params, p_sh), dist.distribute({"token": tok}, tok_sh), c)
         diff = (logits.full_tensor().float() - want.float()).abs()
         out["decode_" + variant] = {
@@ -240,6 +290,7 @@ def case_serve(mesh, arch: str) -> dict:
             "others_equal": all(bool(torch.equal(c[n].full_tensor()[:, :, :S], cache[n][:, :, :S])) for n in attn)
             and all(bool(torch.equal(c[n].full_tensor(), cache[n])) for n in c
                     if n not in attn and n not in recurrent),
+            "local_shapes": _sorted_shapes(decode_shapes),
         }
     return out
 
@@ -338,6 +389,24 @@ def check_prefill(found: dict, variant: str, outliers: float = 0.0) -> None:
     r = found["prefill_" + variant]
     _logits_within(r, outliers)
     assert r["cache_err"] < TOL_LOGITS and r["state_err"] < TOL_STATE, r
+
+
+#: the local shapes of the reduced configs (4 query heads, 2 KV heads, vocab
+#: 256) on the 2 x 4 mesh, where ``model`` divides the query heads but not
+#: the KV heads: a rank's flash call takes one query head and the one KV head
+#: it reads (KV heads 1, local group 1), the loss and the lookup a quarter of
+#: the vocab, and a decode call all 4 query heads against the rank's rows of a
+#: sequence-sharded cache (8 of 32), with the log-sum-exp for the merge
+ONE_HEAD, VOCAB_SHARD = [1, 1], 64
+SEQ_SHARD_DECODE = [4, 2, 8, True]
+
+
+def check_local_shapes(r: dict, **want) -> None:
+    """Each of ``want`` (a key of ``local_shapes_recorded``) is the sorted
+    list of local shapes that the run recorded: the sharded path that ran."""
+    got = r["local_shapes"]
+    for key, shapes in want.items():
+        assert got[key] == shapes, (key, got)
 
 
 def check_decode(found: dict, variant: str, outliers: float = 0.0) -> None:
