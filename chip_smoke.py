@@ -13,8 +13,10 @@ rwkv6-1.6b's; and K1-K4 on the work of each rank of a ``model`` axis of 16
 that divides the query heads but not the KV heads (phase_shards: K1-K3 on
 each rank's query heads and the KV head they read at granite-3-2b's and
 llama3-8b's training shapes, K4 with its log-sum-exp on each rank's rows of
-sequence-sharded decode caches, merged), against the whole-head and
-whole-cache calls. Then it drives the port's entry points at full size, random
+sequence-sharded decode caches, merged; and where it does not divide the
+query heads, K1-K3 on each rank's row_split share of heads and query rows,
+at whisper-base's self and cross attention and llava-next-34b's G 7),
+against the whole-head and whole-cache calls. Then it drives the port's entry points at full size, random
 weights from a seed:
 
   * serving, granite-3-2b, stablelm-12b, rwkv6-1.6b, deepseek-moe-16b and
@@ -203,6 +205,16 @@ SERVE_LAUNCHES = {"deepseek-moe-16b": (28, 28 * (NEW - 1)), "zamba2-7b": (3, 3 *
 # query heads but not their 8 KV heads), and decode_32k's sequence length,
 # over which the caches of those ranks are split
 SHARD_TP, SHARD_SEQ, QUICKSTART_ARCH = 16, 32768, "llama3-8b"
+# phase_shards where that axis does not divide the query heads (dist.row_split):
+# (name, arch, batch, query rows, KV rows, causal) at a device's training
+# shapes -- whisper-base's self attention (8 heads: 8 groups of one head, two
+# slices of the rows each) and cross attention over its 1500 frames,
+# llava-next-34b's 56 heads (8 groups of 7, one KV head each); the plain
+# versions on the first ROW_PLAIN_B sequences
+ROW_SHARE_CASES = (("whisper-base self", "whisper-base", 16, 4096, 4096, True),
+                   ("whisper-base cross", "whisper-base", 16, 4096, 1500, False),
+                   ("llava-next-34b", "llava-next-34b", 2, 4096, 4096, True))
+ROW_PLAIN_B = 2
 # the paper's workload trio: batch 32, steps through the launcher, and the
 # samples of an epoch (launch/collocate.py: CIFAR-10's 45,000 training images,
 # ImageNet's 1,281,167)
@@ -1409,7 +1421,7 @@ def phase_g7(cfg) -> dict:
 
 
 class EmulatedRank:
-    """What ``dist.head_split`` reads of a ``DeviceMesh``: rank ``rank`` of a
+    """What ``dist.row_split`` reads of a ``DeviceMesh``: rank ``rank`` of a
     ``model`` axis of ``tp`` ranks. It lets one card do, in turn, the work
     that each rank of a (data, model) mesh would do."""
 
@@ -1423,7 +1435,7 @@ class EmulatedRank:
 
 def shard_flash_case(gen, B, S, H, KVH, D, tp) -> dict:
     """K1, K2 and K3 on each of ``tp`` ``model`` ranks' query heads and the KV
-    heads those read (``dist.head_split``), as the sharded steps run them
+    heads those read (``dist.row_split``, one slice of rows), as the sharded steps run them
     where ``model`` divides the query heads but not the KV heads: the ranks'
     o, lse and dq concatenated and their dk, dv summed over the ranks that
     share a KV head (in f32, as the partial sum over ``model`` adds them),
@@ -1441,7 +1453,7 @@ def shard_flash_case(gen, B, S, H, KVH, D, tp) -> dict:
     launches0 = fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count
     groups = set()
     for r in range(tp):
-        pick = dist.head_split(EmulatedRank(tp, r), H, KVH)
+        pick = dist.row_split(EmulatedRank(tp, r), H, KVH).kv
         heads = slice(r * H // tp, (r + 1) * H // tp)
         kl, vl = k[:, :, pick], v[:, :, pick]  # views of the whole K/V, read in place
         kvh = kl.shape[2]
@@ -1533,6 +1545,136 @@ def shard_decode_case(gen, B, smax, H, KVH, D, tp, lens) -> list:
     return cases
 
 
+def row_share_case(gen, B, Sq, Skv, H, KVH, D, tp, causal) -> dict:
+    """K1, K2 and K3 on each of ``tp`` ``model`` ranks' ``dist.row_split``
+    shares, as the sharded steps run them where ``model`` does not divide the
+    query heads: a group's query heads on a slice of the query rows
+    (``q_offset`` moved to its first row) and the KV heads they read, all KV
+    rows. The ranks' o, lse and dq placed where their shares lie and their
+    dk, dv summed in f32 over the ranks that read each KV head, against the
+    whole-head calls, and on the first ``ROW_PLAIN_B`` sequences against the
+    plain versions of the whole call."""
+    q, do = randn(gen, (B, Sq, H, D)), randn(gen, (B, Sq, H, D))
+    k, v = randn(gen, (B, Skv, KVH, D)), randn(gen, (B, Skv, KVH, D))
+    kw = dict(causal=causal, scale=D**-0.5)
+    o_w, lse_w = fa.flash_attention_fwd(ops._fold(q, KVH), ops._kv_fold(k), ops._kv_fold(v), **kw)
+    dq_w, dk_w, dv_w = fa.flash_attention_bwd(ops._fold(q, KVH), ops._kv_fold(k), ops._kv_fold(v), o_w, lse_w,
+                                              ops._fold(do, KVH), **kw)
+    o_w, dq_w, lse_w = ops._unfold(o_w), ops._unfold(dq_w), lse_w.permute(0, 2, 1, 3).reshape(B, Sq, H)
+    dk_w, dv_w = dk_w.permute(0, 2, 1, 3), dv_w.permute(0, 2, 1, 3)
+    o, dq, lse = torch.empty_like(q), torch.empty_like(q), torch.empty(B, Sq, H, device=DEV)
+    dk, dv = torch.zeros(k.shape, device=DEV), torch.zeros(v.shape, device=DEV)
+    launches0 = fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count
+    shares = set()
+    for r in range(tp):
+        share = dist.row_split(EmulatedRank(tp, r), H, KVH)
+        rows, heads = share.rows(Sq), share.heads
+        # the wrapper's copies: the share's query rows and heads, the KV heads it reads
+        ql, dol = q[:, rows, heads].contiguous(), do[:, rows, heads].contiguous()
+        kl, vl = k[:, :, share.kv].contiguous(), v[:, :, share.kv].contiguous()
+        kvh = kl.shape[2]
+        qf, dof = ops._fold(ql, kvh), ops._fold(dol, kvh)
+        shares.add((kvh, qf.shape[3], qf.shape[2], rows.start))
+        o_r, lse_r = fa.flash_attention_fwd(qf, ops._kv_fold(kl), ops._kv_fold(vl), q_offset=rows.start, **kw)
+        dq_r, dk_r, dv_r = fa.flash_attention_bwd(qf, ops._kv_fold(kl), ops._kv_fold(vl), o_r, lse_r, dof,
+                                                  q_offset=rows.start, **kw)
+        o[:, rows, heads], dq[:, rows, heads] = ops._unfold(o_r), ops._unfold(dq_r)
+        lse[:, rows, heads] = lse_r.permute(0, 2, 1, 3).reshape(B, rows.stop - rows.start, -1)
+        dk[:, :, share.kv] += dk_r.permute(0, 2, 1, 3).float()
+        dv[:, :, share.kv] += dv_r.permute(0, 2, 1, 3).float()
+    torch.cuda.synchronize()
+    launches = [a - b for a, b in zip((fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count), launches0)]
+    require(launches == [tp] * 3, f"the ranks' calls launched {launches}, not {tp} of each kernel")
+    label = f"row shares of flash B{B} Sq{Sq} Skv{Skv} H{H} KVH{KVH} D{D} causal={causal} over {tp} model ranks"
+    out = {"shape": f"q ({B},{Sq},{H},{D}) k/v ({B},{Skv},{KVH},{D}) bf16 causal={causal}, {tp} ranks",
+           "shares": [dict(zip(("kv_heads", "group", "rows", "q_offset"), sh)) for sh in sorted(shares)],
+           "launches": dict(zip(("fwd", "dkv", "dq"), launches))}
+    out["vs_whole"] = {"o": check_rows(label + " o vs whole", o, o_w)["max_abs_err"],
+                       "lse": check(label + " lse vs whole", lse, lse_w, TOL_LSE),
+                       "dq": check_rows(label + " dq vs whole", dq, dq_w)["max_abs_err"]}
+    for name, got, want in (("dk", dk, dk_w), ("dv", dv, dv_w)):
+        floor = TOL_GRAD_FLOOR * want.float().square().mean().sqrt().item()
+        out["vs_whole"][name] = check_rows(f"{label} {name} vs whole", got.to(want.dtype), want, floor)["max_abs_err"]
+    del o_w, dq_w, dk_w, dv_w
+    torch.cuda.empty_cache()
+    # against the plain versions of the whole call, on the first sequences
+    b = slice(0, ROW_PLAIN_B)
+    o_ref, lse_ref = ref.mha_reference_with_lse(q[b], k[b], v[b], **kw)
+    out["vs_plain"] = {"sequences": ROW_PLAIN_B, "o": check_rows(label + " o", o[b], o_ref)["max_abs_err"],
+                       "lse": check(label + " lse", lse[b], lse_ref, TOL_LSE)}
+    del o_ref, lse_ref
+    lse_f = lse[b].reshape(ROW_PLAIN_B, Sq, KVH, H // KVH).permute(0, 2, 1, 3).contiguous()
+    want = ref.flash_attention_bwd_reference(ops._fold(q[b], KVH), ops._kv_fold(k[b]), ops._kv_fold(v[b]),
+                                             ops._fold(o[b], KVH), lse_f, ops._fold(do[b], KVH), **kw)
+    for name, got, w in (("dq", dq[b], ops._unfold(want[0])), ("dk", dk[b], want[1].permute(0, 2, 1, 3)),
+                         ("dv", dv[b], want[2].permute(0, 2, 1, 3))):
+        floor = TOL_GRAD_FLOOR * w.float().square().mean().sqrt().item()
+        out["vs_plain"][name] = check_rows(f"{label} {name}", got.to(w.dtype), w, floor)["max_abs_err"]
+    del want
+    torch.cuda.empty_cache()
+    return out
+
+
+def row_share_timed(gen, B, Sq, Skv, H, KVH, D, causal, q_offset) -> dict:
+    """K1, K2 and K3 on one rank's share (``H`` query heads over ``KVH`` KV
+    heads on ``Sq`` query rows from row ``q_offset``, ``Skv`` KV rows), each
+    timed beside its bound, the plain versions (forward; backward in one
+    call) and one library call on the same work (F.scaled_dot_product_attention
+    with the share's mask, K/V heads expanded; its backward with its forward
+    subtracted)."""
+    G = H // KVH
+    q, do = randn(gen, (B, Sq, H, D)), randn(gen, (B, Sq, H, D))
+    k, v = randn(gen, (B, Skv, KVH, D)), randn(gen, (B, Skv, KVH, D))
+    kw = dict(causal=causal, scale=D**-0.5, q_offset=q_offset)
+    qf, kf, vf, dof = ops._fold(q, KVH), ops._kv_fold(k), ops._kv_fold(v), ops._fold(do, KVH)
+    o, lse = fa.flash_attention_fwd(qf, kf, vf, **kw)
+    delta = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dqf, dkf, dvf = ops._fold(dq, KVH), ops._kv_fold(dk), ops._kv_fold(dv)
+    ms = {"flash_attention_fwd": gpu_ms(lambda: fa.flash_attention_fwd(qf, kf, vf, **kw), iters=10),
+          "flash_attention_bwd_dq": gpu_ms(lambda: fa.launch_bwd_dq(qf, kf, vf, o, dof, lse, delta, dqf, **kw),
+                                           iters=10),
+          "flash_attention_bwd_dkv": gpu_ms(lambda: fa.launch_bwd_dkv(qf, kf, vf, dof, lse, delta, dkf, dvf, **kw),
+                                            iters=10)}
+    plain = {"fwd": gpu_ms(lambda: ref.mha_reference_with_lse(q, k, v, **kw), iters=2, reps=3),
+             "bwd": gpu_ms(lambda: ref.flash_attention_bwd_reference(qf, kf, vf, o, lse, dof, **kw), iters=1, reps=3)}
+    torch.cuda.empty_cache()
+    # yardstick only: the library on the same work, the share's mask given explicitly
+    mask = None
+    if causal:
+        mask = (q_offset + torch.arange(Sq, device=DEV))[:, None] >= torch.arange(Skv, device=DEV)[None, :]
+    ql = q.permute(0, 2, 1, 3).detach().requires_grad_()
+    kl = k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).detach().requires_grad_()
+    vl = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).detach().requires_grad_()
+    dol = do.permute(0, 2, 1, 3)
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+
+    def lib_fwd_bwd():
+        return torch.autograd.grad(lib_fwd(), (ql, kl, vl), dol)
+
+    lib_fwd_ms = gpu_ms(lib_fwd, iters=10)
+    library = {"flash_attention_fwd": lib_fwd_ms, "backward": gpu_ms(lib_fwd_bwd, iters=5) - lib_fwd_ms}
+    backend = sdpa_backend(lib_fwd_bwd)
+    del ql, kl, vl
+    torch.cuda.empty_cache()
+    pairs = live_pairs(B, H, Sq, Skv, causal, q_offset)
+    qb, kvb, lseb = 2 * q.numel(), 2 * (k.numel() + v.numel()), 4 * B * H * Sq
+    work = {"flash_attention_fwd": (4 * D * pairs, 2 * qb + kvb + lseb),  # q, k, v in; o, lse out
+            "flash_attention_bwd_dkv": (8 * D * pairs, 2 * qb + 2 * kvb + 2 * lseb),  # q, do, k, v, lse, delta; dk, dv
+            "flash_attention_bwd_dq": (6 * D * pairs, 4 * qb + kvb + 2 * lseb)}  # q, o, do, k, v, lse; dq, delta
+    out = {"shape": f"q ({B},{KVH},{Sq},{G},{D}) k/v ({B},{KVH},{Skv},{D}) bf16 causal={causal} q_offset={q_offset}",
+           "library_backend": backend, "plain_ms": plain}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms[name], "plain_ms": plain["fwd" if name == "flash_attention_fwd" else "bwd"],
+                     "library_ms": library["flash_attention_fwd" if name == "flash_attention_fwd" else "backward"],
+                     "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "bound_reckoned": f"max({flops:.4g} FLOP / 989 TFLOP/s, {nbytes:.4g} B / 3.35 TB/s)"}
+    return out
+
+
 def phase_shards() -> dict:
     """The per-rank work of the sharded steps where ``model`` (16 ranks)
     divides the query heads but not the KV heads, one rank after another on
@@ -1545,7 +1687,10 @@ def phase_shards() -> dict:
     empty), ends on a shard's edge and leaves all but the first shard empty.
     Then each kernel timed on one rank's part, K4 with and without the
     log-sum-exp, and K1-K4 at llama3-8b's own shapes (head_dim 128, G 4) timed
-    alone beside their bounds and the library calls."""
+    alone beside their bounds and the library calls. Last, where ``model``
+    does not divide the query heads (``ROW_SHARE_CASES``), K1-K3 on each
+    rank's ``dist.row_split`` share against the whole call, and ranks 0's and
+    1's shares (the two slices of a group's rows) timed."""
     gen = torch.Generator(device=DEV).manual_seed(11)
     out = {"tp": SHARD_TP, "flash": {}, "decode": {}, "timed": {}}
     rows = SHARD_SEQ // SHARD_TP
@@ -1556,6 +1701,13 @@ def phase_shards() -> dict:
         out["flash"][cfg.name] = shard_flash_case(gen, TRAIN_BATCH, TRAIN_SEQ, H, KVH, D, SHARD_TP)
         out["decode"][cfg.name] = shard_decode_case(gen, BATCH, SHARD_SEQ, H, KVH, D, SHARD_TP,
                                                     [SHARD_SEQ, 5 * rows + 77, 2 * rows, 1])
+        torch.cuda.empty_cache()
+    # where model does not divide the query heads: each rank's row_split share
+    out["rows"], out["rows_timed"] = {}, {}
+    for name, arch, B, Sq, Skv, causal in ROW_SHARE_CASES:
+        cfg = get_config(arch)
+        H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        out["rows"][name] = row_share_case(gen, B, Sq, Skv, H, KVH, D, SHARD_TP, causal)
         torch.cuda.empty_cache()
     # the checks' launches: the ranks' calls and the whole-head and whole-cache ones
     out["launches"] = {name: getattr(mod, attr) - launches0[name] for name, mod, attr in KERNEL_COUNTERS}
@@ -1578,6 +1730,18 @@ def phase_shards() -> dict:
         "decode_attention": decode_timed(gen, BATCH, PROMPT + NEW, H, KVH, D, PROMPT + NEW // 2),
     }
     torch.cuda.empty_cache()
+    for name, arch, B, Sq, Skv, causal in ROW_SHARE_CASES:
+        # ranks 0 and 1: the two slices of the first group's query rows
+        cfg = get_config(arch)
+        H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        out["rows_timed"][name] = {}
+        for r in (0, 1):
+            share = dist.row_split(EmulatedRank(SHARD_TP, r), H, KVH)
+            part = share.rows(Sq)
+            kvh = len(range(KVH)[share.kv]) if isinstance(share.kv, slice) else len(share.kv)
+            out["rows_timed"][name][f"rank{r}"] = row_share_timed(
+                gen, B, part.stop - part.start, Skv, share.heads.stop - share.heads.start, kvh, D, causal, part.start)
+        torch.cuda.empty_cache()
     emit("shards", **out)
     return out
 
@@ -4029,7 +4193,9 @@ def main() -> None:
     # (launches_mesh_train, baseline), K1 in the sharded prefill
     # (launches_mesh_prefill) and K4 in the sharded decode step
     # (launches_mesh_decode), baseline. In phase shards: K1-K4 on the 16
-    # emulated model ranks' parts, checked and timed (launches_shards).
+    # emulated model ranks' parts, checked and timed (launches_shards), and
+    # K1-K3 on their row_split shares where model does not divide the query
+    # heads (rows_shares: whisper-base's self and cross attention, llava's G 7).
     bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     mesh_step = meshed["train"]["baseline"]["launches_per_step"][0]
     mesh_train = [{a: r["baseline"]["launches_per_step"][0][i] for a, r in families["train"].items()} for i in range(3)]
@@ -4051,6 +4217,16 @@ def main() -> None:
                 "train_lm": ex["train_lm"]["launches"][name], "sweep_solo": ex["sweep"]["launches_solo"][name],
                 "sweep_collocated": ex["sweep"]["launches_collocated"][name],
                 "failover": ex["failover"]["launches"][name]}
+    def row_shares(name):
+        """phase shards' row_split cases for K1-K3: the launches of the 16
+        ranks' shares, the largest error against the whole call, and ranks
+        0's and 1's shares timed beside their bounds."""
+        short, errs = {"flash_attention_fwd": ("fwd", ("o", "lse")), "flash_attention_bwd_dkv": ("dkv", ("dk", "dv")),
+                       "flash_attention_bwd_dq": ("dq", ("dq",))}[name]
+        return {case: {"launches": r["launches"][short], "max_abs_err": max(r["vs_whole"][e] for e in errs),
+                       **{rank: t[name] for rank, t in shards["rows_timed"][case].items()}}
+                for case, r in shards["rows"].items()}
+
     emit("wall", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": [
         dict(row(flash, "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -4070,7 +4246,7 @@ def main() -> None:
                                     "prefill": lm["serve"]["prefill"]["launches"]["flash_attention_fwd"],
                                     "decode_cache_fill": lm["serve"]["decode"]["launches"]["flash_attention_fwd"]},
              launches_examples=by_example("flash_attention_fwd"),
-             launches_shards=shards["launches"]["flash_attention_fwd"]),
+             launches_shards=shards["launches"]["flash_attention_fwd"], rows_shares=row_shares("flash_attention_fwd")),
         dict(row(decode, "src/repro_torch/kernels/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:126", served[cfg.name]["launches"]["decode_attention"]),
              launches_calibrate_kernel=calib_k["decode_attention"]["launches"],
@@ -4088,7 +4264,7 @@ def main() -> None:
              launches_mesh_train_recurrent=rec_train[1],
              launches_collocate_lm=lm["train"]["launches"]["flash_attention_bwd_dkv"],
              launches_examples=by_example("flash_attention_bwd_dkv"),
-             launches_shards=shards["launches"]["flash_attention_bwd_dkv"]),
+             launches_shards=shards["launches"]["flash_attention_bwd_dkv"], rows_shares=row_shares("flash_attention_bwd_dkv")),
         dict(row(dq, bwd_src, dq["replaces"], trained["launches"]["flash_attention_bwd_dq"]),
              d160=at160("flash_attention_bwd_dq", slm_k3),
              d112=at_dim(d112, "flash_attention_bwd_dq", zamba_step["launches"][2]), launches_one_step=stepped_by[2],
@@ -4096,7 +4272,7 @@ def main() -> None:
              launches_mesh_train_recurrent=rec_train[2],
              launches_collocate_lm=lm["train"]["launches"]["flash_attention_bwd_dq"],
              launches_examples=by_example("flash_attention_bwd_dq"),
-             launches_shards=shards["launches"]["flash_attention_bwd_dq"]),
+             launches_shards=shards["launches"]["flash_attention_bwd_dq"], rows_shares=row_shares("flash_attention_bwd_dq")),
         dict(row(wkv, "src/repro_torch/kernels/csrc/wkv6_scan.cu", wkv["replaces"],
                  served_rwkv["launches"]["wkv6_scan"]),
              launches_calibrate_kernel=calib_k["wkv6"]["launches"],

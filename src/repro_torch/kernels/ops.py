@@ -20,16 +20,22 @@ part of the work, where the reference's plan puts it:
     ``model`` where it divides them (``sharding.dist.kernel_placements``); the
     KV heads sharded with them where ``model`` divides those too, else sliced
     from the replicated K/V to the heads that the rank's query heads read
-    (``dist.head_split``), their gradient a partial sum over ``model``. A
+    (``dist.row_split``), their gradient a partial sum over ``model``. A
     sequence-sharded input is gathered on the sequence, as GSPMD would gather
-    it. Both ends are differentiable, so ``_Flash`` runs unchanged under them;
+    it. Where ``model`` does not divide the query heads, each rank takes its
+    ``dist.row_split`` share: a group of query heads on a slice of the query
+    rows (``q_offset`` moved with it), the outputs gathered whole over
+    ``model``. Both ends are differentiable, so ``_Flash`` runs unchanged
+    under them;
   * ``decode_attention``: the cache as it is stored, never redistributed.
     Each rank attends over its own cache rows (flash-decode): the decode
     kernel returns its output and log-sum-exp over the valid rows it holds,
     and the partials are merged over the mesh dims that split the sequence
     (``merge_partials``). q's heads are gathered first (B x H x D); where a
     replicated cache meets a ``model`` axis that divides them, the query
-    heads are split over it as in ``flash_attention``.
+    heads are split over it as in ``flash_attention``; where it does not
+    divide them, each rank attends with its ``dist.row_split`` share of the
+    heads and cache rows, merged over ``model``.
 """
 from __future__ import annotations
 
@@ -106,29 +112,82 @@ def flash_attention(
     if dist.is_dtensor(q):
         mesh = q.device_mesh
         H, KVH = q.shape[2], k.shape[2]
+        share = dist.row_split(mesh, H, KVH)
+        if share is not None and share.parts > 1 and q.shape[1] >= share.parts:
+            return _flash_on_row_share(q, k, v, share, causal, scale, q_offset)
         pl_q = dist.kernel_placements(mesh, q.shape[0], (H,), 0, 2)
         pl_kv = dist.kernel_placements(mesh, q.shape[0], (H, KVH), 0, 2)
-        pick = dist.head_split(mesh, H, KVH)
         ql = dist.to_local_as(q, mesh, pl_q)
-        if pick is None or pl_kv == pl_q:  # the KV heads replicated with the query heads, or sharded as they are
+        if share is None or share.parts > 1 or pl_kv == pl_q:  # the KV heads replicated with the query heads, or sharded as they are
             kl, vl = (dist.to_local_as(x, mesh, pl_kv) for x in (k, v))
         else:
-            kl, vl = (_kv_heads_of_rank(x, mesh, pl_kv, pick) for x in (k, v))
+            kl, vl = (_heads_of_rank(x, mesh, pl_kv, share.kv) for x in (k, v))
         return dist.from_local(_Flash.apply(ql, kl, vl, causal, scale, q_offset), mesh, pl_q)
     return _Flash.apply(q, k, v, causal, scale, q_offset)
 
 
-def _kv_heads_of_rank(x, mesh, placements, pick) -> torch.Tensor:
-    """The KV heads ``pick`` (``dist.head_split``) of ``x`` (B, S, KVH, D),
-    replicated over ``model``, as a local tensor; its gradient, the part of
-    this rank's query heads, a partial sum over ``model``."""
+def _heads_of_rank(x, mesh, placements, pick, rows: slice = slice(None)) -> torch.Tensor:
+    """The heads ``pick`` of ``x`` (B, S, heads, D), replicated over
+    ``model``, on ``rows`` of its sequence, as a local tensor: the KV heads
+    that this rank's query heads read, or its own query heads (both
+    ``dist.row_split``). Its gradient, this rank's part, is a partial
+    sum over ``model``."""
     from torch.distributed.tensor import Partial
 
     grad = [Partial() if name == dist.TP_AXIS else pl for name, pl in zip(mesh.mesh_dim_names, placements)]
-    local = dist.to_local_as(x, mesh, placements, grad)
+    local = dist.to_local_as(x, mesh, placements, grad)[:, rows]
     if isinstance(pick, slice):
         return local[:, :, pick].contiguous()
     return local.index_select(2, torch.tensor(pick, device=local.device))
+
+
+def _flash_on_row_share(q, k, v, share: "dist.RowShare", causal: bool, scale: float, q_offset: int):
+    """``flash_attention`` on DTensors where ``model`` does not divide the
+    query heads: each rank runs the kernel on its ``dist.row_split`` share,
+    its group's query heads on its slice of the query rows (``q_offset``
+    moved to the slice's first row) against all the KV rows of the KV heads
+    they read. dq, dk and dv come back as partial sums over ``model``, each
+    rank's part of them in place. The outputs are gathered over ``model``
+    (``_RowShares``), so the result is whole there, as the heads are."""
+    mesh = q.device_mesh
+    pl = dist.kernel_placements(mesh, q.shape[0], (), 0, None)  # the batch over the data axes, the rest whole
+    rows = share.rows(q.shape[1])
+    ql = _heads_of_rank(q, mesh, pl, share.heads, rows)
+    kl, vl = (_heads_of_rank(x, mesh, pl, share.kv) for x in (k, v))
+    o = _Flash.apply(ql, kl, vl, causal, scale, q_offset + rows.start)
+    return dist.from_local(_RowShares.apply(o, mesh, share, q.shape[1], pl), mesh, pl)
+
+
+class _RowShares(torch.autograd.Function):
+    """The whole (B, S, H, D) output from each ``model`` rank's
+    ``dist.RowShare`` of it (its heads on its rows): one all-gather over
+    ``model`` of the shares, each padded to the longest part's rows. In
+    backward each rank takes its share of the gradient."""
+
+    @staticmethod
+    def forward(ctx, o, mesh, share, S: int, placements):
+        from torch.distributed.tensor import Replicate, Shard
+
+        ctx.share, ctx.S = share, S
+        B, _, Hg, D = o.shape
+        size = -(-S // share.parts)
+        padded = torch.nn.functional.pad(o, (0, 0, 0, 0, 0, size - o.shape[1])).contiguous()
+        # the shares stacked on dim 0 in ``model``'s order: the gather of a dim 0 sharded there too
+        names = mesh.mesh_dim_names
+        stacked = [Shard(0) if n == dist.TP_AXIS else pl for n, pl in zip(names, placements)]
+        whole = [Replicate() if n == dist.TP_AXIS else pl for n, pl in zip(names, placements)]
+        parts = dist.from_local(padded, mesh, stacked).redistribute(mesh, whole).to_local()
+        groups = parts.shape[0] // (B * share.parts)
+        # (group, part, B, size, Hg, D) -> (B, part, size, H, D): each part's rows with every group's heads
+        parts = parts.reshape(groups, share.parts, B, size, Hg, D).permute(2, 1, 3, 0, 4, 5)
+        parts = parts.reshape(B, share.parts, size, groups * Hg, D)
+        lens = [share.rows(S, p).stop - share.rows(S, p).start for p in range(share.parts)]
+        return torch.cat([parts[:, p, :n] for p, n in enumerate(lens)], dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        share = ctx.share
+        return g[:, share.rows(ctx.S), share.heads].contiguous(), None, None, None, None
 
 
 def decode_attention(
@@ -176,7 +235,10 @@ def _decode_on_shards(q, k_cache, v_cache, kv_len, scale) -> torch.Tensor:
     own cache rows and batch, merged over the mesh dims that split the
     sequence; the output in q's batch placements and, where split, its
     heads over ``model``, replicated elsewhere (``decode_heads`` takes its
-    shard of that without moving anything)."""
+    shard of that without moving anything). A mesh dim of more than one rank
+    that splits neither the cache nor q (a data axis at batch 1, as the
+    long-context cells have it) splits the rank's cache rows further: its
+    ranks would otherwise repeat one another's work."""
     from torch.distributed.tensor import Replicate, Shard
 
     mesh = (q if dist.is_dtensor(q) else k_cache).device_mesh
@@ -188,31 +250,64 @@ def _decode_on_shards(q, k_cache, v_cache, kv_len, scale) -> torch.Tensor:
     H, KVH = q.shape[hd], kc.shape[2]
     heads = dist.kernel_placements(mesh, q.shape[0], (H,), None, hd)
     seq = dist.sharded_on(kc, 1)
-    pl_q, pick = [], None
-    for pl, hp in zip(kc.placements, heads):
+    split, share, pl_q, idle = dist.row_split(mesh, H, KVH), None, [], []
+    for i, (name, pl, hp) in enumerate(zip(mesh.mesh_dim_names, kc.placements, heads)):
         if pl.is_shard(0):
             pl_q.append(Shard(0))
-        elif pl.is_replicate() and hp.is_shard():
+        elif pl.is_replicate() and hp.is_shard():  # ``model`` divides the query heads: parts 1
             pl_q.append(hp)
-            pick = dist.head_split(mesh, H, KVH)
+            share = split
         elif pl.is_replicate() or pl.is_shard(1):
             pl_q.append(Replicate())
+            if pl.is_replicate() and name == dist.TP_AXIS and split is not None:
+                share = split  # ``model`` does not divide the heads: its share of them on a slice of the rows
+            elif pl.is_replicate() and mesh.mesh.shape[i] > 1:
+                idle.append(i)
         else:
             raise ValueError(f"decode_attention takes caches sharded on the batch or the sequence, not {kc.placements}")
     ql = dist.to_local_as(q, mesh, pl_q)
     kl, vl = kc.to_local(), vc.to_local()
-    if pick is not None:
-        kl, vl = kl[:, :, pick], vl[:, :, pick]
+    if share is not None and share.parts == 1:
+        kl, vl = kl[:, :, share.kv], vl[:, :, share.kv]
+    row0 = dist.shard_rows(kc, 1)[0]
+    if idle:  # this rank's part of its rows, the idle dims' coordinates read in mesh order
+        part, parts = dist.coordinate_on(mesh, idle)
+        n = kl.shape[1]
+        mine = slice(part * n // parts, (part + 1) * n // parts)
+        kl, vl, row0 = kl[:, mine], vl[:, mine], row0 + mine.start
     squeeze = ql.dim() == 4
     q3 = ql[:, 0] if squeeze else ql
     kv_len = dist.full(kv_len)
-    if seq:
-        row0, rows = dist.shard_rows(kc, 1)
-        o, lse = da.decode_attention(q3, kl, vl, local_kv_len(kv_len, row0, rows), scale=scale, return_lse=True)
-        o = merge_partials(o, lse, lambda t, op: dist.all_sum(t, mesh, seq, op), q3.dtype)
+    if share is not None and share.parts > 1:
+        o = _decode_on_row_share(q3, kl, vl, kv_len, scale, share, mesh, seq + idle, row0)
+    elif seq or idle:
+        o, lse = da.decode_attention(q3, kl, vl, local_kv_len(kv_len, row0, kl.shape[1]), scale=scale,
+                                     return_lse=True)
+        o = merge_partials(o, lse, lambda t, op: dist.all_sum(t, mesh, seq + idle, op), q3.dtype)
     else:
         o = da.decode_attention(q3, kl, vl, kv_len, scale=scale)
     return dist.from_local(o[:, None] if squeeze else o, mesh, pl_q)
+
+
+def _decode_on_row_share(q3, kl, vl, kv_len, scale, share: "dist.RowShare", mesh, seq, row0: int) -> torch.Tensor:
+    """The decode over a cache that ``model`` replicates, where it does not
+    divide the query heads (whisper-base's cross cache of 1500 frames): each
+    rank attends with its ``dist.row_split`` share, its group's heads over its
+    slice of the (local) cache rows, and the partials are merged
+    (``merge_partials``) over ``model`` and the mesh dims ``seq`` that split
+    the rows further (the local rows starting at row ``row0``). Each rank's partial lies in its heads of a whole-head
+    tensor, lse −inf in the others, so one merge over ``model`` both adds a
+    group's row slices and assembles the heads: the output is whole."""
+    B, H, D = q3.shape
+    rows = share.rows(kl.shape[1])
+    o_part, lse_part = da.decode_attention(
+        q3[:, share.heads], kl[:, rows, share.kv], vl[:, rows, share.kv],
+        local_kv_len(kv_len, row0 + rows.start, rows.stop - rows.start), scale=scale, return_lse=True)
+    o = o_part.new_zeros((B, H, D))
+    lse = lse_part.new_full((B, H), float("-inf"))
+    o[:, share.heads], lse[:, share.heads] = o_part, lse_part
+    dims = [mesh.mesh_dim_names.index(dist.TP_AXIS), *seq]
+    return merge_partials(o, lse, lambda t, op: dist.all_sum(t, mesh, dims, op), q3.dtype)
 
 
 def wkv6(

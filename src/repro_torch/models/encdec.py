@@ -157,9 +157,8 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, plan: Shardin
         xn = nn.layernorm_apply(lp["attn_norm"], x)
         q, k, v = _mha_qkv(cfg, lp["attn"], xn, xn, plan)
         out = tfm.flash_attention(q, k, v, causal=False, block_k=cfg.attn_block_k)
-        x = x + _mha_out(lp["attn"], out, B, T)
-        x = x + _mlp(lp["mlp"], nn.layernorm_apply(lp["mlp_norm"], x))
-        return plan.act(x, "frames")
+        x = x + plan.act(_mha_out(lp["attn"], out, B, T), "frames")
+        return x + plan.act(_mlp(lp["mlp"], nn.layernorm_apply(lp["mlp_norm"], x)), "frames")
 
     h = nn.scan_layers(body, h, params["enc_layers"], remat=cfg.remat)
     return nn.layernorm_apply(params["enc_norm"], h)
@@ -170,13 +169,13 @@ def _dec_block(cfg, plan, enc_out, B, S, x, lp):
     xn = nn.layernorm_apply(lp["self_norm"], x)
     q, k, v = _mha_qkv(cfg, lp["self_attn"], xn, xn, plan)
     out = tfm.flash_attention(q, k, v, causal=True, block_k=cfg.attn_block_k)
-    x = x + _mha_out(lp["self_attn"], out, B, S)
+    x = x + plan.act(_mha_out(lp["self_attn"], out, B, S), "hidden")
     xn = nn.layernorm_apply(lp["cross_norm"], x)
     qx, xk, xv = _mha_qkv(cfg, lp["cross_attn"], xn, enc_out, plan)
     out = tfm.flash_attention(qx, xk, xv, causal=False, block_k=cfg.attn_block_k)
-    x = x + _mha_out(lp["cross_attn"], out, B, S)
-    x = x + _mlp(lp["mlp"], nn.layernorm_apply(lp["mlp_norm"], x))
-    return plan.act(x, "hidden"), (k, v, xk, xv)
+    x = x + plan.act(_mha_out(lp["cross_attn"], out, B, S), "hidden")
+    x = x + plan.act(_mlp(lp["mlp"], nn.layernorm_apply(lp["mlp_norm"], x)), "hidden")
+    return x, (k, v, xk, xv)
 
 
 def _dec_embed(cfg, params, tokens, plan, offset: int = 0):
@@ -259,13 +258,12 @@ def decode_step(cfg, params, token, cache, pos: Union[int, torch.Tensor], plan: 
         dist.write_rows(kc, 1, pos, k)
         dist.write_rows(vc, 1, pos, v)
         out = tfm.decode_attention(q, kc, vc, kv_len=kv_len)
-        h = h + _mha_out(lp["self_attn"], out, B, 1)
+        h = h + plan.act(_mha_out(lp["self_attn"], out, B, 1), "decode_hidden")
         xn = nn.layernorm_apply(lp["cross_norm"], h)
         qx = nn.dense_apply({"w": lp["cross_attn"]["wq"], "b": lp["cross_attn"]["bq"]}, xn)
         out = tfm.decode_attention(dist.split_heads(qx, cfg.n_heads, hd), xk, xv, kv_len=x_len)
-        h = h + _mha_out(lp["cross_attn"], out, B, 1)
-        h = h + _mlp(lp["mlp"], nn.layernorm_apply(lp["mlp_norm"], h))
-        h = plan.act(h, "decode_hidden")
+        h = h + plan.act(_mha_out(lp["cross_attn"], out, B, 1), "decode_hidden")
+        h = h + plan.act(_mlp(lp["mlp"], nn.layernorm_apply(lp["mlp_norm"], h)), "decode_hidden")
 
     logits = _logits(cfg, params, h, plan)[:, 0, :]
     new_cache = dict(cache, k=plan.act(cache["k"], "cache"), v=plan.act(cache["v"], "cache"))

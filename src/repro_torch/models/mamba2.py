@@ -309,9 +309,9 @@ def _attn_prefill_block(cfg, lp, x, plan, positions, rope=None):
     q = nn.apply_rope(q, positions, cfg.rope_theta, tables=rope)
     kr = nn.apply_rope(k, positions, cfg.rope_theta, tables=rope)
     out = tfm.flash_attention(q, kr, v, causal=True, block_k=cfg.attn_block_k)
-    x = x + nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, S, -1))
-    x = x + tfm._mlp(cfg, lp["mlp"], tfm._norm(cfg, lp["mlp_norm"], x), plan)
-    return plan.act(x, "hidden"), kr.to(torch.bfloat16), v.to(torch.bfloat16)
+    x = x + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, S, -1)), "hidden")
+    x = x + plan.act(tfm._mlp(cfg, lp["mlp"], tfm._norm(cfg, lp["mlp_norm"], x), plan), "hidden")
+    return x, kr.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, plan: ShardingPlan):
@@ -378,13 +378,13 @@ def decode_step(cfg, params, token, cache, pos: Union[int, torch.Tensor], plan: 
             dist.write_rows(kc, 1, pos, k)
             dist.write_rows(vc, 1, pos, v)
             out = tfm.decode_attention(q, kc, vc, kv_len=kv_len)
-            xs = xs + nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, 1, -1))
-            xs = xs + tfm._mlp(cfg, lp["mlp"], tfm._norm(cfg, lp["mlp_norm"], xs), plan)
+            xs = xs + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, 1, -1)), "decode_hidden")
+            xs = xs + plan.act(tfm._mlp(cfg, lp["mlp"], tfm._norm(cfg, lp["mlp_norm"], xs), plan), "decode_hidden")
             x = xs[:, 0, :]
         for i in range(start, start + size):
             st, tail = cache["ssm"][i], cache["conv"][i]
             y, st2, tail2 = mamba_step(cfg, layers[i], x, st, tail)
-            x = x + y
+            x = x + dist.reduced(y)
             dist.write(st, st2)
             dist.write(tail, tail2)
         start += size

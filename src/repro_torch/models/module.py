@@ -74,7 +74,7 @@ def dense_apply(p: Params, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> 
     On DTensors the product's input, and the gradients of its input and its
     output, come in layouts the product can flatten into rows and its
     neighbours can view (``dist.rows_flattenable``, ``dist.grad_as``)."""
-    x = dist.grad_as(dist.rows_flattenable(x), keep_partial=True)
+    x = dist.split_as_rows_of(dist.grad_as(dist.rows_flattenable(x), keep_partial=True), p["w"])
     y = dist.grad_as(torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype)))
     if "b" in p:
         y = y + p["b"].to(compute_dtype)

@@ -290,10 +290,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 
 def block_fwd(cfg: ModelConfig, plan: ShardingPlan, carry, lp: Params):
     x, aux_acc = carry
-    x = x + tfm._attn_train(cfg, lp["attn"], tfm._norm(cfg, lp["attn_norm"], x), plan)
-    x = plan.act(x, "hidden")
+    x = x + plan.act(tfm._attn_train(cfg, lp["attn"], tfm._norm(cfg, lp["attn_norm"], x), plan), "hidden")
     y, aux = moe_ffn(cfg, lp["moe"], tfm._norm(cfg, lp["mlp_norm"], x), plan)
-    x = plan.act(x + y, "hidden")
+    x = x + plan.act(y, "hidden")
     aux_acc = {
         "aux_loss": aux_acc["aux_loss"] + aux["aux_loss"],
         "router_z": aux_acc["router_z"] + aux["router_z"],
@@ -334,9 +333,9 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, plan: Shardi
         q = nn.apply_rope(q, positions, cfg.rope_theta, tables=rope)
         kr = nn.apply_rope(k, positions, cfg.rope_theta, tables=rope)
         out = tfm.flash_attention(q, kr, v, causal=True, block_k=cfg.attn_block_k)
-        h = h + nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, S, -1))
+        h = h + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, S, -1)), "hidden")
         y, _ = moe_ffn(cfg, lp["moe"], tfm._norm(cfg, lp["mlp_norm"], h), plan)
-        h = plan.act(h + y, "hidden")
+        h = h + plan.act(y, "hidden")
         dist.write_rows(cache["k"][i], 1, 0, kr)
         dist.write_rows(cache["v"][i], 1, 0, v)
 
@@ -371,9 +370,9 @@ def decode_step(
         dist.write_rows(kc, 1, pos, k)
         dist.write_rows(vc, 1, pos, v)
         out = tfm.decode_attention(q, kc, vc, kv_len=kv_len)
-        h = h + nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, 1, -1))
+        h = h + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, 1, -1)), "decode_hidden")
         y, _ = moe_ffn(cfg, lp["moe"], tfm._norm(cfg, lp["mlp_norm"], h), plan)
-        h = plan.act(h + y, "decode_hidden")
+        h = h + plan.act(y, "decode_hidden")
 
     logits = tfm.logits_fn(cfg, params, h, plan)[:, 0, :]
     new_cache = {"k": plan.act(cache["k"], "cache"), "v": plan.act(cache["v"], "cache")}

@@ -121,9 +121,10 @@ def _lora_init(init, L: int, d: int, rank: int, out: int, device) -> Params:
     }
 
 
-def _lora(p: Params, x: torch.Tensor) -> torch.Tensor:
+def _lora(p: Params, x: torch.Tensor, plan: ShardingPlan) -> torch.Tensor:
+    """The decay's low-rank map, its output on each rank's heads (``ShardingPlan.cols``)."""
     h = torch.tanh(torch.matmul(x, p["a"].to(x.dtype)))
-    return torch.matmul(h, p["b"].to(x.dtype))
+    return torch.matmul(h, plan.cols(p["b"]).to(x.dtype))
 
 
 def init_time_mix(cfg: ModelConfig, init, device) -> Params:
@@ -193,9 +194,15 @@ def _lerp(x, x_prev, mu):
     return x + (x_prev - x) * mu.to(x.dtype)
 
 
-def _decay(p: Params, xw: torch.Tensor) -> torch.Tensor:
+def _decay(p: Params, xw: torch.Tensor, plan: ShardingPlan) -> torch.Tensor:
     """Data-dependent decay (Finch): logw = -exp(w0 + lora(xw)), in (-inf, 0), f32."""
-    return -torch.exp(p["decay_base"].float() + _lora(p["decay_lora"], xw).float())
+    return -torch.exp(p["decay_base"].float() + _lora(p["decay_lora"], xw, plan).float())
+
+
+def _head_proj(plan: ShardingPlan, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` on the columns of each rank's heads (``ShardingPlan.cols``):
+    the time mix's r, k, v and g, whose heads the plan splits over ``model``."""
+    return nn.dense_apply({"w": plan.cols(w)}, x)
 
 
 def time_mix_seq(
@@ -217,11 +224,10 @@ def time_mix_seq(
     xp = _token_shift(x, x_prev)
     mu = p["mu"]
     xr, xk, xv, xw, xg = (_lerp(x, xp, mu[i]) for i in range(5))
-    r = nn.dense_apply({"w": p["w_r"]}, xr).reshape(B, T, H, K)
-    k = nn.dense_apply({"w": p["w_k"]}, xk).reshape(B, T, H, K)
-    v = nn.dense_apply({"w": p["w_v"]}, xv).reshape(B, T, H, K)
-    g = nn.dense_apply({"w": p["w_g"]}, xg)
-    logw = _decay(p, xw).reshape(B, T, H, K)
+    r, k, v = (dist.split_heads(_head_proj(plan, p[w], xi), H, K)
+               for w, xi in (("w_r", xr), ("w_k", xk), ("w_v", xv)))
+    g = _head_proj(plan, p["w_g"], xg)
+    logw = dist.split_heads(_decay(p, xw, plan), H, K)
     # the scan's layout: batch over the data axes, heads over ``model``, the
     # sequence whole on every rank
     r, k, v, logw = (plan.act(t, "heads") for t in (r, k, v, logw))
@@ -345,20 +351,21 @@ def decode_step(cfg, params, token, cache, _pos, plan: ShardingPlan):
         xn_tm = nn.layernorm_apply(lp["tm_norm"], x)
         mu = tm["mu"]
         xr, xk, xv, xw, xg = (_lerp(xn_tm, tm_x.to(xn_tm.dtype), mu[j]) for j in range(5))
-        r = nn.dense_apply({"w": tm["w_r"]}, xr).reshape(B, H, K)
-        k = nn.dense_apply({"w": tm["w_k"]}, xk).reshape(B, H, K)
-        v = nn.dense_apply({"w": tm["w_v"]}, xv).reshape(B, H, K)
-        g = nn.dense_apply({"w": tm["w_g"]}, xg)
-        logw = _decay(tm, xw).reshape(B, H, K)
+        r, k, v = (dist.split_heads(_head_proj(plan, tm[w], xi), H, K)
+                   for w, xi in (("w_r", xr), ("w_k", xk), ("w_v", xv)))
+        g = _head_proj(plan, tm["w_g"], xg)
+        logw = dist.split_heads(_decay(tm, xw, plan), H, K)
         out, wkv_new = _wkv_step_on_shards(r, k, v, logw, tm["bonus_u"], wkv)
         out = nn.layernorm_apply(tm["ln_out"], out.to(torch.bfloat16).reshape(B, d))
         out = out * F.silu(g.float()).to(out.dtype)
-        x = x + nn.dense_apply({"w": tm["w_out"]}, out)
+        # each row-parallel product's partial sums reduced before they join the
+        # stream (its shards kept: at batch 1 the data axes shard d)
+        x = x + dist.reduced(nn.dense_apply({"w": tm["w_out"]}, out))
         # channel mix
         cm = lp["channel_mix"]
         xn_cm = nn.layernorm_apply(lp["cm_norm"], x)
         x_cm = cm_x.to(xn_cm.dtype)
-        x = x + _channel_mix(cm, _lerp(xn_cm, x_cm, cm["mu"][0]), _lerp(xn_cm, x_cm, cm["mu"][1]))
+        x = x + dist.reduced(_channel_mix(cm, _lerp(xn_cm, x_cm, cm["mu"][0]), _lerp(xn_cm, x_cm, cm["mu"][1])))
         # carries: the *inputs* each mixer saw this step (token-shift sources)
         dist.write(wkv, wkv_new)
         dist.write(tm_x, xn_tm)

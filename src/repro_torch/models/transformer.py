@@ -255,9 +255,11 @@ def prefill(
         q = nn.apply_rope(q, positions, cfg.rope_theta, tables=rope)
         kr = nn.apply_rope(k, positions, cfg.rope_theta, tables=rope)
         out = flash_attention(q, kr, v, causal=True, block_k=cfg.attn_block_k)
-        h = h + nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, S, -1))
-        h = h + _mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], h), plan)
-        h = plan.act(h, "hidden")
+        # each row-parallel product's partial sums reduced before they join
+        # the residual, as in ``block_fwd``: a partial residual would make
+        # the next norm's output partial, and the MLP's products whole
+        h = h + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, S, -1)), "hidden")
+        h = h + plan.act(_mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], h), plan), "hidden")
         # store rope'd keys so decode never re-rotates the cache
         dist.write_rows(cache["k"][i], 1, 0, kr)
         dist.write_rows(cache["v"][i], 1, 0, v)
@@ -302,9 +304,8 @@ def decode_step(
         dist.write_rows(vc, 1, pos, v)
         out = decode_attention(q, kc, vc, kv_len=kv_len)
         out = plan.act(out, "decode_heads")
-        h = h + nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, 1, -1))
-        h = h + _mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], h), plan)
-        h = plan.act(h, "decode_hidden")
+        h = h + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, 1, -1)), "decode_hidden")
+        h = h + plan.act(_mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], h), plan), "decode_hidden")
 
     new_cache = {"k": plan.act(cache["k"], "cache"), "v": plan.act(cache["v"], "cache")}
     logits = logits_fn(cfg, params, h, plan)[:, 0, :]

@@ -9,6 +9,7 @@ module starts nothing.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Optional, Sequence
 
@@ -144,6 +145,23 @@ def rows_flattenable(x):
     return x if list(x.placements) == want else x.redistribute(x.device_mesh, want)
 
 
+def split_as_rows_of(x, w):
+    """``x`` (..., in) with its last dim sharded on each mesh dim on which
+    ``w`` (in, out) shards its rows and ``x`` is whole, or ``x``: the input of
+    a row-parallel product, sliced where it lies and in sight of autograd.
+    DTensor slices it inside the product's dispatch, where autograd does not
+    see it, so the product's backward would compute the weight's gradient
+    from the whole input on every rank of the axis (whisper's ``wo``, whose
+    input the attention gathers whole)."""
+    if not (is_dtensor(x) and is_dtensor(w)) or w.dim() < 2:
+        return x
+    from torch.distributed.tensor import Shard
+
+    want = [Shard(x.dim() - 1) if wp.is_shard(w.dim() - 2) and xp.is_replicate() and size > 1 else xp
+            for xp, wp, size in zip(x.placements, w.placements, x.device_mesh.mesh.shape)]
+    return x if want == list(x.placements) else x.redistribute(x.device_mesh, want)
+
+
 class _GradAs(torch.autograd.Function):
     """The identity; in backward the gradient is brought to the placements
     the forward value had, a partial sum made whole, or kept partial where
@@ -275,7 +293,7 @@ def kernel_placements(mesh, batch: int, heads: Sequence[int], batch_dim: Optiona
     over ``model`` when it divides every head count given, everything else
     replicated. With no head dim these are the placements in which each rank
     holds whole examples. An attention gives its query heads alone: its KV
-    heads follow them (``head_split``)."""
+    heads follow them (``row_split``)."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = mesh.mesh_dim_names or ()
@@ -294,36 +312,86 @@ def kernel_placements(mesh, batch: int, heads: Sequence[int], batch_dim: Optiona
     return out
 
 
-def head_split(mesh, heads: int, kv_heads: int):
-    """The KV heads that this rank's query heads read, where a ``model`` of
-    more than one rank splits the query heads (``kernel_placements``; None
-    where it does not):
-    rank r of ``model`` holds the contiguous query heads [r·H/tp, (r+1)·H/tp),
-    and query head h reads KV head h // G (G = H / KVH). Returned as an index
-    into the KV head dim of whole KV heads:
+def _tp_size(mesh) -> int:
+    names = mesh.mesh_dim_names or ()
+    return mesh.mesh.shape[names.index(TP_AXIS)] if TP_AXIS in names else 1
 
-      * a slice of H/(tp·G) KV heads where the rank's heads are whole groups
-        (the local group size stays G; every case where ``model`` divides the
-        KV heads too);
+
+def _kv_heads_read(h0: int, local: int, group: int):
+    """The KV heads that query heads [h0, h0 + local) read, query head h
+    reading KV head h // ``group`` (G), as an index into the KV head dim of
+    whole KV heads:
+
+      * a slice of local/G KV heads where the heads are whole groups (the
+        local group size stays G; every case where ``model`` divides the KV
+        heads too);
       * a slice of one KV head where they lie inside one group (local group
-        size H/tp: 2 for the 32/8-head archs at ``model`` 16, 4 for qwen2);
+        size ``local``: 2 for the 32/8-head archs at ``model`` 16, 4 for
+        qwen2, 7 for llava-next-34b);
       * a list of one KV head a query head where they span groups unevenly
         (local group size 1: right, not faster; e.g. H 12, KVH 4 at
         ``model`` 6; no registry arch at ``model`` 16).
     """
-    names = mesh.mesh_dim_names or ()
-    if TP_AXIS not in names:
-        return None
-    tp = mesh.mesh.shape[names.index(TP_AXIS)]
-    if tp == 1 or heads % tp:
-        return None
-    local, group = heads // tp, heads // kv_heads
-    h0 = mesh.get_local_rank(TP_AXIS) * local
     if local % group == 0:
         return slice(h0 // group, (h0 + local) // group)
     if group % local == 0:
         return slice(h0 // group, h0 // group + 1)
     return [h // group for h in range(h0, h0 + local)]
+
+
+@dataclasses.dataclass(frozen=True)
+class RowShare:
+    """One ``model`` rank's share of an attention (``row_split``): the query
+    heads ``heads``, the KV heads ``kv`` they read (``_kv_heads_read``), and
+    part ``part`` of ``parts`` contiguous slices of the rows (the query rows
+    of a flash attention, the cache rows of a decode). ``parts`` is 1 where
+    ``model`` divides the query heads: the rank's heads on every row."""
+
+    heads: slice
+    kv: Any
+    part: int
+    parts: int
+
+    def rows(self, n: int, part: Optional[int] = None) -> slice:
+        """Part ``part`` (default this rank's) of ``n`` rows: rows
+        [part·n // parts, (part+1)·n // parts), so the parts differ by at most
+        one row and none is empty where n >= parts."""
+        part = self.part if part is None else part
+        return slice(part * n // self.parts, (part + 1) * n // self.parts)
+
+
+def row_split(mesh, heads: int, kv_heads: int) -> Optional[RowShare]:
+    """This rank's ``RowShare`` of an attention where ``model`` has more than
+    one rank (None elsewhere). ``model``'s tp ranks form g = gcd(heads, tp)
+    groups of tp/g consecutive ranks; group i holds the contiguous query
+    heads [i·heads/g, (i+1)·heads/g) and each of its ranks one of tp/g
+    contiguous slices of the rows. Where ``model`` divides the heads that is
+    one slice: rank r holds heads [r·heads/tp, (r+1)·heads/tp), which
+    ``kernel_placements`` shards. Elsewhere each rank computes 1/tp of the
+    attention's FLOPs: whisper-base's 8 heads at ``model`` 16 are 8 groups
+    of one head, each split over 2 ranks; llava-next-34b's 56 (G 7) are 8
+    groups of 7 heads, one KV head each. Under a causal mask the live query
+    x key pairs are not split evenly: a group's later row slices see more
+    keys (the second of two slices 3x the first's)."""
+    tp = _tp_size(mesh)
+    if tp <= 1:
+        return None
+    groups = math.gcd(heads, tp)
+    parts, local = tp // groups, heads // groups
+    t = mesh.get_local_rank(TP_AXIS)
+    h0 = t // parts * local
+    return RowShare(slice(h0, h0 + local), _kv_heads_read(h0, local, heads // kv_heads), t % parts, parts)
+
+
+def coordinate_on(mesh, dims: Sequence[int]) -> tuple:
+    """``(part, parts)``: this rank's index among the ranks of ``mesh``'s dims
+    ``dims`` (its coordinates read in mesh order, the first the slowest) and
+    their number."""
+    part, parts = 0, 1
+    for d in dims:
+        size = mesh.mesh.shape[d]
+        part, parts = part * size + mesh.get_coordinate()[d], parts * size
+    return part, parts
 
 
 def shard_rows(x, dim: int, placements=None):

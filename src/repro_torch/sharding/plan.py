@@ -108,17 +108,7 @@ class ShardingPlan:
         (or no spec of that kind); on a ``DeviceMesh`` ``x`` is redistributed to
         the spec's placements. A plain tensor there is one that every rank
         holds whole (made from constants), taken as replicated first."""
-        if self.mesh is None:
-            return x
-        spec = self.act_specs.get(kind)
-        if spec is None or not _is_device_mesh(self.mesh):
-            return x
-        from torch.distributed.tensor import DTensor, Replicate
-
-        if not isinstance(x, DTensor):
-            x = DTensor.from_local(x, self.mesh, [Replicate()] * self.mesh.ndim, run_check=False)
-        want = placements(self.mesh, _fit_spec(spec, x.shape, self.mesh), x.dim())
-        return x if list(x.placements) == want else x.redistribute(self.mesh, want)
+        return self._to_spec(x, self.act_specs.get(kind))
 
     def new(self, shape, dtype: torch.dtype, kind: str, device, init: str = "zeros") -> torch.Tensor:
         """A new tensor of ``shape``, ``torch.zeros`` (or ``torch.empty``), in
@@ -133,6 +123,34 @@ class ShardingPlan:
 
         want = placements(self.mesh, _fit_spec(spec, shape, self.mesh), len(shape))
         return getattr(dtensor, init)(*shape, dtype=dtype, device_mesh=self.mesh, placements=want)
+
+    def cols(self, w: torch.Tensor) -> torch.Tensor:
+        """``w`` (..., in, out) with its out dim sharded over the axes that the
+        ``heads`` spec names for the heads (a product's output whose heads the
+        plan splits) and its other dims whole: each rank holds the columns of
+        its own heads and computes only those. GSPMD finds that layout for a
+        replicated weight from the constraint on the product's output; DTensor
+        would compute the product whole first. A replicated ``w`` is sliced
+        where it lies (no collective); the identity with no mesh or no such
+        axis."""
+        spec = None if self.mesh is None else self.act_specs.get("heads")
+        if spec is None or len(spec) <= 2 or spec[2] is None:
+            return w
+        return self._to_spec(w, P(*([None] * (w.dim() - 1)), spec[2]))
+
+    def _to_spec(self, x: torch.Tensor, spec: Optional[P]) -> torch.Tensor:
+        """``x`` redistributed to ``spec``'s placements on a ``DeviceMesh``
+        (the identity with no mesh or no spec); a plain tensor there is one
+        that every rank holds whole (made from constants), taken as
+        replicated first."""
+        if spec is None or not _is_device_mesh(self.mesh):
+            return x
+        from torch.distributed.tensor import DTensor, Replicate
+
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, self.mesh, [Replicate()] * self.mesh.ndim, run_check=False)
+        want = placements(self.mesh, _fit_spec(spec, x.shape, self.mesh), x.dim())
+        return x if list(x.placements) == want else x.redistribute(self.mesh, want)
 
     def spec(self, kind: str) -> P:
         return self.act_specs.get(kind, P())

@@ -18,8 +18,13 @@ put on two thirds of the embedding table. Every other leaf reads 0.017 to
 over the ranks that split the batch (``A_log``'s gradient each data rank's
 own examples'): 0.905 and 0.892.
 
-The prefill's logits read 0.057 of the common 6e-2 (bf16's partial sums
-over the model axis; the decode's 0.038, the states 0.014 of 3e-2).
+The prefill's logits read 0.043 of the common 6e-2 (bf16's partial sums
+over the model axis; 0.057 when the residual stream carried them unreduced;
+the decode's 0.041, the states 0.011 of 3e-2).
+
+Last, the decode attention at batch 1 over a cache that every mesh dim
+replicates (the shared block's cache in the long-context cells): the data
+axis, which then holds nothing to split, splits each rank's cache rows.
 """
 import pytest
 
@@ -33,7 +38,7 @@ ZAMBA_STEP1_MOMENT_RTOL = 6e-2
 
 @pytest.fixture(scope="module")
 def found(tmp_path_factory):
-    return run_family(ARCH, ARCH, tmp_path_factory.mktemp("hybrid"))
+    return run_family(ARCH, ARCH, tmp_path_factory.mktemp("hybrid"), extra=("decode_idle",))
 
 
 @pytest.mark.parametrize("variant", ["baseline", "sp"])
@@ -62,3 +67,11 @@ def test_sharded_serving_runs_each_ranks_part(found, variant):
     # ``model``: replicated, so each rank takes its query head and the KV head it reads
     check_local_shapes(found["serve"]["prefill_" + variant], flash=[ONE_HEAD], table=[VOCAB_SHARD])
     check_local_shapes(found["serve"]["decode_" + variant], decode=[[1, 1, 25, False]], table=[VOCAB_SHARD])
+
+
+def test_decode_at_batch_one_splits_the_cache_rows_over_the_data_axis(found):
+    r = found["decode_idle"]
+    # flash-decode's merge of two row halves against the whole call: one bf16 rounding
+    assert max(r["errs"]) < 2e-2, r
+    # a rank's 2 query heads and their 2 KV heads over its 12 of the 24 rows, with the lse
+    check_local_shapes(r, decode=[[2, 2, 12, True]])

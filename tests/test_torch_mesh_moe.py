@@ -10,7 +10,11 @@ differs from the single device's by bf16's partial sums over the model axis
 alone: on a 1 x 4 mesh 0.082 at worst, with 5 of its 2,048 logits (0.24%)
 beyond 6e-2 and a relative L2 error of 1.5% (0.0 on 1 x 1 and 2 x 1). So its
 prefill is held to 6e-2 for all but 0.5% of the logits and to 0.25 for every
-one; its decode, the caches and the train steps to the common limits.
+one; its decode, the caches and the train steps to the common limits. With
+each row-parallel product's partial sums reduced before they join the
+residual stream, the 2 x 4 prefill reads 0.043, no logit beyond 6e-2 (0.082
+and 0.24% when the stream carried them), the decode 0.051 (baseline) and
+0.055 (serve).
 """
 import pytest
 

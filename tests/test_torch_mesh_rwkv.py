@@ -63,3 +63,11 @@ def test_sharded_serving_runs_each_ranks_part(found, variant):
     # attention-free: the lookup and the loss alone meet the vocab's shards
     check_local_shapes(found["serve"]["prefill_" + variant], flash=[], table=[VOCAB_SHARD])
     check_local_shapes(found["serve"]["decode_" + variant], decode=[], table=[VOCAB_SHARD])
+
+
+@pytest.mark.parametrize("run", ["train/baseline", "train/sp", "serve/prefill_baseline", "serve/prefill_serve",
+                                 "serve/decode_baseline", "serve/decode_serve"])
+def test_time_mix_runs_on_each_ranks_heads(found, run):
+    # r, k, v and g on the columns of the rank's 2 of the 8 heads: 16 of 64
+    case, name = run.split("/")
+    check_local_shapes(found[case][name], proj=[16])

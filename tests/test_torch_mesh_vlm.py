@@ -1,6 +1,9 @@
 """The vlm family's sharded steps (llava-next-34b reduced: the patch splice
 under DTensors) on a 2 x 4 (data, model) gloo mesh, eight processes, against
-the port's single-device path (``torch_mesh_family.py`` runs them)."""
+the port's single-device path (``torch_mesh_family.py`` runs them); and
+with 14 query heads over 2 KV heads (G 7), which ``model`` does not divide,
+each rank's ``row_split`` share: 7 heads and their KV head on half the
+query rows."""
 import pytest
 
 from torch_mesh_family import (ONE_HEAD, SEQ_SHARD_DECODE, VOCAB_SHARD, check_decode, check_local_shapes,
@@ -11,7 +14,7 @@ ARCH = "llava-next-34b"
 
 @pytest.fixture(scope="module")
 def found(tmp_path_factory):
-    return run_family(ARCH, ARCH, tmp_path_factory.mktemp("vlm"))
+    return run_family(ARCH, ARCH, tmp_path_factory.mktemp("vlm"), extra=("row_split",))
 
 
 @pytest.mark.parametrize("variant", ["baseline", "sp"])
@@ -38,3 +41,17 @@ def test_sharded_train_step_runs_each_ranks_part(found, variant):
 def test_sharded_serving_runs_each_ranks_part(found, variant):
     check_local_shapes(found["serve"]["prefill_" + variant], flash=[ONE_HEAD], table=[VOCAB_SHARD])
     check_local_shapes(found["serve"]["decode_" + variant], decode=[SEQ_SHARD_DECODE], table=[VOCAB_SHARD])
+
+
+def test_row_split_steps_match_single_device(found):
+    """14 heads (G 7) at ``model`` 4: the train step, prefill and decode on
+    each rank's share against the single device, at the file's limits."""
+    r = found["row_split"]
+    check_train(r["train"], "baseline")
+    check_prefill(r["serve"], "baseline")
+    check_decode(r["serve"], "baseline")
+    # rank 0: one KV head and its 7 query heads on the first half of the rows
+    check_local_shapes(r["train"]["baseline"], flash=[[1, 7]], rows=[[16, 0]])
+    check_local_shapes(r["serve"]["prefill_baseline"], flash=[[1, 7]], rows=[[15, 0]])
+    # decode: the rank's 8 of 32 rows of the sequence-sharded cache, all heads
+    check_local_shapes(r["serve"]["decode_baseline"], decode=[[14, 2, 8, True]])

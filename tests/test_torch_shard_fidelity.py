@@ -12,7 +12,7 @@ stablelm-12b and qwen2-72b at ``model`` 16; every reduced config at
     decode cell's collectives gather no cache;
   * the pieces of the sharded boundary, on emulated ranks in one process:
     the query-head split and the KV heads each rank reads
-    (``dist.head_split``), the flash kernel's plain version on each rank's
+    (``dist.row_split``), the flash kernel's plain version on each rank's
     heads against the whole call (outputs and gradients), flash-decode's
     merge over sequence shards against the whole decode (empty shards
     included), the vocab-parallel loss terms, their gradient and the argmax's
@@ -169,7 +169,7 @@ def test_decode_cell_gathers_no_cache(counts):
 
 
 class _Mesh:
-    """What ``dist.head_split`` reads of a ``DeviceMesh``: the names, the
+    """What ``dist.row_split`` reads of a ``DeviceMesh``: the names, the
     shape and this rank's coordinate on ``model``."""
 
     def __init__(self, tp: int, rank: int):
@@ -190,14 +190,16 @@ class _Mesh:
 def test_each_rank_reads_the_kv_heads_of_its_query_heads(heads, kv_heads, tp, local_group):
     group = heads // kv_heads
     for rank in range(tp):
-        pick = dist.head_split(_Mesh(tp, rank), heads, kv_heads)
+        share = dist.row_split(_Mesh(tp, rank), heads, kv_heads)
         mine = range(rank * heads // tp, (rank + 1) * heads // tp)
+        assert share.parts == 1 and range(heads)[share.heads] == mine
+        pick = share.kv
         picked = pick if isinstance(pick, list) else list(range(kv_heads))[pick]
         assert len(mine) // len(picked) == local_group
         # query head j of the rank reads local KV head j // local_group, which is KV head h // G
         assert [picked[j // local_group] for j in range(len(mine))] == [h // group for h in mine]
-    assert dist.head_split(_Mesh(16, 0), 56, 8) is None  # llava at 16: the heads stay whole
-    assert dist.head_split(_Mesh(1, 0), 32, 8) is None  # one rank
+    assert dist.row_split(_Mesh(16, 0), 56, 8).parts == 2  # llava at 16: a head group on half the rows
+    assert dist.row_split(_Mesh(1, 0), 32, 8) is None  # one rank
 
 
 def _rand(gen, *shape):
@@ -216,7 +218,7 @@ def test_flash_on_each_ranks_heads_equals_the_whole_call():
     want = [o, *torch.autograd.grad(o, leaves, do)]
     outs, dqs, dk, dv = [], [], torch.zeros_like(k), torch.zeros_like(v)
     for rank in range(tp):
-        pick = dist.head_split(_Mesh(tp, rank), H, KVH)
+        pick = dist.row_split(_Mesh(tp, rank), H, KVH).kv
         heads = slice(rank * H // tp, (rank + 1) * H // tp)
         ql, kl, vl = (x.clone().requires_grad_() for x in (q[:, :, heads], k[:, :, pick], v[:, :, pick]))
         ol = ops.flash_attention(ql, kl, vl)

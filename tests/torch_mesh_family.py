@@ -138,20 +138,30 @@ def local_shapes_recorded(found: dict):
     KV heads, cache rows, whether the log-sum-exp was asked for) of each
     decode call, ``vocab`` the vocab width of each loss shard
     (``losses.shard_terms``), ``table`` the rows of each embedding table
-    looked up in. They show which path the sharded boundary took."""
+    looked up in, ``rows`` (query rows, ``q_offset``) of each flash call and
+    ``proj`` the local width of each of rwkv6's time-mix products
+    (``rwkv6._head_proj``). They show which path the sharded boundary took."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import losses
+    from repro_torch.models import losses, rwkv6
+    from repro_torch.sharding import dist
 
     saved = fa.flash_attention_fwd, da.decode_attention, losses.shard_terms, F.embedding
-    for key in ("flash", "decode", "vocab", "table"):
+    saved_proj = rwkv6._head_proj
+    for key in ("flash", "decode", "vocab", "table", "rows", "proj"):
         found.setdefault(key, set())
 
     def flash(q, *a, **kw):
         found["flash"].add(tuple(q.shape[i] for i in (1, 3)))
+        found["rows"].add((q.shape[2], kw.get("q_offset", 0)))
         return saved[0](q, *a, **kw)
+
+    def proj(plan, w, x):
+        out = saved_proj(plan, w, x)
+        found["proj"].add(dist.local(out).shape[-1])
+        return out
 
     def decode(q, k_cache, *a, **kw):
         found["decode"].add((q.shape[1], k_cache.shape[2], k_cache.shape[1], bool(kw.get("return_lse"))))
@@ -166,10 +176,12 @@ def local_shapes_recorded(found: dict):
         return saved[3](ids, weight, *a, **kw)
 
     fa.flash_attention_fwd, da.decode_attention, losses.shard_terms, F.embedding = flash, decode, terms, embedding
+    rwkv6._head_proj = proj
     try:
         yield
     finally:
         fa.flash_attention_fwd, da.decode_attention, losses.shard_terms, F.embedding = saved
+        rwkv6._head_proj = saved_proj
 
 
 def _sorted_shapes(found: dict) -> dict:
@@ -197,7 +209,17 @@ def _rel_l2(got, want) -> float:
     return max(errs)
 
 
-def case_train(mesh, arch: str) -> dict:
+#: reduced configs whose query heads ``model`` (4) does not divide
+#: (``dist.row_split``): whisper-base with 6 heads (2 groups of 3 heads, each
+#: over 2 slices of the rows) and 6 frames, which ``model`` does not divide
+#: either, so the decode's cross caches stay whole on every rank;
+#: llava-next-34b with 14 over 2 KV heads (2 groups of 7 heads, G 7, one KV
+#: head a group)
+ROW_SPLIT = {"whisper-base": dict(n_heads=6, n_kv_heads=6, n_frames=6),
+             "llava-next-34b": dict(n_heads=14, n_kv_heads=2)}
+
+
+def case_train(mesh, arch: str, overrides: Optional[dict] = None, variants=("baseline", "sp")) -> dict:
     from repro_torch.configs.base import ShapeSuite
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model_api import build_model
@@ -207,7 +229,7 @@ def case_train(mesh, arch: str) -> dict:
     from repro_torch.sharding.plan import make_plan
 
     opt = adamw.AdamWConfig(warmup_steps=0, total_steps=10)
-    cfg = get_config(arch).reduced()
+    cfg = get_config(arch).reduced(**(overrides or {}))
     model = build_model(cfg)
     suite = ShapeSuite("t", S_TRAIN, B, "train")
     batch = _batch(cfg, suite)
@@ -216,7 +238,7 @@ def case_train(mesh, arch: str) -> dict:
     with routes_recorded(routes):
         res, want = _two_steps(ts.build_train_step(model, make_plan(cfg, None), opt), init(), batch)
     found = {"single": res}
-    for variant in ("baseline", "sp"):
+    for variant in variants:
         step, st_sh, b_sh, _ = ts.jit_train_step(model, mesh, suite, opt, variant=variant)
         shapes = {}
         with routes_recorded([], routes), local_shapes_recorded(shapes):
@@ -235,7 +257,7 @@ def _state_err(got, want) -> float:
     return float((got.full_tensor().float() - want).abs().max()) / max(1.0, float(want.abs().max()))
 
 
-def case_serve(mesh, arch: str) -> dict:
+def case_serve(mesh, arch: str, overrides: Optional[dict] = None, variants=("baseline", "serve")) -> dict:
     from repro_torch.configs.base import ShapeSuite
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model_api import build_model
@@ -243,7 +265,7 @@ def case_serve(mesh, arch: str) -> dict:
     from repro_torch.sharding import dist
     from repro_torch.sharding.plan import make_plan
 
-    cfg = get_config(arch).reduced()
+    cfg = get_config(arch).reduced(**(overrides or {}))
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     plan0 = make_plan(cfg, None)
@@ -261,7 +283,7 @@ def case_serve(mesh, arch: str) -> dict:
     attn = [n for n in cache if n in ATTN_CACHES]
     recurrent = [n for n in cache if n in RECURRENT_CACHES]
     out = {}
-    for variant in ("baseline", "serve"):
+    for variant in variants:
         step, p_sh, b_sh, _ = serve.jit_prefill_step(model, mesh, ShapeSuite("p", S, B, "prefill"),
                                                      variant=variant)
         prefill_shapes, decode_shapes = {}, {}
@@ -295,7 +317,41 @@ def case_serve(mesh, arch: str) -> dict:
     return out
 
 
-def case_wkv6(mesh) -> dict:
+def case_row_split(mesh, arch: str) -> dict:
+    """``arch`` reduced with the heads of ``ROW_SPLIT``, which ``model`` does
+    not divide: the baseline train step against the single device's, and
+    the baseline prefill and decode against the single device's."""
+    return {"train": case_train(mesh, arch, ROW_SPLIT[arch], ("baseline",)),
+            "serve": case_serve(mesh, arch, ROW_SPLIT[arch], ("baseline",))}
+
+
+def case_decode_idle(mesh, _arch=None) -> dict:
+    """``ops.decode_attention`` on DTensors at batch 1 against the whole
+    call: a cache replicated on every mesh dim (zamba2's shared block's
+    cache at long_500k), query heads over ``model`` (2 of 8 a rank), and the
+    data axis, which holds no batch to split, splitting each rank's cache
+    rows; at kv_len that fills the cache, ends in the first data rank's rows
+    (the second's empty) and is one row."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator().manual_seed(0)
+    H, D, smax = 8, 16, 24
+    q = torch.randn(1, 1, H, D, generator=gen).to(torch.bfloat16)
+    kc, vc = (torch.randn(1, smax, H, D, generator=gen).to(torch.bfloat16) for _ in range(2))
+    whole = [Replicate(), Replicate()]
+    errs, shapes = [], {}
+    for n in (smax, 7, 1):
+        kv_len = torch.tensor([n], dtype=torch.int32)
+        want = ops.decode_attention(q, kc, vc, kv_len=kv_len)
+        with local_shapes_recorded(shapes):
+            got = ops.decode_attention(*(distribute_tensor(x, mesh, whole) for x in (q, kc, vc)), kv_len=kv_len)
+        errs.append(float((got.full_tensor().float() - want.float()).abs().max()))
+    return {"errs": errs, "local_shapes": _sorted_shapes(shapes)}
+
+
+def case_wkv6(mesh, _arch=None) -> dict:
     """``ops.wkv6`` on DTensors against the whole call, on the CPU (K5's
     plain version on each rank's local shards): the inputs in the sp layout
     (batch over the data axes, sequence over ``model``), which the boundary
@@ -352,7 +408,7 @@ def _rank_main(rank: int, train_arch: str, serve_arch: str, tmp: str, extra: str
         if serve_arch != "-":
             result["serve"] = case_serve(mesh, serve_arch)
         for name in filter(None, extra.split(",")):
-            result[name] = globals()["case_" + name](mesh)
+            result[name] = globals()["case_" + name](mesh, serve_arch)
         if rank == 0:
             Path(tmp, "result.json").write_text(json.dumps(result))
     finally:
