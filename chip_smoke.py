@@ -15,7 +15,8 @@ each rank's query heads and the KV head they read at granite-3-2b's and
 llama3-8b's training shapes, K4 with its log-sum-exp on each rank's rows of
 sequence-sharded decode caches, merged; and where it does not divide the
 query heads, K1-K3 on each rank's row_split share of heads and query rows,
-at whisper-base's self and cross attention and llava-next-34b's G 7),
+a zig-zag of two slices under a causal mask, at whisper-base's self and
+cross attention and llava-next-34b's G 7, ranks 0's and 1's timed),
 against the whole-head and whole-cache calls. Then it drives the port's entry points at full size, random
 weights from a seed:
 
@@ -208,7 +209,8 @@ SHARD_TP, SHARD_SEQ, QUICKSTART_ARCH = 16, 32768, "llama3-8b"
 # phase_shards where that axis does not divide the query heads (dist.row_split):
 # (name, arch, batch, query rows, KV rows, causal) at a device's training
 # shapes -- whisper-base's self attention (8 heads: 8 groups of one head, two
-# slices of the rows each) and cross attention over its 1500 frames,
+# parts of the rows each, the causal zig-zag's two slices a part) and cross
+# attention over its 1500 frames,
 # llava-next-34b's 56 heads (8 groups of 7, one KV head each); the plain
 # versions on the first ROW_PLAIN_B sequences
 ROW_SHARE_CASES = (("whisper-base self", "whisper-base", 16, 4096, 4096, True),
@@ -519,7 +521,8 @@ def attention_rebound(flash, decode):
     """Inside the block the model's attention calls go to ``flash`` and
     ``decode``, by rebinding the two names the transformer (and the families
     built on it) call. The package itself has no such switch: its dispatch
-    reads only its arguments."""
+    reads only its arguments. ``flash`` returns what the models' own does,
+    the output as ``wo``'s input, (B, S, H·D)."""
     saved = transformer.flash_attention, transformer.decode_attention
     transformer.flash_attention, transformer.decode_attention = flash, decode
     try:
@@ -530,7 +533,10 @@ def attention_rebound(flash, decode):
 
 def torch_attention_path():
     """The non-kernel PyTorch attention functions, as a context manager."""
-    return attention_rebound(attention.xla_flash_attention, attention.torch_decode_attention)
+    def flash(q, k, v, **kw):
+        return attention.xla_flash_attention(q, k, v, **kw).flatten(2)
+
+    return attention_rebound(flash, attention.torch_decode_attention)
 
 
 def f32_attention_path():
@@ -538,7 +544,7 @@ def f32_attention_path():
     q * scale or of p), as a context manager: a second non-kernel path that
     differs from ``torch_attention_path`` in rounding only."""
     def flash(q, k, v, *, causal=True, block_k=None, q_offset=0, scale=None, kv_len=None):
-        return ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
+        return ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset, scale=scale).flatten(2)
 
     def decode(q, k_cache, v_cache, *, kv_len, scale=None):
         return ref.decode_attention_reference(q[:, 0], k_cache, v_cache, kv_len=kv_len, scale=scale)[:, None]
@@ -1548,12 +1554,13 @@ def shard_decode_case(gen, B, smax, H, KVH, D, tp, lens) -> list:
 def row_share_case(gen, B, Sq, Skv, H, KVH, D, tp, causal) -> dict:
     """K1, K2 and K3 on each of ``tp`` ``model`` ranks' ``dist.row_split``
     shares, as the sharded steps run them where ``model`` does not divide the
-    query heads: a group's query heads on a slice of the query rows
-    (``q_offset`` moved to its first row) and the KV heads they read, all KV
-    rows. The ranks' o, lse and dq placed where their shares lie and their
-    dk, dv summed in f32 over the ranks that read each KV head, against the
-    whole-head calls, and on the first ``ROW_PLAIN_B`` sequences against the
-    plain versions of the whole call."""
+    query heads: a group's query heads on each slice of the query rows that
+    the rank holds (under a causal mask two, the zig-zag; a call each, its
+    ``q_offset`` moved to the slice's first row) and the KV heads they read,
+    all KV rows. The ranks' o, lse and dq placed where their slices lie and
+    their dk, dv summed in f32 over the calls and the ranks that read each KV
+    head, against the whole-head calls, and on the first ``ROW_PLAIN_B``
+    sequences against the plain versions of the whole call."""
     q, do = randn(gen, (B, Sq, H, D)), randn(gen, (B, Sq, H, D))
     k, v = randn(gen, (B, Skv, KVH, D)), randn(gen, (B, Skv, KVH, D))
     kw = dict(causal=causal, scale=D**-0.5)
@@ -1565,26 +1572,29 @@ def row_share_case(gen, B, Sq, Skv, H, KVH, D, tp, causal) -> dict:
     o, dq, lse = torch.empty_like(q), torch.empty_like(q), torch.empty(B, Sq, H, device=DEV)
     dk, dv = torch.zeros(k.shape, device=DEV), torch.zeros(v.shape, device=DEV)
     launches0 = fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count
-    shares = set()
+    shares, calls = set(), 0
     for r in range(tp):
         share = dist.row_split(EmulatedRank(tp, r), H, KVH)
-        rows, heads = share.rows(Sq), share.heads
-        # the wrapper's copies: the share's query rows and heads, the KV heads it reads
-        ql, dol = q[:, rows, heads].contiguous(), do[:, rows, heads].contiguous()
+        heads = share.heads
+        # the wrapper's copies: the KV heads the share reads, and each slice's query rows and heads
         kl, vl = k[:, :, share.kv].contiguous(), v[:, :, share.kv].contiguous()
         kvh = kl.shape[2]
-        qf, dof = ops._fold(ql, kvh), ops._fold(dol, kvh)
-        shares.add((kvh, qf.shape[3], qf.shape[2], rows.start))
-        o_r, lse_r = fa.flash_attention_fwd(qf, ops._kv_fold(kl), ops._kv_fold(vl), q_offset=rows.start, **kw)
-        dq_r, dk_r, dv_r = fa.flash_attention_bwd(qf, ops._kv_fold(kl), ops._kv_fold(vl), o_r, lse_r, dof,
-                                                  q_offset=rows.start, **kw)
-        o[:, rows, heads], dq[:, rows, heads] = ops._unfold(o_r), ops._unfold(dq_r)
-        lse[:, rows, heads] = lse_r.permute(0, 2, 1, 3).reshape(B, rows.stop - rows.start, -1)
-        dk[:, :, share.kv] += dk_r.permute(0, 2, 1, 3).float()
-        dv[:, :, share.kv] += dv_r.permute(0, 2, 1, 3).float()
+        for rows in share.rows(Sq, causal=causal):
+            qf = ops._fold(q[:, rows, heads].contiguous(), kvh)
+            dof = ops._fold(do[:, rows, heads].contiguous(), kvh)
+            shares.add((kvh, qf.shape[3], qf.shape[2], rows.start))
+            o_r, lse_r = fa.flash_attention_fwd(qf, ops._kv_fold(kl), ops._kv_fold(vl), q_offset=rows.start, **kw)
+            dq_r, dk_r, dv_r = fa.flash_attention_bwd(qf, ops._kv_fold(kl), ops._kv_fold(vl), o_r, lse_r, dof,
+                                                      q_offset=rows.start, **kw)
+            o[:, rows, heads], dq[:, rows, heads] = ops._unfold(o_r), ops._unfold(dq_r)
+            lse[:, rows, heads] = lse_r.permute(0, 2, 1, 3).reshape(B, rows.stop - rows.start, -1)
+            dk[:, :, share.kv] += dk_r.permute(0, 2, 1, 3).float()
+            dv[:, :, share.kv] += dv_r.permute(0, 2, 1, 3).float()
+            calls += 1
     torch.cuda.synchronize()
     launches = [a - b for a, b in zip((fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count), launches0)]
-    require(launches == [tp] * 3, f"the ranks' calls launched {launches}, not {tp} of each kernel")
+    require(launches == [calls] * 3 and calls == tp * (2 if causal else 1),
+            f"the ranks' {calls} calls launched {launches} of each kernel")
     label = f"row shares of flash B{B} Sq{Sq} Skv{Skv} H{H} KVH{KVH} D{D} causal={causal} over {tp} model ranks"
     out = {"shape": f"q ({B},{Sq},{H},{D}) k/v ({B},{Skv},{KVH},{D}) bf16 causal={causal}, {tp} ranks",
            "shares": [dict(zip(("kv_heads", "group", "rows", "q_offset"), sh)) for sh in sorted(shares)],
@@ -1615,34 +1625,46 @@ def row_share_case(gen, B, Sq, Skv, H, KVH, D, tp, causal) -> dict:
     return out
 
 
-def row_share_timed(gen, B, Sq, Skv, H, KVH, D, causal, q_offset) -> dict:
+def row_share_timed(gen, B, Skv, H, KVH, D, causal, slices) -> dict:
     """K1, K2 and K3 on one rank's share (``H`` query heads over ``KVH`` KV
-    heads on ``Sq`` query rows from row ``q_offset``, ``Skv`` KV rows), each
-    timed beside its bound, the plain versions (forward; backward in one
-    call) and one library call on the same work (F.scaled_dot_product_attention
-    with the share's mask, K/V heads expanded; its backward with its forward
-    subtracted)."""
+    heads on the query rows of ``slices``, each a kernel call from its first
+    row, ``Skv`` KV rows), each kernel's calls timed together beside their
+    bound, the plain versions (forward; backward in one call a slice) and one
+    library call on the same work (F.scaled_dot_product_attention on the
+    share's rows with their mask, K/V heads expanded; its backward with its
+    forward subtracted); ``k123_ms`` the three kernels' sum."""
     G = H // KVH
-    q, do = randn(gen, (B, Sq, H, D)), randn(gen, (B, Sq, H, D))
     k, v = randn(gen, (B, Skv, KVH, D)), randn(gen, (B, Skv, KVH, D))
-    kw = dict(causal=causal, scale=D**-0.5, q_offset=q_offset)
-    qf, kf, vf, dof = ops._fold(q, KVH), ops._kv_fold(k), ops._kv_fold(v), ops._fold(do, KVH)
-    o, lse = fa.flash_attention_fwd(qf, kf, vf, **kw)
-    delta = torch.empty_like(lse)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dqf, dkf, dvf = ops._fold(dq, KVH), ops._kv_fold(dk), ops._kv_fold(dv)
-    ms = {"flash_attention_fwd": gpu_ms(lambda: fa.flash_attention_fwd(qf, kf, vf, **kw), iters=10),
-          "flash_attention_bwd_dq": gpu_ms(lambda: fa.launch_bwd_dq(qf, kf, vf, o, dof, lse, delta, dqf, **kw),
+    kf, vf = ops._kv_fold(k), ops._kv_fold(v)
+    calls = []  # each slice's own tensors, as the steps' copies give them
+    for r in slices:
+        q, do = randn(gen, (B, r.stop - r.start, H, D)), randn(gen, (B, r.stop - r.start, H, D))
+        kw = dict(causal=causal, scale=D**-0.5, q_offset=r.start)
+        qf, dof = ops._fold(q, KVH), ops._fold(do, KVH)
+        o, lse = fa.flash_attention_fwd(qf, kf, vf, **kw)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        calls.append(dict(q=q, do=do, qf=qf, dof=dof, o=o, lse=lse, delta=torch.empty_like(lse), dqf=ops._fold(dq, KVH),
+                          dkf=ops._kv_fold(dk), dvf=ops._kv_fold(dv), kw=kw))
+    ms = {"flash_attention_fwd": gpu_ms(lambda: [fa.flash_attention_fwd(c["qf"], kf, vf, **c["kw"]) for c in calls],
+                                        iters=10),
+          "flash_attention_bwd_dq": gpu_ms(lambda: [fa.launch_bwd_dq(c["qf"], kf, vf, c["o"], c["dof"], c["lse"],
+                                                                     c["delta"], c["dqf"], **c["kw"]) for c in calls],
                                            iters=10),
-          "flash_attention_bwd_dkv": gpu_ms(lambda: fa.launch_bwd_dkv(qf, kf, vf, dof, lse, delta, dkf, dvf, **kw),
+          "flash_attention_bwd_dkv": gpu_ms(lambda: [fa.launch_bwd_dkv(c["qf"], kf, vf, c["dof"], c["lse"], c["delta"],
+                                                                       c["dkf"], c["dvf"], **c["kw"]) for c in calls],
                                             iters=10)}
-    plain = {"fwd": gpu_ms(lambda: ref.mha_reference_with_lse(q, k, v, **kw), iters=2, reps=3),
-             "bwd": gpu_ms(lambda: ref.flash_attention_bwd_reference(qf, kf, vf, o, lse, dof, **kw), iters=1, reps=3)}
+    plain = {"fwd": gpu_ms(lambda: [ref.mha_reference_with_lse(c["q"], k, v, **c["kw"]) for c in calls],
+                           iters=2, reps=3),
+             "bwd": gpu_ms(lambda: [ref.flash_attention_bwd_reference(c["qf"], kf, vf, c["o"], c["lse"], c["dof"],
+                                                                      **c["kw"]) for c in calls], iters=1, reps=3)}
     torch.cuda.empty_cache()
-    # yardstick only: the library on the same work, the share's mask given explicitly
+    # yardstick only: the library on the same work, the share's rows with their mask given explicitly
+    q, do = (torch.cat([c[name] for c in calls], dim=1) for name in ("q", "do"))
+    Sq = q.shape[1]
     mask = None
     if causal:
-        mask = (q_offset + torch.arange(Sq, device=DEV))[:, None] >= torch.arange(Skv, device=DEV)[None, :]
+        positions = torch.cat([torch.arange(r.start, r.stop, device=DEV) for r in slices])
+        mask = positions[:, None] >= torch.arange(Skv, device=DEV)[None, :]
     ql = q.permute(0, 2, 1, 3).detach().requires_grad_()
     kl = k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).detach().requires_grad_()
     vl = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).detach().requires_grad_()
@@ -1659,13 +1681,14 @@ def row_share_timed(gen, B, Sq, Skv, H, KVH, D, causal, q_offset) -> dict:
     backend = sdpa_backend(lib_fwd_bwd)
     del ql, kl, vl
     torch.cuda.empty_cache()
-    pairs = live_pairs(B, H, Sq, Skv, causal, q_offset)
+    pairs = sum(live_pairs(B, H, r.stop - r.start, Skv, causal, r.start) for r in slices)
     qb, kvb, lseb = 2 * q.numel(), 2 * (k.numel() + v.numel()), 4 * B * H * Sq
     work = {"flash_attention_fwd": (4 * D * pairs, 2 * qb + kvb + lseb),  # q, k, v in; o, lse out
             "flash_attention_bwd_dkv": (8 * D * pairs, 2 * qb + 2 * kvb + 2 * lseb),  # q, do, k, v, lse, delta; dk, dv
             "flash_attention_bwd_dq": (6 * D * pairs, 4 * qb + kvb + 2 * lseb)}  # q, o, do, k, v, lse; dq, delta
-    out = {"shape": f"q ({B},{KVH},{Sq},{G},{D}) k/v ({B},{KVH},{Skv},{D}) bf16 causal={causal} q_offset={q_offset}",
-           "library_backend": backend, "plain_ms": plain}
+    out = {"shape": f"q ({B},{KVH},{Sq},{G},{D}) k/v ({B},{KVH},{Skv},{D}) bf16 causal={causal}",
+           "slices": [[r.start, r.stop] for r in slices], "library_backend": backend, "plain_ms": plain,
+           "k123_ms": sum(ms.values())}
     for name, (flops, nbytes) in work.items():
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
         out[name] = {"ms": ms[name], "plain_ms": plain["fwd" if name == "flash_attention_fwd" else "bwd"],
@@ -1689,8 +1712,11 @@ def phase_shards() -> dict:
     log-sum-exp, and K1-K4 at llama3-8b's own shapes (head_dim 128, G 4) timed
     alone beside their bounds and the library calls. Last, where ``model``
     does not divide the query heads (``ROW_SHARE_CASES``), K1-K3 on each
-    rank's ``dist.row_split`` share against the whole call, and ranks 0's and
-    1's shares (the two slices of a group's rows) timed."""
+    rank's ``dist.row_split`` share against the whole call (a causal share's
+    two slices of the rows, the zig-zag, a call each), and ranks 0's and 1's
+    shares (the two parts of a group's rows) timed as the steps run them,
+    with each rank's K1 + K2 + K3 and the busier one's over their mean
+    (``rows_balance``)."""
     gen = torch.Generator(device=DEV).manual_seed(11)
     out = {"tp": SHARD_TP, "flash": {}, "decode": {}, "timed": {}}
     rows = SHARD_SEQ // SHARD_TP
@@ -1703,7 +1729,7 @@ def phase_shards() -> dict:
                                                     [SHARD_SEQ, 5 * rows + 77, 2 * rows, 1])
         torch.cuda.empty_cache()
     # where model does not divide the query heads: each rank's row_split share
-    out["rows"], out["rows_timed"] = {}, {}
+    out["rows"], out["rows_timed"], out["rows_balance"] = {}, {}, {}
     for name, arch, B, Sq, Skv, causal in ROW_SHARE_CASES:
         cfg = get_config(arch)
         H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -1731,16 +1757,18 @@ def phase_shards() -> dict:
     }
     torch.cuda.empty_cache()
     for name, arch, B, Sq, Skv, causal in ROW_SHARE_CASES:
-        # ranks 0 and 1: the two slices of the first group's query rows
+        # ranks 0 and 1: the two parts of the first group's query rows, as the steps run them
         cfg = get_config(arch)
         H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        out["rows_timed"][name] = {}
+        timed = out["rows_timed"][name] = {}
         for r in (0, 1):
             share = dist.row_split(EmulatedRank(SHARD_TP, r), H, KVH)
-            part = share.rows(Sq)
             kvh = len(range(KVH)[share.kv]) if isinstance(share.kv, slice) else len(share.kv)
-            out["rows_timed"][name][f"rank{r}"] = row_share_timed(
-                gen, B, part.stop - part.start, Skv, share.heads.stop - share.heads.start, kvh, D, causal, part.start)
+            timed[f"rank{r}"] = row_share_timed(gen, B, Skv, share.heads.stop - share.heads.start, kvh, D, causal,
+                                                share.rows(Sq, causal=causal))
+        k123 = [t["k123_ms"] for t in timed.values()]
+        out["rows_balance"][name] = {"k123_ms": dict(zip(timed, k123)),
+                                     "busiest_over_mean": max(k123) / statistics.mean(k123)}
         torch.cuda.empty_cache()
     emit("shards", **out)
     return out
@@ -2975,7 +3003,7 @@ def attention_probed(records: dict):
     def flash(q, k, v, *, causal=True, block_k=1024, q_offset=0, scale=None, kv_len=None):
         out = saved[0](q, k, v, causal=causal, block_k=block_k, q_offset=q_offset, scale=scale, kv_len=kv_len)
         want = ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
-        records["flash_attention_fwd"].append(rows_within(out, want))
+        records["flash_attention_fwd"].append(rows_within(out.reshape(want.shape), want))  # rows of one head, as K1 holds them
         return out
 
     def decode(q, k_cache, v_cache, *, kv_len, scale=None):
@@ -4224,7 +4252,8 @@ def main() -> None:
         short, errs = {"flash_attention_fwd": ("fwd", ("o", "lse")), "flash_attention_bwd_dkv": ("dkv", ("dk", "dv")),
                        "flash_attention_bwd_dq": ("dq", ("dq",))}[name]
         return {case: {"launches": r["launches"][short], "max_abs_err": max(r["vs_whole"][e] for e in errs),
-                       **{rank: t[name] for rank, t in shards["rows_timed"][case].items()}}
+                       **{rank: t[name] for rank, t in shards["rows_timed"][case].items()},
+                       "busiest_over_mean_k123": shards["rows_balance"][case]["busiest_over_mean"]}
                 for case, r in shards["rows"].items()}
 
     emit("wall", seconds=time.perf_counter() - t0)

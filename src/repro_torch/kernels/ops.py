@@ -23,10 +23,13 @@ part of the work, where the reference's plan puts it:
     (``dist.row_split``), their gradient a partial sum over ``model``. A
     sequence-sharded input is gathered on the sequence, as GSPMD would gather
     it. Where ``model`` does not divide the query heads, each rank takes its
-    ``dist.row_split`` share: a group of query heads on a slice of the query
-    rows (``q_offset`` moved with it), the outputs gathered whole over
-    ``model``. Both ends are differentiable, so ``_Flash`` runs unchanged
-    under them;
+    ``dist.row_split`` share: a group of query heads on its part of the query
+    rows (under a causal mask a zig-zag of two slices, which evens the live
+    pairs; a call a slice, ``q_offset`` moved with it), and one all-to-all
+    over ``model`` takes the outputs to ``wo``'s row layout (``RowsToWo``):
+    (B, S, H·D), its columns sharded, the one layout of the output there
+    (``flat``; the models always ask for it). Both ends are differentiable,
+    so ``_Flash`` runs unchanged under them;
   * ``decode_attention``: the cache as it is stored, never redistributed.
     Each rank attends over its own cache rows (flash-decode): the decode
     kernel returns its output and log-sum-exp over the valid rows it holds,
@@ -39,7 +42,8 @@ part of the work, where the reference's plan puts it:
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import dataclasses
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -105,89 +109,178 @@ def flash_attention(
     causal: bool = True,
     scale: Optional[float] = None,
     q_offset: int = 0,
+    flat: bool = False,
 ) -> torch.Tensor:
-    """GQA flash attention with the model-API layout. Differentiable."""
-    D = q.shape[-1]
+    """GQA flash attention with the model-API layout. Differentiable.
+    ``flat``: the output as (B, Sq, H·D), ``wo``'s input. On the row shares
+    (``_flash_on_row_share``) that is the only layout: the exchange lands
+    there, and the (B, Sq, H, D) view cannot express it where ``model``
+    does not divide H, so a call there without ``flat`` raises."""
+    B, S, H, D = q.shape
     scale = D**-0.5 if scale is None else scale
     if dist.is_dtensor(q):
         mesh = q.device_mesh
-        H, KVH = q.shape[2], k.shape[2]
+        KVH = k.shape[2]
         share = dist.row_split(mesh, H, KVH)
-        if share is not None and share.parts > 1 and q.shape[1] >= share.parts:
+        if share is not None and share.parts > 1 and S >= share.parts:
+            if not flat:
+                raise ValueError(f"model does not divide the {H} query heads: the row shares' output "
+                                 "exists only as wo's input (B, S, H·D); pass flat=True")
             return _flash_on_row_share(q, k, v, share, causal, scale, q_offset)
-        pl_q = dist.kernel_placements(mesh, q.shape[0], (H,), 0, 2)
-        pl_kv = dist.kernel_placements(mesh, q.shape[0], (H, KVH), 0, 2)
+        pl_q = dist.kernel_placements(mesh, B, (H,), 0, 2)
+        pl_kv = dist.kernel_placements(mesh, B, (H, KVH), 0, 2)
         ql = dist.to_local_as(q, mesh, pl_q)
         if share is None or share.parts > 1 or pl_kv == pl_q:  # the KV heads replicated with the query heads, or sharded as they are
             kl, vl = (dist.to_local_as(x, mesh, pl_kv) for x in (k, v))
         else:
-            kl, vl = (_heads_of_rank(x, mesh, pl_kv, share.kv) for x in (k, v))
-        return dist.from_local(_Flash.apply(ql, kl, vl, causal, scale, q_offset), mesh, pl_q)
-    return _Flash.apply(q, k, v, causal, scale, q_offset)
+            (kl,), (vl,) = (_heads_of_rank(x, mesh, pl_kv, share.kv) for x in (k, v))
+        out = dist.from_local(_Flash.apply(ql, kl, vl, causal, scale, q_offset), mesh, pl_q)
+    else:
+        out = _Flash.apply(q, k, v, causal, scale, q_offset)
+    return out.reshape(B, S, H * D) if flat else out
 
 
-def _heads_of_rank(x, mesh, placements, pick, rows: slice = slice(None)) -> torch.Tensor:
+def _heads_of_rank(x, mesh, placements, pick, rows: Tuple[slice, ...] = (slice(None),)) -> List[torch.Tensor]:
     """The heads ``pick`` of ``x`` (B, S, heads, D), replicated over
-    ``model``, on ``rows`` of its sequence, as a local tensor: the KV heads
-    that this rank's query heads read, or its own query heads (both
-    ``dist.row_split``). Its gradient, this rank's part, is a partial
+    ``model``, on each slice of ``rows`` of its sequence, as local tensors:
+    the KV heads that this rank's query heads read, or its own query heads
+    (both ``dist.row_split``). Their gradient, this rank's part, is a partial
     sum over ``model``."""
     from torch.distributed.tensor import Partial
 
     grad = [Partial() if name == dist.TP_AXIS else pl for name, pl in zip(mesh.mesh_dim_names, placements)]
-    local = dist.to_local_as(x, mesh, placements, grad)[:, rows]
+    local = dist.to_local_as(x, mesh, placements, grad)
     if isinstance(pick, slice):
-        return local[:, :, pick].contiguous()
-    return local.index_select(2, torch.tensor(pick, device=local.device))
+        return [local[:, r, pick].contiguous() for r in rows]
+    index = torch.tensor(pick, device=local.device)
+    return [local[:, r].index_select(2, index) for r in rows]
 
 
 def _flash_on_row_share(q, k, v, share: "dist.RowShare", causal: bool, scale: float, q_offset: int):
     """``flash_attention`` on DTensors where ``model`` does not divide the
     query heads: each rank runs the kernel on its ``dist.row_split`` share,
-    its group's query heads on its slice of the query rows (``q_offset``
-    moved to the slice's first row) against all the KV rows of the KV heads
-    they read. dq, dk and dv come back as partial sums over ``model``, each
-    rank's part of them in place. The outputs are gathered over ``model``
-    (``_RowShares``), so the result is whole there, as the heads are."""
+    its group's query heads on its slices of the query rows (two under a
+    causal mask, each a call with ``q_offset`` moved to its first row)
+    against all the KV rows of the KV heads they read. dq, dk and dv come
+    back as partial sums over ``model``, each rank's part of them in place
+    (dk, dv summed over its calls). The outputs go to ``wo``'s row layout by
+    one all-to-all over ``model`` (``RowsToWo``): the result is (B, S, H·D)
+    with its columns sharded over ``model``."""
+    from torch.distributed.tensor import Shard
+
     mesh = q.device_mesh
-    pl = dist.kernel_placements(mesh, q.shape[0], (), 0, None)  # the batch over the data axes, the rest whole
-    rows = share.rows(q.shape[1])
-    ql = _heads_of_rank(q, mesh, pl, share.heads, rows)
-    kl, vl = (_heads_of_rank(x, mesh, pl, share.kv) for x in (k, v))
-    o = _Flash.apply(ql, kl, vl, causal, scale, q_offset + rows.start)
-    return dist.from_local(_RowShares.apply(o, mesh, share, q.shape[1], pl), mesh, pl)
+    B, S, H, D = q.shape
+    pl = dist.kernel_placements(mesh, B, (), 0, None)  # the batch over the data axes, the rest whole
+    rows = share.rows(S, causal=causal)
+    (kl,), (vl,) = (_heads_of_rank(x, mesh, pl, share.kv) for x in (k, v))
+    qls = _heads_of_rank(q, mesh, pl, share.heads, rows)
+    o = torch.cat([_Flash.apply(ql, kl, vl, causal, scale, q_offset + r.start) for ql, r in zip(qls, rows)], dim=1)
+    exchange = RowsToWo(share, S, H, D, mesh.mesh.shape[mesh.mesh_dim_names.index(dist.TP_AXIS)], causal)
+    out = _RowsToWo.apply(o, mesh.get_group(dist.TP_AXIS), exchange)
+    return dist.from_local(out, mesh, [Shard(2) if name == dist.TP_AXIS else p
+                                       for name, p in zip(mesh.mesh_dim_names, pl)])
 
 
-class _RowShares(torch.autograd.Function):
-    """The whole (B, S, H, D) output from each ``model`` rank's
-    ``dist.RowShare`` of it (its heads on its rows): one all-gather over
-    ``model`` of the shares, each padded to the longest part's rows. In
-    backward each rank takes its share of the gradient."""
+@dataclasses.dataclass(frozen=True)
+class RowsToWo:
+    """The exchange that takes the row shares' output to ``wo``'s row layout:
+    (B, S, H·D) with its columns in tp blocks of C = H·D/tp, block t on
+    ``model`` rank t. A group's Hg·D columns are the blocks of its P ranks,
+    so part p of a group sends each part p' of it its rows' columns of block
+    p', and receives from each its rows of block p: B·S·C elements, 1/tp of
+    the output. Pure functions of (share, S, H, D, tp) around the all-to-all
+    (``_RowsToWo``): ``splits``, the elements sent to and received from each
+    rank of ``model`` (zero outside the group; the backward swaps them),
+    ``pack`` and ``unpack`` in the forward, ``pack_grad`` and ``unpack_grad``,
+    its inverse, in the backward, each buffer in ``model``'s rank order.
+    S >= parts: every part holds a row."""
+
+    share: "dist.RowShare"
+    S: int
+    H: int
+    D: int
+    tp: int
+    causal: bool
+
+    def __post_init__(self):
+        if self.H * self.D % self.tp:
+            raise ValueError(f"wo's rows ({self.H} x {self.D}) do not divide over {self.tp} model ranks")
+
+    @property
+    def block(self) -> int:
+        return self.H * self.D // self.tp
+
+    def _rows(self, part: int) -> Tuple[slice, ...]:
+        return self.share.rows(self.S, part, self.causal)
+
+    def _n(self, part: int) -> int:
+        return sum(r.stop - r.start for r in self._rows(part))
+
+    def splits(self, batch: int) -> Tuple[List[int], List[int]]:
+        """The forward's elements to and from each rank of ``model``, for
+        ``batch`` local sequences: this rank's rows of each part's block to
+        it, each part's rows of this rank's block from it."""
+        share, C = self.share, self.block
+        first = share.heads.start // (share.heads.stop - share.heads.start) * share.parts  # the group's first rank
+        pad = [0] * first, [0] * (self.tp - first - share.parts)
+        mine = batch * self._n(share.part) * C
+        return ([*pad[0], *[mine] * share.parts, *pad[1]],
+                [*pad[0], *(batch * self._n(p) * C for p in range(share.parts)), *pad[1]])
+
+    def pack(self, o: torch.Tensor) -> torch.Tensor:
+        """``o`` (B, R, Hg, D), this rank's output on its rows (in ``rows``
+        order) -> column block p' of all its rows for each part p' in turn."""
+        B, R = o.shape[:2]
+        return o.reshape(B, R, self.share.parts, self.block).permute(2, 0, 1, 3).reshape(-1)
+
+    def unpack(self, buf: torch.Tensor) -> torch.Tensor:
+        """The group's parts' rows of this rank's block, one part after
+        another -> (B, S, C), the block on every row."""
+        C = self.block
+        B = buf.numel() // (self.S * C)
+        out, off = buf.new_empty(B, self.S, C), 0
+        for p in range(self.share.parts):
+            n = self._n(p)
+            chunk, row = buf[off:off + B * n * C].view(B, n, C), 0
+            for r in self._rows(p):
+                out[:, r] = chunk[:, row:row + r.stop - r.start]
+                row += r.stop - r.start
+            off += B * n * C
+        return out
+
+    def pack_grad(self, g: torch.Tensor) -> torch.Tensor:
+        """``g`` (B, S, C), the gradient of this rank's block -> each part's
+        rows of it in turn."""
+        return torch.cat([torch.cat([g[:, r] for r in self._rows(p)], dim=1).reshape(-1)
+                          for p in range(self.share.parts)])
+
+    def unpack_grad(self, buf: torch.Tensor) -> torch.Tensor:
+        """Each part's block of this rank's rows -> (B, R, Hg, D), the
+        gradient of ``pack``'s input."""
+        P, C, R = self.share.parts, self.block, self._n(self.share.part)
+        B = buf.numel() // (P * R * C)
+        return buf.view(P, B, R, C).permute(1, 2, 0, 3).reshape(B, R, P * C // self.D, self.D)
+
+
+class _RowsToWo(torch.autograd.Function):
+    """``RowsToWo`` over ``model``'s process group: one all-to-all in the
+    forward, and its inverse on the gradient in the backward."""
 
     @staticmethod
-    def forward(ctx, o, mesh, share, S: int, placements):
-        from torch.distributed.tensor import Replicate, Shard
+    def forward(ctx, o, group, exchange: RowsToWo):
+        from torch.distributed._functional_collectives import all_to_all_single
 
-        ctx.share, ctx.S = share, S
-        B, _, Hg, D = o.shape
-        size = -(-S // share.parts)
-        padded = torch.nn.functional.pad(o, (0, 0, 0, 0, 0, size - o.shape[1])).contiguous()
-        # the shares stacked on dim 0 in ``model``'s order: the gather of a dim 0 sharded there too
-        names = mesh.mesh_dim_names
-        stacked = [Shard(0) if n == dist.TP_AXIS else pl for n, pl in zip(names, placements)]
-        whole = [Replicate() if n == dist.TP_AXIS else pl for n, pl in zip(names, placements)]
-        parts = dist.from_local(padded, mesh, stacked).redistribute(mesh, whole).to_local()
-        groups = parts.shape[0] // (B * share.parts)
-        # (group, part, B, size, Hg, D) -> (B, part, size, H, D): each part's rows with every group's heads
-        parts = parts.reshape(groups, share.parts, B, size, Hg, D).permute(2, 1, 3, 0, 4, 5)
-        parts = parts.reshape(B, share.parts, size, groups * Hg, D)
-        lens = [share.rows(S, p).stop - share.rows(S, p).start for p in range(share.parts)]
-        return torch.cat([parts[:, p, :n] for p, n in enumerate(lens)], dim=1)
+        ctx.group, ctx.exchange, ctx.batch = group, exchange, o.shape[0]
+        to_each, from_each = exchange.splits(o.shape[0])
+        return exchange.unpack(all_to_all_single(exchange.pack(o), from_each, to_each, group))
 
     @staticmethod
     def backward(ctx, g):
-        share = ctx.share
-        return g[:, share.rows(ctx.S), share.heads].contiguous(), None, None, None, None
+        from torch.distributed._functional_collectives import all_to_all_single
+
+        from_each, to_each = ctx.exchange.splits(ctx.batch)  # the forward's, swapped
+        buf = all_to_all_single(ctx.exchange.pack_grad(g), from_each, to_each, ctx.group)
+        return ctx.exchange.unpack_grad(buf), None, None
 
 
 def decode_attention(
@@ -299,7 +392,7 @@ def _decode_on_row_share(q3, kl, vl, kv_len, scale, share: "dist.RowShare", mesh
     tensor, lse −inf in the others, so one merge over ``model`` both adds a
     group's row slices and assembles the heads: the output is whole."""
     B, H, D = q3.shape
-    rows = share.rows(kl.shape[1])
+    (rows,) = share.rows(kl.shape[1])
     o_part, lse_part = da.decode_attention(
         q3[:, share.heads], kl[:, rows, share.kv], vl[:, rows, share.kv],
         local_kv_len(kv_len, row0 + rows.start, rows.stop - rows.start), scale=scale, return_lse=True)

@@ -38,14 +38,17 @@ def flash_attention(
     sequence length and ``q_offset`` (the kernel masks its ragged edge), and
     so does a DTensor (``ops`` runs the kernel, or for CPU shards its plain
     version, on the local shards). Every other call, and every plain CPU
-    tensor, runs ``xla_flash_attention``.
+    tensor, runs ``xla_flash_attention``. The output is (B, Sq, H·D), the
+    input of ``wo``: where ``model`` does not divide the heads of a DTensor
+    it has no (B, Sq, H, D) view (``ops.flash_attention``).
     """
     if kv_len is None and (q.device.type == "cuda" or dist.is_dtensor(q)):
-        return ops.flash_attention(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
-    return xla_flash_attention(
+        return ops.flash_attention(q, k, v, causal=causal, scale=scale, q_offset=q_offset, flat=True)
+    out = xla_flash_attention(
         q, k, v, causal=causal, block_k=block_k, q_offset=q_offset,
         scale=scale, kv_len=kv_len,
     )
+    return out.flatten(2)
 
 
 def xla_flash_attention(

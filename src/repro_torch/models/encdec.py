@@ -136,8 +136,9 @@ def _mha_qkv(cfg: ModelConfig, p: Params, xq, xkv, plan: ShardingPlan):
     return q, k, v
 
 
-def _mha_out(p: Params, out: torch.Tensor, B: int, S: int) -> torch.Tensor:
-    return nn.dense_apply({"w": p["wo"], "b": p["bo"]}, out.reshape(B, S, -1))
+def _mha_out(p: Params, out: torch.Tensor) -> torch.Tensor:
+    """``wo`` on the attention's output, (B, S, H·D)."""
+    return nn.dense_apply({"w": p["wo"], "b": p["bo"]}, out)
 
 
 def _mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -148,7 +149,7 @@ def _mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, plan: ShardingPlan) -> torch.Tensor:
     """frames: (B, T, d) stub embeddings -> encoder states (B, T, d)."""
-    B, T, _ = frames.shape
+    T = frames.shape[1]
     h = nn.dense_apply({"w": params["frame_proj"]["w_in"]}, frames.to(torch.bfloat16))
     h = h + sinusoids(T, cfg.d_model, h.device).to(h.dtype)[None]
     h = plan.act(h, "frames")
@@ -157,23 +158,23 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, plan: Shardin
         xn = nn.layernorm_apply(lp["attn_norm"], x)
         q, k, v = _mha_qkv(cfg, lp["attn"], xn, xn, plan)
         out = tfm.flash_attention(q, k, v, causal=False, block_k=cfg.attn_block_k)
-        x = x + plan.act(_mha_out(lp["attn"], out, B, T), "frames")
+        x = x + plan.act(_mha_out(lp["attn"], out), "frames")
         return x + plan.act(_mlp(lp["mlp"], nn.layernorm_apply(lp["mlp_norm"], x)), "frames")
 
     h = nn.scan_layers(body, h, params["enc_layers"], remat=cfg.remat)
     return nn.layernorm_apply(params["enc_norm"], h)
 
 
-def _dec_block(cfg, plan, enc_out, B, S, x, lp):
+def _dec_block(cfg, plan, enc_out, x, lp):
     """One decoder block; returns (x, (k, v, xk, xv)) with the block's self and cross K/V."""
     xn = nn.layernorm_apply(lp["self_norm"], x)
     q, k, v = _mha_qkv(cfg, lp["self_attn"], xn, xn, plan)
     out = tfm.flash_attention(q, k, v, causal=True, block_k=cfg.attn_block_k)
-    x = x + plan.act(_mha_out(lp["self_attn"], out, B, S), "hidden")
+    x = x + plan.act(_mha_out(lp["self_attn"], out), "hidden")
     xn = nn.layernorm_apply(lp["cross_norm"], x)
     qx, xk, xv = _mha_qkv(cfg, lp["cross_attn"], xn, enc_out, plan)
     out = tfm.flash_attention(qx, xk, xv, causal=False, block_k=cfg.attn_block_k)
-    x = x + plan.act(_mha_out(lp["cross_attn"], out, B, S), "hidden")
+    x = x + plan.act(_mha_out(lp["cross_attn"], out), "hidden")
     x = x + plan.act(_mlp(lp["mlp"], nn.layernorm_apply(lp["mlp_norm"], x)), "hidden")
     return x, (k, v, xk, xv)
 
@@ -195,9 +196,8 @@ def _logits(cfg, params, h, plan):
 def forward(cfg: ModelConfig, params: Params, frames, tokens, plan: ShardingPlan):
     """(frames (B, T, d), tokens (B, S)) -> logits (B, S, V)."""
     enc_out = encode(cfg, params, frames, plan)
-    B, S = tokens.shape
     h = _dec_embed(cfg, params, tokens, plan)
-    h = nn.scan_layers(lambda x, lp: _dec_block(cfg, plan, enc_out, B, S, x, lp)[0], h,
+    h = nn.scan_layers(lambda x, lp: _dec_block(cfg, plan, enc_out, x, lp)[0], h,
                        params["dec_layers"], remat=cfg.remat)
     return plan.act(_logits(cfg, params, h, plan), "logits")
 
@@ -230,7 +230,7 @@ def prefill(cfg: ModelConfig, params: Params, frames, tokens, plan: ShardingPlan
     # under a mesh, DTensors in the cache plan's placements from the start
     cache = {name: plan.new(shape, dt, "cache", h.device, init="empty") for name, (shape, dt) in spec.items()}
     for i, lp in enumerate(nn.unbind_layers(params["dec_layers"])):
-        h, kv = _dec_block(cfg, plan, enc_out, B, S, h, lp)
+        h, kv = _dec_block(cfg, plan, enc_out, h, lp)
         for name, t in zip(("k", "v", "xk", "xv"), kv):
             dist.write_rows(cache[name][i], 1, 0, t)
     cache = {name: plan.act(t, "cache") for name, t in cache.items()}
@@ -258,11 +258,11 @@ def decode_step(cfg, params, token, cache, pos: Union[int, torch.Tensor], plan: 
         dist.write_rows(kc, 1, pos, k)
         dist.write_rows(vc, 1, pos, v)
         out = tfm.decode_attention(q, kc, vc, kv_len=kv_len)
-        h = h + plan.act(_mha_out(lp["self_attn"], out, B, 1), "decode_hidden")
+        h = h + plan.act(_mha_out(lp["self_attn"], out.reshape(B, 1, -1)), "decode_hidden")
         xn = nn.layernorm_apply(lp["cross_norm"], h)
         qx = nn.dense_apply({"w": lp["cross_attn"]["wq"], "b": lp["cross_attn"]["bq"]}, xn)
         out = tfm.decode_attention(dist.split_heads(qx, cfg.n_heads, hd), xk, xv, kv_len=x_len)
-        h = h + plan.act(_mha_out(lp["cross_attn"], out, B, 1), "decode_hidden")
+        h = h + plan.act(_mha_out(lp["cross_attn"], out.reshape(B, 1, -1)), "decode_hidden")
         h = h + plan.act(_mlp(lp["mlp"], nn.layernorm_apply(lp["mlp_norm"], h)), "decode_hidden")
 
     logits = _logits(cfg, params, h, plan)[:, 0, :]

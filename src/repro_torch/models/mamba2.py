@@ -303,13 +303,12 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
 
 def _attn_prefill_block(cfg, lp, x, plan, positions, rope=None):
     """Shared-attn block forward that also returns rope'd K/V for the cache."""
-    B, S, _ = x.shape
     xn = tfm._norm(cfg, lp["attn_norm"], x)
     q, k, v = tfm._qkv(cfg, lp["attn"], xn, plan)
     q = nn.apply_rope(q, positions, cfg.rope_theta, tables=rope)
     kr = nn.apply_rope(k, positions, cfg.rope_theta, tables=rope)
     out = tfm.flash_attention(q, kr, v, causal=True, block_k=cfg.attn_block_k)
-    x = x + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, S, -1)), "hidden")
+    x = x + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out), "hidden")
     x = x + plan.act(tfm._mlp(cfg, lp["mlp"], tfm._norm(cfg, lp["mlp_norm"], x), plan), "hidden")
     return x, kr.to(torch.bfloat16), v.to(torch.bfloat16)
 

@@ -333,7 +333,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, plan: Shardi
         q = nn.apply_rope(q, positions, cfg.rope_theta, tables=rope)
         kr = nn.apply_rope(k, positions, cfg.rope_theta, tables=rope)
         out = tfm.flash_attention(q, kr, v, causal=True, block_k=cfg.attn_block_k)
-        h = h + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, S, -1)), "hidden")
+        h = h + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out), "hidden")
         y, _ = moe_ffn(cfg, lp["moe"], tfm._norm(cfg, lp["mlp_norm"], h), plan)
         h = h + plan.act(y, "hidden")
         dist.write_rows(cache["k"][i], 1, 0, kr)

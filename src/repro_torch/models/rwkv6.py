@@ -343,7 +343,10 @@ def decode_step(cfg, params, token, cache, _pos, plan: ShardingPlan):
     B = token.shape[0]
     d = cfg.d_model
     H, K = d // cfg.ssm.head_dim, cfg.ssm.head_dim
-    x = _embed(params, token[:, None])[:, 0, :]  # (B, d)
+    # the stream in the layout each layer leaves it in (at batch 1 d over
+    # ``data``), so that layer 0's products contract over d's shards as the
+    # later layers' do
+    x = plan.decode_stream(_embed(params, token[:, None])[:, 0, :])  # (B, d)
 
     for i, lp in enumerate(nn.unbind_layers(params["layers"])):
         wkv, tm_x, cm_x = cache["wkv"][i], cache["tm_x"][i], cache["cm_x"][i]
@@ -362,7 +365,10 @@ def decode_step(cfg, params, token, cache, _pos, plan: ShardingPlan):
         # stream (its shards kept: at batch 1 the data axes shard d)
         x = x + dist.reduced(nn.dense_apply({"w": tm["w_out"]}, out))
         # channel mix
-        cm = lp["channel_mix"]
+        # its receptance product as the plan lays a decode product (at batch
+        # 1 on each rank's columns: whole on ``model`` it is half the step's
+        # FLOPs a device)
+        cm = dict(lp["channel_mix"], w_r=plan.decode_cols(lp["channel_mix"]["w_r"]))
         xn_cm = nn.layernorm_apply(lp["cm_norm"], x)
         x_cm = cm_x.to(xn_cm.dtype)
         x = x + dist.reduced(_channel_mix(cm, _lerp(xn_cm, x_cm, cm["mu"][0]), _lerp(xn_cm, x_cm, cm["mu"][1])))

@@ -141,14 +141,12 @@ def _qkv(
 def _attn_train(
     cfg: ModelConfig, p: Params, x: torch.Tensor, plan: ShardingPlan, *, causal=True
 ) -> torch.Tensor:
-    B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x, plan)
-    positions = torch.arange(S, device=x.device)
+    positions = torch.arange(x.shape[1], device=x.device)
     q = nn.apply_rope(q, positions, cfg.rope_theta)
     k = nn.apply_rope(k, positions, cfg.rope_theta)
-    out = flash_attention(q, k, v, causal=causal, block_k=cfg.attn_block_k)
-    out = plan.act(out, "heads")
-    return nn.dense_apply({"w": p["wo"]}, out.reshape(B, S, -1))
+    out = plan.wo_input(flash_attention(q, k, v, causal=causal, block_k=cfg.attn_block_k))
+    return nn.dense_apply({"w": p["wo"]}, out)
 
 
 def block_fwd(
@@ -258,7 +256,7 @@ def prefill(
         # each row-parallel product's partial sums reduced before they join
         # the residual, as in ``block_fwd``: a partial residual would make
         # the next norm's output partial, and the MLP's products whole
-        h = h + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out.reshape(B, S, -1)), "hidden")
+        h = h + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out), "hidden")
         h = h + plan.act(_mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], h), plan), "hidden")
         # store rope'd keys so decode never re-rotates the cache
         dist.write_rows(cache["k"][i], 1, 0, kr)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
@@ -343,8 +343,8 @@ def _kv_heads_read(h0: int, local: int, group: int):
 class RowShare:
     """One ``model`` rank's share of an attention (``row_split``): the query
     heads ``heads``, the KV heads ``kv`` they read (``_kv_heads_read``), and
-    part ``part`` of ``parts`` contiguous slices of the rows (the query rows
-    of a flash attention, the cache rows of a decode). ``parts`` is 1 where
+    part ``part`` of ``parts`` of the rows (the query rows of a flash
+    attention, the cache rows of a decode; ``rows``). ``parts`` is 1 where
     ``model`` divides the query heads: the rank's heads on every row."""
 
     heads: slice
@@ -352,27 +352,39 @@ class RowShare:
     part: int
     parts: int
 
-    def rows(self, n: int, part: Optional[int] = None) -> slice:
-        """Part ``part`` (default this rank's) of ``n`` rows: rows
-        [part·n // parts, (part+1)·n // parts), so the parts differ by at most
-        one row and none is empty where n >= parts."""
+    def rows(self, n: int, part: Optional[int] = None, causal: bool = False) -> Tuple[slice, ...]:
+        """The slices of ``n`` rows that part ``part`` (default this rank's)
+        holds, in order. Contiguous, rows [part·n // parts, (part+1)·n //
+        parts), where the work is even by rows: a decode's cache rows, a
+        non-causal attention's query rows, and a causal attention's where
+        ``n < 2·parts``. A causal attention's longer query rows are cut into
+        2·parts slices (slice j rows [j·n // 2P, (j+1)·n // 2P)) and part p
+        takes slices p and 2·parts − 1 − p, a zig-zag: query row r sees r + 1
+        keys, so slice j of m rows holds (2j + 1)·m²/2 + m/2 live pairs, and
+        where 2·parts divides n each part (2p + 1) + (4·parts − 2p − 1) =
+        4·parts halves of m², plus m; elsewhere the parts differ by at most
+        one row's."""
         part = self.part if part is None else part
-        return slice(part * n // self.parts, (part + 1) * n // self.parts)
+        if not causal or self.parts == 1 or n < 2 * self.parts:
+            return (slice(part * n // self.parts, (part + 1) * n // self.parts),)
+        cut = 2 * self.parts
+        return tuple(slice(j * n // cut, (j + 1) * n // cut) for j in (part, cut - 1 - part))
 
 
 def row_split(mesh, heads: int, kv_heads: int) -> Optional[RowShare]:
     """This rank's ``RowShare`` of an attention where ``model`` has more than
     one rank (None elsewhere). ``model``'s tp ranks form g = gcd(heads, tp)
     groups of tp/g consecutive ranks; group i holds the contiguous query
-    heads [i·heads/g, (i+1)·heads/g) and each of its ranks one of tp/g
-    contiguous slices of the rows. Where ``model`` divides the heads that is
-    one slice: rank r holds heads [r·heads/tp, (r+1)·heads/tp), which
-    ``kernel_placements`` shards. Elsewhere each rank computes 1/tp of the
-    attention's FLOPs: whisper-base's 8 heads at ``model`` 16 are 8 groups
-    of one head, each split over 2 ranks; llava-next-34b's 56 (G 7) are 8
-    groups of 7 heads, one KV head each. Under a causal mask the live query
-    x key pairs are not split evenly: a group's later row slices see more
-    keys (the second of two slices 3x the first's)."""
+    heads [i·heads/g, (i+1)·heads/g) and each of its ranks one of tp/g parts
+    of the rows (``RowShare.rows``). Where ``model`` divides the heads that
+    is one part: rank r holds heads [r·heads/tp, (r+1)·heads/tp) on every
+    row, which ``kernel_placements`` shards. Elsewhere each rank computes
+    1/tp of the attention's FLOPs: whisper-base's 8 heads at ``model`` 16
+    are 8 groups of one head, each split over 2 ranks; llava-next-34b's 56
+    (G 7) are 8 groups of 7 heads, one KV head each. Under a causal mask a
+    group's parts take a zig-zag of the query rows, so that each holds the
+    same live query x key pairs as the others: a contiguous slice would give
+    the second of two 3x the first's."""
     tp = _tp_size(mesh)
     if tp <= 1:
         return None

@@ -101,6 +101,11 @@ class ShardingPlan:
     #: a tensor over the ranks that split the batch, differentiable -- what a
     #: statistic over the whole batch (BatchNorm's) needs; None elsewhere
     batch_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    #: the mesh axis over which the parameters' residency shards the model
+    #: width d (the rows of column-parallel weights, the columns of
+    #: row-parallel ones, ``_kernel_spec``): ``data`` under the train plans'
+    #: ``param_pspecs``; None under 'serve' (``model`` only) and 'zero'
+    d_axis: Optional[str] = None
 
     # -- activation constraints ---------------------------------------------
     def act(self, x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -137,6 +142,38 @@ class ShardingPlan:
         if spec is None or len(spec) <= 2 or spec[2] is None:
             return w
         return self._to_spec(w, P(*([None] * (w.dim() - 1)), spec[2]))
+
+    def wo_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The attention's output as ``wo``'s input, (B, S, H·D), in the
+        ``heads`` spec's batch layout with its columns over ``tp_axis``, as
+        ``wo``'s rows: the identity on a tp plan's output, whether ``model``
+        divides the heads (the heads' shards) or not (the row shares'
+        exchange lands there; the ``heads`` spec, which leaves such heads
+        whole, would gather it back); under 'zero' the batch over every axis."""
+        spec = self.act_specs.get("heads")
+        return x if spec is None else self._to_spec(x, P(spec[0], None, self.tp_axis))
+
+    def batch_whole(self) -> bool:
+        """Whether the batch is too small to split over the mesh's data axes
+        (the long-context cells, batch 1): the plan then moves the
+        parallelism into other dims, as the reference's program splits every
+        decode product over both axes there."""
+        return bool(self.dp_axes) and not self.spec("tokens")[0]
+
+    def decode_stream(self, x: torch.Tensor) -> torch.Tensor:
+        """A decode stream without its sequence dim, (B, d), in the layout
+        the layers leave it in: where the batch is whole, d over ``d_axis``
+        (a row-parallel product's reduced output keeps its columns' shards);
+        ``x`` elsewhere."""
+        if not (self.batch_whole() and self.d_axis):
+            return x
+        return self._to_spec(x, P(None, self.d_axis))
+
+    def decode_cols(self, w: torch.Tensor) -> torch.Tensor:
+        """``cols(w)`` where the batch is whole; ``w`` elsewhere, where the
+        reference's program keeps a replicated decode weight whole on
+        ``model`` (rwkv6's channel-mix receptance)."""
+        return self.cols(w) if self.batch_whole() else w
 
     def _to_spec(self, x: torch.Tensor, spec: Optional[P]) -> torch.Tensor:
         """``x`` redistributed to ``spec``'s placements on a ``DeviceMesh``
@@ -282,7 +319,7 @@ def make_plan(
         # frames/patches stubs (B, T, D)
         "frames": P(dp, None, None),
     }
-    return ShardingPlan(mesh, specs, dp_axes, tp)
+    return ShardingPlan(mesh, specs, dp_axes, tp, d_axis="data" if "data" in axes and variant != "serve" else None)
 
 
 def _make_zero_plan(cfg: ModelConfig, mesh, suite: Optional[ShapeSuite]) -> ShardingPlan:

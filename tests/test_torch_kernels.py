@@ -257,8 +257,8 @@ def test_xla_flash_attention_matches_reference(case):
     want = jattn.xla_flash_attention(qj, kj, vj, kv_len=None if kv_len is None else jnp.int32(kv_len), **kw)
     got = tattn.xla_flash_attention(qt, kt, vt, kv_len=kv_len, **kw)
     np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
-    # on the CPU the dispatching entry point is the same path
-    assert torch.equal(tattn.flash_attention(qt, kt, vt, kv_len=kv_len, **kw), got)
+    # on the CPU the dispatching entry point is the same path, its output as wo's input (B, Sq, H·D)
+    assert torch.equal(tattn.flash_attention(qt, kt, vt, kv_len=kv_len, **kw), got.flatten(2))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -3,8 +3,10 @@ heads, self and cross caches and decode activations under DTensors) on a
 2 x 4 (data, model) gloo mesh, eight processes, against the port's
 single-device path (``torch_mesh_family.py`` runs them); and with 6 heads
 and 6 frames, which ``model`` does not divide, each rank's ``row_split``
-share: 3 heads on half the query rows, and at decode half the cross cache's
-frames, merged over ``model``."""
+share: 3 heads on half the query rows (a zig-zag of them in the causal self
+attention), the outputs brought to ``wo``'s row layout by an all-to-all over
+``model``, and at decode half the cross cache's frames, merged over
+``model``."""
 import pytest
 
 from torch_mesh_family import (ONE_HEAD, SEQ_SHARD_DECODE, VOCAB_SHARD, check_decode, check_local_shapes,
@@ -52,10 +54,13 @@ def test_row_split_steps_match_single_device(found):
     check_train(r["train"], "baseline")
     check_prefill(r["serve"], "baseline")
     check_decode(r["serve"], "baseline")
-    # rank 0: its group's 3 heads (G 1) on the first half of the rows, from
-    # row 0: 16 of the 32 decoder rows, 15 of the prompt's 31, 3 of 6 frames
-    check_local_shapes(r["train"]["baseline"], flash=[[3, 1]], rows=[[3, 0], [16, 0]])
-    check_local_shapes(r["serve"]["prefill_baseline"], flash=[[3, 1]], rows=[[3, 0], [15, 0]])
+    # rank 0: its group's 3 heads (G 1) on its part of the rows: the first
+    # half where the attention is not causal (3 of 6 frames, 16 of the 32
+    # decoder rows and 15 of the prompt's 31 in the cross attention); the
+    # first and last of 4 slices in the decoder's causal self attention (8 +
+    # 8 of 32 rows, 7 + 8 of 31), a call each
+    check_local_shapes(r["train"]["baseline"], flash=[[3, 1]], rows=[[3, 0], [8, 0], [8, 24], [16, 0]])
+    check_local_shapes(r["serve"]["prefill_baseline"], flash=[[3, 1]], rows=[[3, 0], [7, 0], [8, 23], [15, 0]])
     # self attention over the rank's 8 of 32 cache rows, all heads; cross
     # attention with its 3 heads over 3 of the 6 frames
     check_local_shapes(r["serve"]["decode_baseline"], decode=[[3, 3, 3, True], [6, 6, 8, True]])

@@ -8,10 +8,15 @@ chunk). The train steps run the plain ``wkv_chunked`` on DTensors; on the
 card a sharded train step raises, since K5 has no backward (nor has the
 reference's kernel).
 
-Last, the DTensor boundary of ``ops.wkv6``, which runs K5 on the card, on
-the CPU: K5's plain version on each rank's batch rows and heads equals the
+The DTensor boundary of ``ops.wkv6``, which runs K5 on the card, on the
+CPU: K5's plain version on each rank's batch rows and heads equals the
 whole call, and so do the gradients of every input (the bonus's summed over
 the ranks that split the batch).
+
+Last, prefill and decode at batch 1, which the data axis cannot split (as
+in the long_500k cells): the stream's d lies over the data axis, and the
+decode step runs the channel mix's receptance product on each rank's
+columns too.
 """
 import pytest
 
@@ -22,7 +27,7 @@ ARCH = "rwkv6-1.6b"
 
 @pytest.fixture(scope="module")
 def found(tmp_path_factory):
-    return run_family(ARCH, ARCH, tmp_path_factory.mktemp("rwkv"), extra=("wkv6",))
+    return run_family(ARCH, ARCH, tmp_path_factory.mktemp("rwkv"), extra=("wkv6", "batch1"))
 
 
 @pytest.mark.parametrize("variant", ["baseline", "sp"])
@@ -71,3 +76,13 @@ def test_time_mix_runs_on_each_ranks_heads(found, run):
     # r, k, v and g on the columns of the rank's 2 of the 8 heads: 16 of 64
     case, name = run.split("/")
     check_local_shapes(found[case][name], proj=[16])
+
+
+def test_batch1_prefill_matches_single_device(found):
+    check_prefill(found["batch1"], "baseline")
+
+
+def test_batch1_decode_matches_single_device(found):
+    check_decode(found["batch1"], "baseline")
+    # the time mix's r, k, v, g and the channel mix's r on the columns of the rank's 2 of the 8 heads
+    check_local_shapes(found["batch1"]["decode_baseline"], proj=[16], table=[VOCAB_SHARD])

@@ -2,8 +2,9 @@
 under DTensors) on a 2 x 4 (data, model) gloo mesh, eight processes, against
 the port's single-device path (``torch_mesh_family.py`` runs them); and
 with 14 query heads over 2 KV heads (G 7), which ``model`` does not divide,
-each rank's ``row_split`` share: 7 heads and their KV head on half the
-query rows."""
+each rank's ``row_split`` share: 7 heads and their KV head on a zig-zag
+of half the causal query rows, the outputs brought to ``wo``'s row layout by
+an all-to-all over ``model``."""
 import pytest
 
 from torch_mesh_family import (ONE_HEAD, SEQ_SHARD_DECODE, VOCAB_SHARD, check_decode, check_local_shapes,
@@ -50,8 +51,9 @@ def test_row_split_steps_match_single_device(found):
     check_train(r["train"], "baseline")
     check_prefill(r["serve"], "baseline")
     check_decode(r["serve"], "baseline")
-    # rank 0: one KV head and its 7 query heads on the first half of the rows
-    check_local_shapes(r["train"]["baseline"], flash=[[1, 7]], rows=[[16, 0]])
-    check_local_shapes(r["serve"]["prefill_baseline"], flash=[[1, 7]], rows=[[15, 0]])
+    # rank 0: one KV head and its 7 query heads on the first and last of 4
+    # slices of the causal rows (8 + 8 of 32, 7 + 8 of 31), a call each
+    check_local_shapes(r["train"]["baseline"], flash=[[1, 7]], rows=[[8, 0], [8, 24]])
+    check_local_shapes(r["serve"]["prefill_baseline"], flash=[[1, 7]], rows=[[7, 0], [8, 23]])
     # decode: the rank's 8 of 32 rows of the sequence-sharded cache, all heads
     check_local_shapes(r["serve"]["decode_baseline"], decode=[[14, 2, 8, True]])

@@ -1,23 +1,27 @@
 """The sharded steps do the reference's per-device work in the dry-run cells
 whose work used to run whole on every rank: the prefill step's MLP,
 attention where ``model`` does not divide the query heads, and rwkv6's
-time-mix projections.
+time-mix projections and, at batch 1, its channel mix's receptance product.
 
   * FLOPs a device of the port's ``run_cell`` against the reference's on 256
     XLA host devices (one subprocess, which runs while this process lowers
     the port's cells, as ``test_torch_shard_fidelity.py`` runs it), at 16 x 16:
-    granite-3-2b prefill_32k, whisper-base decode_32k and rwkv6-1.6b
-    decode_32k within ``TOL_FULL``; whisper-base train_4k at most
+    granite-3-2b prefill_32k, whisper-base decode_32k, rwkv6-1.6b
+    decode_32k and long_500k within ``TOL_FULL``; whisper-base train_4k at most
     ``TOL_FULL`` above the reference, and at 1/256 of the port's own whole
     step (the same step lowered on a 1 x 1 mesh) within ``TOL_FULL``: the
     reference's program computes each head's score products on both ranks
     of the head's group and the port does not (PERF.md), so the port reads
     below it there;
   * ``dist.row_split`` on emulated ranks in one process: the shares cover
-    every (query head, row) pair once, and the flash kernel's plain version
-    on each rank's share (its heads on its rows, ``q_offset`` moved) equals
-    the whole call, outputs and summed gradients, causal and not; the decode
-    on each rank's heads and cache rows, merged, equals the whole decode.
+    every (query head, row) pair once, a causal attention's zig-zag shares
+    carry equal live pairs, and the flash kernel's plain version on each
+    rank's share (its heads on its slices of the rows, ``q_offset`` moved
+    with each) equals the whole call, outputs and summed gradients, causal
+    and not; the exchange that takes the shares' output to ``wo``'s row
+    layout (``ops.RowsToWo``) lands each rank's block of the whole output,
+    and its inverse each share of the gradient; the decode on each rank's
+    heads and cache rows, merged, equals the whole decode.
 """
 import json
 import os
@@ -40,11 +44,12 @@ from repro_torch.sharding import dist
 ROOT = Path(__file__).resolve().parent.parent
 #: port / reference - 1 at 16 x 16. Read: granite prefill_32k 0.0%, whisper
 #: decode_32k 0.0%, rwkv6 decode_32k 0.0% (3.58x, 1.99x and 3.01x with the
-#: MLP, the cross attention and the time mix whole on every rank); whisper
-#: train_4k -18.9% (7.68x)
+#: MLP, the cross attention and the time mix whole on every rank), rwkv6
+#: long_500k 0.0%, 12,451,840 FLOPs on both sides (2.13x with the channel
+#: mix's receptance product whole on ``model``); whisper train_4k -18.9% (7.68x)
 TOL_FULL = 0.05
 CELLS = (("granite-3-2b", "prefill_32k"), ("whisper-base", "train_4k"), ("whisper-base", "decode_32k"),
-         ("rwkv6-1.6b", "decode_32k"))
+         ("rwkv6-1.6b", "decode_32k"), ("rwkv6-1.6b", "long_500k"))
 #: the cell whose reference program repeats work that the port splits
 BELOW = ("whisper-base", "train_4k")
 #: bf16's tolerance of the reference's kernel tests, for outputs rounded to bf16
@@ -138,10 +143,13 @@ SPLITS = [(8, 8, 16), (56, 8, 16), (14, 2, 4), (6, 6, 4), (7, 7, 4)]
 @pytest.mark.parametrize("heads,kv_heads,tp", SPLITS)
 @pytest.mark.parametrize("rows", [32, 23])
 def test_row_split_shares_cover_the_work_once(heads, kv_heads, tp, rows):
-    cover = np.zeros((heads, rows), dtype=int)
+    """Contiguous parts of the rows and, under a causal mask, the zig-zag."""
+    cover = np.zeros((2, heads, rows), dtype=int)
     for rank in range(tp):
         share = dist.row_split(_Mesh(tp, rank), heads, kv_heads)
-        cover[share.heads, share.rows(rows)] += 1
+        for causal in (False, True):
+            for r in share.rows(rows, causal=causal):
+                cover[int(causal), share.heads, r] += 1
         picked = share.kv if isinstance(share.kv, list) else list(range(kv_heads))[share.kv]
         local_group = (share.heads.stop - share.heads.start) // len(picked)
         group = heads // kv_heads
@@ -153,6 +161,38 @@ def test_row_split_shares_cover_the_work_once(heads, kv_heads, tp, rows):
     assert dist.row_split(_Mesh(1, 0), 7, 7) is None  # one rank
 
 
+def _live_pairs(rows, q_offset: int, keys: int) -> int:
+    """The query x key pairs that a causal mask leaves of ``rows`` query rows
+    from row ``q_offset`` over ``keys`` keys: row i sees min(i + 1, keys)."""
+    return sum(min(q_offset + i + 1, keys) for i in range(rows))
+
+
+@pytest.mark.parametrize("heads,kv_heads,tp", SPLITS)
+@pytest.mark.parametrize("rows", [32, 23])
+def test_causal_row_shares_carry_equal_live_pairs(heads, kv_heads, tp, rows):
+    """The live pairs of each part of a group, counted from its slices' rows
+    and ``q_offset`` (each slice a kernel call from its first row): equal
+    where 2·parts divides the rows; elsewhere the busiest part exceeds the
+    mean by at most one row's pairs (the last row's, ``rows``). A contiguous
+    split gives the second of two parts 3x the first's."""
+    pairs = {}
+    for rank in range(tp):
+        share = dist.row_split(_Mesh(tp, rank), heads, kv_heads)
+        if share.heads.start == 0:  # the first group's parts
+            pairs[share.part] = sum(_live_pairs(r.stop - r.start, r.start, rows)
+                                    for r in share.rows(rows, causal=True))
+    assert sorted(pairs) == list(range(share.parts)) and share.parts > 1
+    assert sum(pairs.values()) == _live_pairs(rows, 0, rows)
+    mean = sum(pairs.values()) / len(pairs)
+    if rows % (2 * share.parts) == 0:
+        assert len(set(pairs.values())) == 1, pairs
+    assert max(pairs.values()) - mean <= rows, pairs
+    if share.parts == 2:
+        first, second = (_live_pairs(r.stop - r.start, r.start, rows) for r in
+                         (share.rows(rows, p)[0] for p in range(2)))
+        assert second > 2.5 * first  # the contiguous halves the zig-zag replaces
+
+
 def _rand(gen, *shape):
     return torch.from_numpy(gen.standard_normal(shape).astype(np.float32))
 
@@ -161,11 +201,13 @@ def _rand(gen, *shape):
 @pytest.mark.parametrize("causal,sq,skv", [(True, 32, 32), (True, 23, 23), (False, 32, 32), (False, 23, 23),
                                            (False, 16, 12)])
 def test_flash_on_each_ranks_share_equals_the_whole_call(heads, kv_heads, tp, causal, sq, skv):
-    """The flash kernel's plain version on each rank's share, outputs placed
-    where the share lies, dq likewise and dk, dv summed over the ranks that
-    read each KV head, against the whole call: self attention, causal and
-    not, with rows that the parts divide and rows they do not, and a cross
-    attention of 16 query rows over 12 keys."""
+    """The flash kernel's plain version on each rank's share, one call a
+    slice of its rows (the zig-zag's two under a causal mask, each from its
+    first row), outputs placed where the slice lies, dq likewise and dk, dv
+    summed over the calls and over the ranks that read each KV head, against
+    the whole call: self attention, causal and not, with rows that the parts
+    divide and rows they do not, and a cross attention of 16 query rows over
+    12 keys."""
     gen = np.random.default_rng(sq + heads)
     B, D = 2, 16
     q, do = _rand(gen, B, sq, heads, D), _rand(gen, B, sq, heads, D)
@@ -176,17 +218,63 @@ def test_flash_on_each_ranks_share_equals_the_whole_call(heads, kv_heads, tp, ca
     got = [torch.zeros_like(q), torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)]
     for rank in range(tp):
         share = dist.row_split(_Mesh(tp, rank), heads, kv_heads)
-        rows = share.rows(sq)
-        ql, kl, vl = (x.clone().requires_grad_() for x in (q[:, rows, share.heads], k[:, :, share.kv],
-                                                            v[:, :, share.kv]))
-        ol = ops.flash_attention(ql, kl, vl, causal=causal, q_offset=rows.start)
-        dql, dkl, dvl = torch.autograd.grad(ol, (ql, kl, vl), do[:, rows, share.heads])
-        got[0][:, rows, share.heads] = ol.detach()
-        got[1][:, rows, share.heads] = dql
-        got[2][:, :, share.kv] += dkl
-        got[3][:, :, share.kv] += dvl
+        for rows in share.rows(sq, causal=causal):
+            ql, kl, vl = (x.clone().requires_grad_() for x in (q[:, rows, share.heads], k[:, :, share.kv],
+                                                                v[:, :, share.kv]))
+            ol = ops.flash_attention(ql, kl, vl, causal=causal, q_offset=rows.start)
+            dql, dkl, dvl = torch.autograd.grad(ol, (ql, kl, vl), do[:, rows, share.heads])
+            got[0][:, rows, share.heads] = ol.detach()
+            got[1][:, rows, share.heads] = dql
+            got[2][:, :, share.kv] += dkl
+            got[3][:, :, share.kv] += dvl
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def _all_to_all(sent):
+    """An all-to-all over emulated ranks: ``sent[k]`` is rank k's (buffer,
+    sizes sent to each rank, sizes received from each rank); rank j receives
+    each rank's chunk for it, in rank order."""
+    offsets = [np.cumsum([0] + to_each[:-1]) for _, to_each, _ in sent]
+    received = []
+    for j, (_, _, from_each) in enumerate(sent):
+        chunks = [buf[offsets[k][j]:offsets[k][j] + to_each[j]] for k, (buf, to_each, _) in enumerate(sent)]
+        assert [c.numel() for c in chunks] == from_each  # what each rank sends is what the receiver expects
+        received.append(torch.cat(chunks))
+    return received
+
+
+@pytest.mark.parametrize("heads,kv_heads,tp", SPLITS)
+@pytest.mark.parametrize("causal,rows", [(True, 32), (True, 23), (False, 23), (True, 5)])
+def test_row_shares_reach_wos_rows_by_one_exchange(heads, kv_heads, tp, causal, rows):
+    """``ops.RowsToWo`` on emulated ranks: each rank packs its share of the
+    whole output (its heads on its slices of the rows), the all-to-all runs
+    over the ranks, and each rank's unpacked block is the whole output's
+    ``wo`` block t, (B, S, H·D)[..., t·C:(t+1)·C]: 1/tp of the output, where
+    the gather it replaces gave each rank all of it. The backward's exchange,
+    from each rank's block of a gradient, gives back each share of it.
+    Rows 5 are fewer than 2·parts where parts is 4: the contiguous parts."""
+    gen = np.random.default_rng(rows + heads)
+    B, D = 2, 16
+    whole, grad = _rand(gen, B, rows, heads, D), _rand(gen, B, rows, heads * D)
+    shares = [dist.row_split(_Mesh(tp, rank), heads, kv_heads) for rank in range(tp)]
+    exchanges = [ops.RowsToWo(share, rows, heads, D, tp, causal) for share in shares]
+    C = heads * D // tp
+
+    def own(share):
+        return torch.cat([whole[:, r, share.heads] for r in share.rows(rows, causal=causal)], dim=1)
+
+    sent = [(ex.pack(own(sh)), *ex.splits(B)) for ex, sh in zip(exchanges, shares)]
+    blocks = [ex.unpack(buf) for ex, buf in zip(exchanges, _all_to_all(sent))]
+    for t, block in enumerate(blocks):
+        assert block.shape == (B, rows, C)
+        torch.testing.assert_close(block, whole.reshape(B, rows, -1)[..., t * C:(t + 1) * C], rtol=0, atol=0)
+    back = _all_to_all([(ex.pack_grad(grad[..., t * C:(t + 1) * C]), *reversed(ex.splits(B)))
+                        for t, ex in enumerate(exchanges)])
+    for share, ex, buf in zip(shares, exchanges, back):
+        want = torch.cat([grad.reshape(B, rows, heads, D)[:, r, share.heads] for r in share.rows(rows, causal=causal)],
+                         dim=1)
+        torch.testing.assert_close(ex.unpack_grad(buf), want, rtol=0, atol=0)
 
 
 def _stacked(t, op):
@@ -211,7 +299,7 @@ def test_decode_on_each_ranks_share_merged_equals_the_whole_decode(heads, kv_hea
     os_, lses = [], []
     for rank in range(tp):
         share = dist.row_split(_Mesh(tp, rank), heads, kv_heads)
-        rows = share.rows(smax)
+        (rows,) = share.rows(smax)
         o_part, lse_part = da.decode_attention(q[:, share.heads], kc[:, rows, share.kv], vc[:, rows, share.kv],
                                                ops.local_kv_len(n, rows.start, rows.stop - rows.start),
                                                return_lse=True)

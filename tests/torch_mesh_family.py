@@ -257,7 +257,8 @@ def _state_err(got, want) -> float:
     return float((got.full_tensor().float() - want).abs().max()) / max(1.0, float(want.abs().max()))
 
 
-def case_serve(mesh, arch: str, overrides: Optional[dict] = None, variants=("baseline", "serve")) -> dict:
+def case_serve(mesh, arch: str, overrides: Optional[dict] = None, variants=("baseline", "serve"),
+               batch: int = B) -> dict:
     from repro_torch.configs.base import ShapeSuite
     from repro_torch.configs.registry import get_config
     from repro_torch.models.model_api import build_model
@@ -270,7 +271,7 @@ def case_serve(mesh, arch: str, overrides: Optional[dict] = None, variants=("bas
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     plan0 = make_plan(cfg, None)
     S = prompt_len(cfg)
-    prompt = _batch(cfg, ShapeSuite("p", S, B, "prefill"))
+    prompt = _batch(cfg, ShapeSuite("p", S, batch, "prefill"))
     prompt.pop("labels", None)
     prefill_routes, decode_routes = [], []
     with torch.no_grad(), routes_recorded(prefill_routes):
@@ -284,7 +285,7 @@ def case_serve(mesh, arch: str, overrides: Optional[dict] = None, variants=("bas
     recurrent = [n for n in cache if n in RECURRENT_CACHES]
     out = {}
     for variant in variants:
-        step, p_sh, b_sh, _ = serve.jit_prefill_step(model, mesh, ShapeSuite("p", S, B, "prefill"),
+        step, p_sh, b_sh, _ = serve.jit_prefill_step(model, mesh, ShapeSuite("p", S, batch, "prefill"),
                                                      variant=variant)
         prefill_shapes, decode_shapes = {}, {}
         with routes_recorded([], prefill_routes), local_shapes_recorded(prefill_shapes):
@@ -296,7 +297,7 @@ def case_serve(mesh, arch: str, overrides: Optional[dict] = None, variants=("bas
                               for n in c if n not in recurrent], default=0.0),
             "state_err": max([_state_err(c[n], cache[n]) for n in recurrent], default=0.0),
             "local_shapes": _sorted_shapes(prefill_shapes)}
-        step, p_sh, tok_sh, c_sh, _ = serve.jit_decode_step(model, mesh, ShapeSuite("d", S + 1, B, "decode"),
+        step, p_sh, tok_sh, c_sh, _ = serve.jit_decode_step(model, mesh, ShapeSuite("d", S + 1, batch, "decode"),
                                                             variant=variant)
         c = dist.distribute({k: v.clone() for k, v in cache.items()}, c_sh)
         with routes_recorded([], decode_routes), local_shapes_recorded(decode_shapes):
@@ -323,6 +324,14 @@ def case_row_split(mesh, arch: str) -> dict:
     the baseline prefill and decode against the single device's."""
     return {"train": case_train(mesh, arch, ROW_SPLIT[arch], ("baseline",)),
             "serve": case_serve(mesh, arch, ROW_SPLIT[arch], ("baseline",))}
+
+
+def case_batch1(mesh, arch: str) -> dict:
+    """The baseline prefill and decode at batch 1, which the data axis
+    cannot split (as in the long_500k cells), against the single device's:
+    there the stream's d lies over the data axis, and rwkv6's decode runs
+    its channel mix's receptance product on each rank's columns as well."""
+    return case_serve(mesh, arch, variants=("baseline",), batch=1)
 
 
 def case_decode_idle(mesh, _arch=None) -> dict:
