@@ -142,7 +142,7 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rk  # noqa: E402
-from repro_torch.models import attention, moe, resnet, rwkv6, transformer  # noqa: E402
+from repro_torch.models import attention, module, moe, resnet, rwkv6, transformer  # noqa: E402
 from repro_torch.models.model_api import build_model  # noqa: E402
 from repro_torch.core.device import get_sku  # noqa: E402
 from repro_torch.core.instance import InstanceRecord, InstanceRuntime, JobSpec, measure_job  # noqa: E402
@@ -519,16 +519,17 @@ def check_rows(name: str, got: torch.Tensor, want: torch.Tensor, floor: float = 
 @contextlib.contextmanager
 def attention_rebound(flash, decode):
     """Inside the block the model's attention calls go to ``flash`` and
-    ``decode``, by rebinding the two names the transformer (and the families
-    built on it) call. The package itself has no such switch: its dispatch
-    reads only its arguments. ``flash`` returns what the models' own does,
-    the output as ``wo``'s input, (B, S, H·D)."""
-    saved = transformer.flash_attention, transformer.decode_attention
-    transformer.flash_attention, transformer.decode_attention = flash, decode
+    ``decode``, by rebinding the two names the models call: ``attend``'s
+    ``flash_attention`` and the transformer's ``decode_attention`` (the
+    families built on it call that too). The package itself has no such
+    switch: its dispatch reads only its arguments. ``flash`` returns what the
+    models' own does, the output as ``wo``'s input, (B, S, H·D)."""
+    saved = attention.flash_attention, transformer.decode_attention
+    attention.flash_attention, transformer.decode_attention = flash, decode
     try:
         yield
     finally:
-        transformer.flash_attention, transformer.decode_attention = saved
+        attention.flash_attention, transformer.decode_attention = saved
 
 
 def torch_attention_path():
@@ -1551,18 +1552,102 @@ def shard_decode_case(gen, B, smax, H, KVH, D, tp, lens) -> list:
     return cases
 
 
-def row_share_case(gen, B, Sq, Skv, H, KVH, D, tp, causal) -> dict:
+def emulated_all_to_all(sent: list) -> list:
+    """An all-to-all over emulated ranks: ``sent[k]`` is rank k's (buffer,
+    elements to each rank, elements from each rank); rank j receives each
+    rank's chunk for it, in rank order."""
+    offsets = [[sum(to_each[:j]) for j in range(len(to_each))] for _, to_each, _ in sent]
+    received = []
+    for j, (_, _, from_each) in enumerate(sent):
+        chunks = [buf[offsets[k][j]:offsets[k][j] + to_each[j]] for k, (buf, to_each, _) in enumerate(sent)]
+        require([c.numel() for c in chunks] == list(from_each), "an emulated all-to-all's splits disagree")
+        received.append(torch.cat(chunks))
+    return received
+
+
+def row_share_operands(q_cols, k_cols, v_cols, H, KVH, D, tp, causal, theta) -> list:
+    """Each of ``tp`` ranks' row share operands as the sharded steps build
+    them (``ops.row_share_inputs``), from the projections' column blocks of
+    q (B, S, H·D), k and v (B, Skv, KVH·D): q's share by the exchange
+    ``RowShareExchange.to_rows`` and the KV heads it reads by ``KvToShare``,
+    both on emulated ranks through their pure functions, then RoPE (where
+    ``theta`` is given) on the share by the steps' ``attention.rope_on_share``,
+    q at its rows' positions and k on every row, from the whole sequence's
+    tables. (share, q (B, R, Hg, D), k, v (B, Skv, n, D)) a rank."""
+    B, S = q_cols.shape[:2]
+    Skv = k_cols.shape[1]
+    shares = [dist.row_split(EmulatedRank(tp, r), H, KVH) for r in range(tp)]
+    qx = [ops.RowShareExchange(share, S, H, D, tp, causal) for share in shares]
+    kvx = [ops.KvToShare(H, KVH, D, tp, r) for r in range(tp)]
+    qs = [ex.unpack_rows(buf) for ex, buf in zip(qx, emulated_all_to_all(
+        [(ex.pack_cols(b), *ex.splits(B, to_rows=True)) for ex, b in zip(qx, q_cols.chunk(tp, dim=-1))]))]
+    kv_cols = torch.cat([k_cols, v_cols])
+    kvs = [ex.unpack(buf, 2 * B, Skv).unflatten(-1, (-1, D)).chunk(2) for ex, buf in zip(kvx, emulated_all_to_all(
+        [(ex.pack(b), *ex.splits(2 * B * Skv)) for ex, b in zip(kvx, kv_cols.chunk(tp, dim=-1))]))]
+    del kv_cols
+    out = []
+    for share, q, (k, v) in zip(shares, qs, kvs):
+        if theta is not None:
+            tables = module.rope_tables(torch.arange(S, device=DEV), D, theta)
+            q, k = attention.rope_on_share(q, k, share.rows(S, causal=causal), tables)
+        out.append((share, q, k, v))
+    return out
+
+
+def row_share_cache_rows(operands, KVH, tp) -> list:
+    """Prefill's cache rows from the ranks' shares (``row_share_operands``)
+    as ``ops.write_row_share_cache`` makes them where the cache lies in its
+    rows over ``model``: each rank's own column block of its share's K and V
+    (``ops.cache_exchange``) to every rank's rows by the exchange's pure
+    functions on emulated ranks. Rank t's (2B, S/tp, KVH, D), K's rows then
+    V's."""
+    sent = []
+    for t, (share, _, k, v) in enumerate(operands):
+        own, ex = ops.cache_exchange(k, v, share, KVH, tp, t)
+        sent.append((ex, own))
+    B = operands[0][2].shape[0]
+    return [ex.unpack_rows(buf) for (ex, _), buf in zip(sent, emulated_all_to_all(
+        [(ex.pack_cols(own), *ex.splits(2 * B, to_rows=True)) for ex, own in sent]))]
+
+
+def row_share_case(gen, B, Sq, Skv, H, KVH, D, tp, causal, theta=None) -> dict:
     """K1, K2 and K3 on each of ``tp`` ``model`` ranks' ``dist.row_split``
     shares, as the sharded steps run them where ``model`` does not divide the
     query heads: a group's query heads on each slice of the query rows that
     the rank holds (under a causal mask two, the zig-zag; a call each, its
     ``q_offset`` moved to the slice's first row) and the KV heads they read,
-    all KV rows. The ranks' o, lse and dq placed where their slices lie and
-    their dk, dv summed in f32 over the calls and the ranks that read each KV
-    head, against the whole-head calls, and on the first ``ROW_PLAIN_B``
-    sequences against the plain versions of the whole call."""
-    q, do = randn(gen, (B, Sq, H, D)), randn(gen, (B, Sq, H, D))
-    k, v = randn(gen, (B, Skv, KVH, D)), randn(gen, (B, Skv, KVH, D))
+    all KV rows, built from the projections' column blocks as the steps build
+    them (``row_share_operands``; RoPE on the share where ``theta`` is
+    given), each share first required to be the whole RoPE'd tensors' slice,
+    bit for bit, and, for a self attention whose rows ``model`` divides,
+    prefill's cache rows from the shares (``row_share_cache_rows``) the
+    whole RoPE'd K's and V's. The kernels run through the steps' own
+    ``ops.flash_on_share`` and its autograd backward, called a slice at a
+    time on a view of the share's rows, so that each call's dk and dv reach
+    the check as the kernel rounded them (the steps add a share's two in
+    bf16, one rounding more). The ranks' o, lse and dq placed where their
+    slices lie and their dk, dv summed in f32 over the calls and the ranks
+    that read each KV head, against the whole-head calls on the whole RoPE'd
+    tensors, and on the first ``ROW_PLAIN_B`` sequences against the plain
+    versions of the whole call."""
+    q_cols, do = randn(gen, (B, Sq, H * D)), randn(gen, (B, Sq, H, D))
+    k_cols, v_cols = randn(gen, (B, Skv, KVH * D)), randn(gen, (B, Skv, KVH * D))
+    operands = row_share_operands(q_cols, k_cols, v_cols, H, KVH, D, tp, causal, theta)
+    q, k, v = q_cols.unflatten(-1, (H, D)), k_cols.unflatten(-1, (KVH, D)), v_cols.unflatten(-1, (KVH, D))
+    if theta is not None:
+        q = module.apply_rope(q, torch.arange(Sq, device=DEV), theta)
+        k = module.apply_rope(k, torch.arange(Skv, device=DEV), theta)
+    del q_cols, k_cols, v_cols
+    for share, qs, ks, vs in operands:
+        lo, hi = share.kv_span()
+        require(torch.equal(qs, torch.cat([q[:, r, share.heads] for r in share.rows(Sq, causal=causal)], dim=1))
+                and torch.equal(ks, k[:, :, lo:hi]) and torch.equal(vs, v[:, :, lo:hi]),
+                f"a row share built from the column blocks is not the whole tensors' slice (H{H} KVH{KVH} D{D})")
+    if Sq == Skv and Skv % tp == 0:
+        n = Skv // tp
+        for t, rows in enumerate(row_share_cache_rows(operands, KVH, tp)):
+            require(torch.equal(rows[:B], k[:, t * n:(t + 1) * n]) and torch.equal(rows[B:], v[:, t * n:(t + 1) * n]),
+                    f"prefill's cache rows from the row shares are not the whole K's and V's (H{H} KVH{KVH} D{D})")
     kw = dict(causal=causal, scale=D**-0.5)
     o_w, lse_w = fa.flash_attention_fwd(ops._fold(q, KVH), ops._kv_fold(k), ops._kv_fold(v), **kw)
     dq_w, dk_w, dv_w = fa.flash_attention_bwd(ops._fold(q, KVH), ops._kv_fold(k), ops._kv_fold(v), o_w, lse_w,
@@ -1573,23 +1658,21 @@ def row_share_case(gen, B, Sq, Skv, H, KVH, D, tp, causal) -> dict:
     dk, dv = torch.zeros(k.shape, device=DEV), torch.zeros(v.shape, device=DEV)
     launches0 = fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count
     shares, calls = set(), 0
-    for r in range(tp):
-        share = dist.row_split(EmulatedRank(tp, r), H, KVH)
-        heads = share.heads
-        # the wrapper's copies: the KV heads the share reads, and each slice's query rows and heads
-        kl, vl = k[:, :, share.kv].contiguous(), v[:, :, share.kv].contiguous()
-        kvh = kl.shape[2]
+    for share, q_share, kl, vl in operands:
+        heads, (lo, hi), row = share.heads, share.kv_span(), 0
+        kvh = hi - lo if isinstance(share.kv, slice) else len(share.kv)
+        kl, vl = kl.requires_grad_(), vl.requires_grad_()
         for rows in share.rows(Sq, causal=causal):
-            qf = ops._fold(q[:, rows, heads].contiguous(), kvh)
-            dof = ops._fold(do[:, rows, heads].contiguous(), kvh)
-            shares.add((kvh, qf.shape[3], qf.shape[2], rows.start))
-            o_r, lse_r = fa.flash_attention_fwd(qf, ops._kv_fold(kl), ops._kv_fold(vl), q_offset=rows.start, **kw)
-            dq_r, dk_r, dv_r = fa.flash_attention_bwd(qf, ops._kv_fold(kl), ops._kv_fold(vl), o_r, lse_r, dof,
-                                                      q_offset=rows.start, **kw)
-            o[:, rows, heads], dq[:, rows, heads] = ops._unfold(o_r), ops._unfold(dq_r)
-            lse[:, rows, heads] = lse_r.permute(0, 2, 1, 3).reshape(B, rows.stop - rows.start, -1)
-            dk[:, :, share.kv] += dk_r.permute(0, 2, 1, 3).float()
-            dv[:, :, share.kv] += dv_r.permute(0, 2, 1, 3).float()
+            n = rows.stop - rows.start
+            q_r = q_share[:, row:row + n].requires_grad_()  # a view of the share's rows, as the steps pass it
+            row += n
+            shares.add((kvh, (heads.stop - heads.start) // kvh, n, rows.start))
+            o_r, (lse_r,) = ops.flash_on_share(q_r, kl, vl, share, (rows,), causal)
+            dq_r, dk_r, dv_r = torch.autograd.grad(o_r, (q_r, kl, vl), do[:, rows, heads])
+            o[:, rows, heads], dq[:, rows, heads] = o_r.detach(), dq_r
+            lse[:, rows, heads] = lse_r.permute(0, 2, 1, 3).reshape(B, n, -1)
+            dk[:, :, lo:hi] += dk_r.float()
+            dv[:, :, lo:hi] += dv_r.float()
             calls += 1
     torch.cuda.synchronize()
     launches = [a - b for a, b in zip((fa.launch_count, fa.dkv_launch_count, fa.dq_launch_count), launches0)]
@@ -1712,7 +1795,8 @@ def phase_shards() -> dict:
     log-sum-exp, and K1-K4 at llama3-8b's own shapes (head_dim 128, G 4) timed
     alone beside their bounds and the library calls. Last, where ``model``
     does not divide the query heads (``ROW_SHARE_CASES``), K1-K3 on each
-    rank's ``dist.row_split`` share against the whole call (a causal share's
+    rank's ``dist.row_split`` share, built from the projections' column
+    blocks as the steps build it, against the whole call (a causal share's
     two slices of the rows, the zig-zag, a call each), and ranks 0's and 1's
     shares (the two parts of a group's rows) timed as the steps run them,
     with each rank's K1 + K2 + K3 and the busier one's over their mean
@@ -1733,7 +1817,8 @@ def phase_shards() -> dict:
     for name, arch, B, Sq, Skv, causal in ROW_SHARE_CASES:
         cfg = get_config(arch)
         H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        out["rows"][name] = row_share_case(gen, B, Sq, Skv, H, KVH, D, SHARD_TP, causal)
+        theta = None if cfg.family == "encdec" else cfg.rope_theta  # whisper has no RoPE
+        out["rows"][name] = row_share_case(gen, B, Sq, Skv, H, KVH, D, SHARD_TP, causal, theta)
         torch.cuda.empty_cache()
     # the checks' launches: the ranks' calls and the whole-head and whole-cache ones
     out["launches"] = {name: getattr(mod, attr) - launches0[name] for name, mod, attr in KERNEL_COUNTERS}
@@ -2968,7 +3053,7 @@ def attention_timed(times: dict):
             return out
         return call
 
-    with attention_rebound(bracketed("flash_attention_fwd", transformer.flash_attention),
+    with attention_rebound(bracketed("flash_attention_fwd", attention.flash_attention),
                            bracketed("decode_attention", transformer.decode_attention)):
         yield
     torch.cuda.synchronize()
@@ -2996,7 +3081,7 @@ def attention_probed(records: dict):
     ``rows_within`` of each call: each launch of K1 and K4 held, on the
     model's own inputs, to the tolerance its phase holds it to at this shape.
     A rebinding made by this script only."""
-    saved = transformer.flash_attention, transformer.decode_attention
+    saved = attention.flash_attention, transformer.decode_attention
     for name in ("flash_attention_fwd", "decode_attention"):
         records.setdefault(name, [])
 

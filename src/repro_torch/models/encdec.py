@@ -7,7 +7,7 @@ self- and cross-attention, gelu MLPs, layernorm, learned decoder positions,
 an output head tied to the token embedding) is real. Depth is a Python loop
 over the stacked layer parameters.
 
-Every attention goes through ``transformer.flash_attention`` (encoder
+Every attention goes through ``transformer.attend`` (encoder
 non-causal, decoder self causal, cross non-causal with Sq != Skv) and
 ``transformer.decode_attention`` (decoder self and cross): the flash kernel
 (K1) and the decode kernel (K4) on the card. A decode step hands both decode
@@ -16,9 +16,11 @@ host-to-device copy a step.
 
 Under a mesh (the sharded steps of ``runtime/``) the same code runs on
 DTensors: the encoder's frames take the plan's ``frames`` spec, the heads
-``heads``/``kv_heads``, the self and cross caches ``cache`` and the decode
-step's activations ``decode_hidden``, as the reference's plan has them; the
-caches are written in place on each rank's shard (``dist.write_rows``).
+``heads``/``kv_heads`` (or, where ``model`` does not divide them, each rank
+its row share, ``attention.heads``), the self and cross caches ``cache``
+and the decode step's activations ``decode_hidden``, as the reference's
+plan has them; the caches are written in place on each rank's shard
+(``transformer.write_cache``, ``dist.write_rows``).
 """
 from __future__ import annotations
 
@@ -125,15 +127,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def _mha_qkv(cfg: ModelConfig, p: Params, xq, xkv, plan: ShardingPlan):
-    hd = cfg.resolved_head_dim
+def _mha_qkv(cfg: ModelConfig, p: Params, xq, xkv, plan: ShardingPlan, causal: bool):
+    """The q, k, v projections as the attention reads them (``attention.heads``; no RoPE)."""
     q = nn.dense_apply({"w": p["wq"], "b": p["bq"]}, xq)
     k = nn.dense_apply({"w": p["wk"]}, xkv)
     v = nn.dense_apply({"w": p["wv"], "b": p["bv"]}, xkv)
-    q = plan.act(dist.split_heads(q, cfg.n_heads, hd), "heads")
-    k = plan.act(dist.split_heads(k, cfg.n_kv_heads, hd), "kv_heads")
-    v = plan.act(dist.split_heads(v, cfg.n_kv_heads, hd), "kv_heads")
-    return q, k, v
+    return tfm.heads(plan, q, k, v, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, causal=causal)
 
 
 def _mha_out(p: Params, out: torch.Tensor) -> torch.Tensor:
@@ -156,8 +155,7 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, plan: Shardin
 
     def body(x, lp):
         xn = nn.layernorm_apply(lp["attn_norm"], x)
-        q, k, v = _mha_qkv(cfg, lp["attn"], xn, xn, plan)
-        out = tfm.flash_attention(q, k, v, causal=False, block_k=cfg.attn_block_k)
+        out = tfm.attend(_mha_qkv(cfg, lp["attn"], xn, xn, plan, causal=False), block_k=cfg.attn_block_k)
         x = x + plan.act(_mha_out(lp["attn"], out), "frames")
         return x + plan.act(_mlp(lp["mlp"], nn.layernorm_apply(lp["mlp_norm"], x)), "frames")
 
@@ -166,17 +164,16 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, plan: Shardin
 
 
 def _dec_block(cfg, plan, enc_out, x, lp):
-    """One decoder block; returns (x, (k, v, xk, xv)) with the block's self and cross K/V."""
+    """One decoder block; returns (x, (self, cross)): what the block's self and
+    cross attention read (``attention.heads``), whose K/V fill the caches."""
     xn = nn.layernorm_apply(lp["self_norm"], x)
-    q, k, v = _mha_qkv(cfg, lp["self_attn"], xn, xn, plan)
-    out = tfm.flash_attention(q, k, v, causal=True, block_k=cfg.attn_block_k)
-    x = x + plan.act(_mha_out(lp["self_attn"], out), "hidden")
+    own = _mha_qkv(cfg, lp["self_attn"], xn, xn, plan, causal=True)
+    x = x + plan.act(_mha_out(lp["self_attn"], tfm.attend(own, block_k=cfg.attn_block_k)), "hidden")
     xn = nn.layernorm_apply(lp["cross_norm"], x)
-    qx, xk, xv = _mha_qkv(cfg, lp["cross_attn"], xn, enc_out, plan)
-    out = tfm.flash_attention(qx, xk, xv, causal=False, block_k=cfg.attn_block_k)
-    x = x + plan.act(_mha_out(lp["cross_attn"], out), "hidden")
+    cross = _mha_qkv(cfg, lp["cross_attn"], xn, enc_out, plan, causal=False)
+    x = x + plan.act(_mha_out(lp["cross_attn"], tfm.attend(cross, block_k=cfg.attn_block_k)), "hidden")
     x = x + plan.act(_mlp(lp["mlp"], nn.layernorm_apply(lp["mlp_norm"], x)), "hidden")
-    return x, (k, v, xk, xv)
+    return x, (own, cross)
 
 
 def _dec_embed(cfg, params, tokens, plan, offset: int = 0):
@@ -230,9 +227,9 @@ def prefill(cfg: ModelConfig, params: Params, frames, tokens, plan: ShardingPlan
     # under a mesh, DTensors in the cache plan's placements from the start
     cache = {name: plan.new(shape, dt, "cache", h.device, init="empty") for name, (shape, dt) in spec.items()}
     for i, lp in enumerate(nn.unbind_layers(params["dec_layers"])):
-        h, kv = _dec_block(cfg, plan, enc_out, h, lp)
-        for name, t in zip(("k", "v", "xk", "xv"), kv):
-            dist.write_rows(cache[name][i], 1, 0, t)
+        h, (own, cross) = _dec_block(cfg, plan, enc_out, h, lp)
+        tfm.write_cache(own, cache["k"], cache["v"], i)
+        tfm.write_cache(cross, cache["xk"], cache["xv"], i)
     cache = {name: plan.act(t, "cache") for name, t in cache.items()}
     last = _logits(cfg, params, h[:, -1:, :], plan)[:, 0, :]
     return plan.act(last, "last_logits"), cache
@@ -254,7 +251,7 @@ def decode_step(cfg, params, token, cache, pos: Union[int, torch.Tensor], plan: 
     for i, lp in enumerate(nn.unbind_layers(params["dec_layers"])):
         kc, vc, xk, xv = cache["k"][i], cache["v"][i], cache["xk"][i], cache["xv"][i]
         xn = nn.layernorm_apply(lp["self_norm"], h)
-        q, k, v = _mha_qkv(cfg, lp["self_attn"], xn, xn, plan)
+        q, k, v, _ = _mha_qkv(cfg, lp["self_attn"], xn, xn, plan, causal=True)
         dist.write_rows(kc, 1, pos, k)
         dist.write_rows(vc, 1, pos, v)
         out = tfm.decode_attention(q, kc, vc, kv_len=kv_len)

@@ -11,7 +11,7 @@ conv_channels) conv tail, so its cost does not grow with the sequence.
 The chunked scan has no kernel of its own, here as in the reference (where
 it is XLA einsums under ``lax.scan``): it is plain PyTorch, a loop over the
 chunks of each layer. The shared attention block goes through
-``transformer.flash_attention`` and ``transformer.decode_attention``: the
+``transformer.attend`` and ``transformer.decode_attention``: the
 flash kernel (K1) and the decode kernel (K4) on the card, at zamba2's head
 dim of 112.
 
@@ -302,15 +302,14 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
 
 
 def _attn_prefill_block(cfg, lp, x, plan, positions, rope=None):
-    """Shared-attn block forward that also returns rope'd K/V for the cache."""
+    """Shared-attn block forward that also returns what its attention read
+    (``attention.heads``), whose rope'd K/V go to the cache."""
     xn = tfm._norm(cfg, lp["attn_norm"], x)
-    q, k, v = tfm._qkv(cfg, lp["attn"], xn, plan)
-    q = nn.apply_rope(q, positions, cfg.rope_theta, tables=rope)
-    kr = nn.apply_rope(k, positions, cfg.rope_theta, tables=rope)
-    out = tfm.flash_attention(q, kr, v, causal=True, block_k=cfg.attn_block_k)
+    qkv = tfm._qkv(cfg, lp["attn"], xn, plan, positions=positions, tables=rope)
+    out = tfm.attend(qkv, block_k=cfg.attn_block_k)
     x = x + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out), "hidden")
     x = x + plan.act(tfm._mlp(cfg, lp["mlp"], tfm._norm(cfg, lp["mlp_norm"], x), plan), "hidden")
-    return x, kr.to(torch.bfloat16), v.to(torch.bfloat16)
+    return x, qkv
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, plan: ShardingPlan):
@@ -332,9 +331,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, plan: Shardi
     start = 0
     for g, size in enumerate(_group_sizes(cfg)):
         if cfg.attn_every:
-            h, kr, v = _attn_prefill_block(cfg, params["shared_attn"], h, plan, positions, rope)
-            dist.write_rows(cache["attn_k"][g], 1, 0, kr)
-            dist.write_rows(cache["attn_v"][g], 1, 0, v)
+            h, qkv = _attn_prefill_block(cfg, params["shared_attn"], h, plan, positions, rope)
+            tfm.write_cache(qkv, cache["attn_k"], cache["attn_v"], g)
         for i in range(start, start + size):
             y, state, tail = mamba_seq(cfg, layers[i], h, plan, state0)
             h = plan.act(h + y, "hidden")
@@ -370,9 +368,7 @@ def decode_step(cfg, params, token, cache, pos: Union[int, torch.Tensor], plan: 
             lp = params["shared_attn"]
             xs = x[:, None, :]
             xn = tfm._norm(cfg, lp["attn_norm"], xs)
-            q, k, v = tfm._qkv(cfg, lp["attn"], xn, plan)
-            q = nn.apply_rope(q, pos_arr, cfg.rope_theta, tables=rope)
-            k = nn.apply_rope(k, pos_arr, cfg.rope_theta, tables=rope)
+            q, k, v, _ = tfm._qkv(cfg, lp["attn"], xn, plan, positions=pos_arr, tables=rope)
             kc, vc = cache["attn_k"][g], cache["attn_v"][g]
             dist.write_rows(kc, 1, pos, k)
             dist.write_rows(vc, 1, pos, v)

@@ -20,7 +20,7 @@ Numerics, as the reference's:
   in the order of the sorted assignments (the reference's scatter order),
   not with atomics, whose order on the card changes from run to run.
 
-Attention goes through ``transformer.flash_attention`` and
+Attention goes through ``transformer.attend`` and
 ``transformer.decode_attention``: the flash kernel (K1, its backward K2/K3
 in training) and the decode kernel (K4) on the card.
 
@@ -329,15 +329,12 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, plan: Shardi
 
     for i, lp in enumerate(nn.unbind_layers(params["layers"])):
         xn = tfm._norm(cfg, lp["attn_norm"], h)
-        q, k, v = tfm._qkv(cfg, lp["attn"], xn, plan)
-        q = nn.apply_rope(q, positions, cfg.rope_theta, tables=rope)
-        kr = nn.apply_rope(k, positions, cfg.rope_theta, tables=rope)
-        out = tfm.flash_attention(q, kr, v, causal=True, block_k=cfg.attn_block_k)
+        qkv = tfm._qkv(cfg, lp["attn"], xn, plan, positions=positions, tables=rope)
+        out = tfm.attend(qkv, block_k=cfg.attn_block_k)
         h = h + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out), "hidden")
         y, _ = moe_ffn(cfg, lp["moe"], tfm._norm(cfg, lp["mlp_norm"], h), plan)
         h = h + plan.act(y, "hidden")
-        dist.write_rows(cache["k"][i], 1, 0, kr)
-        dist.write_rows(cache["v"][i], 1, 0, v)
+        tfm.write_cache(qkv, cache["k"], cache["v"], i)
 
     cache = {"k": plan.act(cache["k"], "cache"), "v": plan.act(cache["v"], "cache")}
     last = tfm.logits_fn(cfg, params, h[:, -1:, :], plan)[:, 0, :]
@@ -364,9 +361,7 @@ def decode_step(
     for i, lp in enumerate(nn.unbind_layers(params["layers"])):
         kc, vc = cache["k"][i], cache["v"][i]
         xn = tfm._norm(cfg, lp["attn_norm"], h)
-        q, k, v = tfm._qkv(cfg, lp["attn"], xn, plan)
-        q = nn.apply_rope(q, pos_arr, cfg.rope_theta, tables=rope)
-        k = nn.apply_rope(k, pos_arr, cfg.rope_theta, tables=rope)
+        q, k, v, _ = tfm._qkv(cfg, lp["attn"], xn, plan, positions=pos_arr, tables=rope)
         dist.write_rows(kc, 1, pos, k)
         dist.write_rows(vc, 1, pos, v)
         out = tfm.decode_attention(q, kc, vc, kv_len=kv_len)

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import module as nn
-from repro_torch.models.attention import decode_attention, flash_attention
+from repro_torch.models.attention import attend, decode_attention, heads, write_cache
 from repro_torch.sharding import dist
 from repro_torch.sharding.plan import ShardingPlan
 
@@ -124,28 +124,22 @@ def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor, plan: ShardingPlan) -> to
     return nn.dense_apply({"w": p["w_down"]}, h)
 
 
-def _qkv(
-    cfg: ModelConfig, p: Params, x: torch.Tensor, plan: ShardingPlan
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
+def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, plan: ShardingPlan, *, causal: bool = True,
+         positions: Optional[torch.Tensor] = None, tables=None):
+    """The q, k, v projections of ``x`` as the attention reads them, RoPE'd
+    at ``positions`` (default rows 0..S-1) or from their ``tables``
+    (``attention.heads``)."""
     q = nn.dense_apply({"w": p["wq"], **({"b": p["bq"]} if "bq" in p else {})}, x)
     k = nn.dense_apply({"w": p["wk"], **({"b": p["bk"]} if "bk" in p else {})}, x)
     v = nn.dense_apply({"w": p["wv"], **({"b": p["bv"]} if "bv" in p else {})}, x)
-    q = plan.act(dist.split_heads(q, cfg.n_heads, hd), "heads")
-    k = plan.act(dist.split_heads(k, cfg.n_kv_heads, hd), "kv_heads")
-    v = plan.act(dist.split_heads(v, cfg.n_kv_heads, hd), "kv_heads")
-    return q, k, v
+    return heads(plan, q, k, v, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, causal=causal,
+                 theta=cfg.rope_theta, positions=positions, tables=tables)
 
 
 def _attn_train(
     cfg: ModelConfig, p: Params, x: torch.Tensor, plan: ShardingPlan, *, causal=True
 ) -> torch.Tensor:
-    q, k, v = _qkv(cfg, p, x, plan)
-    positions = torch.arange(x.shape[1], device=x.device)
-    q = nn.apply_rope(q, positions, cfg.rope_theta)
-    k = nn.apply_rope(k, positions, cfg.rope_theta)
-    out = plan.wo_input(flash_attention(q, k, v, causal=causal, block_k=cfg.attn_block_k))
+    out = plan.wo_input(attend(_qkv(cfg, p, x, plan, causal=causal), block_k=cfg.attn_block_k))
     return nn.dense_apply({"w": p["wo"]}, out)
 
 
@@ -249,18 +243,15 @@ def prefill(
     for i in range(cfg.n_layers):
         lp = nn.layer_params(params["layers"], i)
         xn = _norm(cfg, lp["attn_norm"], h)
-        q, k, v = _qkv(cfg, lp["attn"], xn, plan)
-        q = nn.apply_rope(q, positions, cfg.rope_theta, tables=rope)
-        kr = nn.apply_rope(k, positions, cfg.rope_theta, tables=rope)
-        out = flash_attention(q, kr, v, causal=True, block_k=cfg.attn_block_k)
+        qkv = _qkv(cfg, lp["attn"], xn, plan, positions=positions, tables=rope)
+        out = attend(qkv, block_k=cfg.attn_block_k)
         # each row-parallel product's partial sums reduced before they join
         # the residual, as in ``block_fwd``: a partial residual would make
         # the next norm's output partial, and the MLP's products whole
         h = h + plan.act(nn.dense_apply({"w": lp["attn"]["wo"]}, out), "hidden")
         h = h + plan.act(_mlp(cfg, lp["mlp"], _norm(cfg, lp["mlp_norm"], h), plan), "hidden")
         # store rope'd keys so decode never re-rotates the cache
-        dist.write_rows(cache["k"][i], 1, 0, kr)
-        dist.write_rows(cache["v"][i], 1, 0, v)
+        write_cache(qkv, cache["k"], cache["v"], i)
 
     cache = {"k": plan.act(cache["k"], "cache"), "v": plan.act(cache["v"], "cache")}
     last = logits_fn(cfg, params, h[:, -1:, :], plan)[:, 0, :]
@@ -295,9 +286,7 @@ def decode_step(
         lp = nn.layer_params(params["layers"], i)
         kc, vc = cache["k"][i], cache["v"][i]
         xn = _norm(cfg, lp["attn_norm"], h)
-        q, k, v = _qkv(cfg, lp["attn"], xn, plan)
-        q = nn.apply_rope(q, pos_arr, cfg.rope_theta, tables=rope)
-        k = nn.apply_rope(k, pos_arr, cfg.rope_theta, tables=rope)
+        q, k, v, _ = _qkv(cfg, lp["attn"], xn, plan, positions=pos_arr, tables=rope)
         dist.write_rows(kc, 1, pos, k)
         dist.write_rows(vc, 1, pos, v)
         out = decode_attention(q, kc, vc, kv_len=kv_len)

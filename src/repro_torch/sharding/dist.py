@@ -312,9 +312,12 @@ def kernel_placements(mesh, batch: int, heads: Sequence[int], batch_dim: Optiona
     return out
 
 
-def _tp_size(mesh) -> int:
+def tp_size(mesh) -> int:
+    """The ranks of ``mesh``'s ``model`` axis (1 without one), read from its
+    layout: unlike ``mesh.mesh``, which a ``DeviceMesh`` builds from its rank
+    map by tensor ops that the op counters see, it dispatches nothing."""
     names = mesh.mesh_dim_names or ()
-    return mesh.mesh.shape[names.index(TP_AXIS)] if TP_AXIS in names else 1
+    return mesh.size(names.index(TP_AXIS)) if TP_AXIS in names else 1
 
 
 def _kv_heads_read(h0: int, local: int, group: int):
@@ -352,6 +355,13 @@ class RowShare:
     part: int
     parts: int
 
+    def kv_span(self) -> Tuple[int, int]:
+        """The KV heads ``kv`` names, as one range [lo, hi): a list's are
+        consecutive, one or more a KV head."""
+        if isinstance(self.kv, slice):
+            return self.kv.start, self.kv.stop
+        return self.kv[0], self.kv[-1] + 1
+
     def rows(self, n: int, part: Optional[int] = None, causal: bool = False) -> Tuple[slice, ...]:
         """The slices of ``n`` rows that part ``part`` (default this rank's)
         holds, in order. Contiguous, rows [part·n // parts, (part+1)·n //
@@ -385,12 +395,21 @@ def row_split(mesh, heads: int, kv_heads: int) -> Optional[RowShare]:
     group's parts take a zig-zag of the query rows, so that each holds the
     same live query x key pairs as the others: a contiguous slice would give
     the second of two 3x the first's."""
-    tp = _tp_size(mesh)
+    names = mesh.mesh_dim_names or ()
+    # ``mesh.mesh`` as the other helpers here read it, not ``tp_size``: its ops reach the op
+    # counters, and every step's fingerprint holds them
+    tp = mesh.mesh.shape[names.index(TP_AXIS)] if TP_AXIS in names else 1
     if tp <= 1:
         return None
+    return share_of(mesh.get_local_rank(TP_AXIS), heads, kv_heads, tp)
+
+
+def share_of(t: int, heads: int, kv_heads: int, tp: int) -> RowShare:
+    """The ``RowShare`` of rank ``t`` of ``model``'s ``tp`` ranks
+    (``row_split``): what every rank knows of every other's, to size an
+    exchange between them."""
     groups = math.gcd(heads, tp)
     parts, local = tp // groups, heads // groups
-    t = mesh.get_local_rank(TP_AXIS)
     h0 = t // parts * local
     return RowShare(slice(h0, h0 + local), _kv_heads_read(h0, local, heads // kv_heads), t % parts, parts)
 

@@ -16,7 +16,8 @@ none, so the port counts the step as it runs, once, under one dispatch mode,
   * collectives from the c10d ops in the trace, each with the size of its
     own process group (a ``_c10d_functional`` op's ``group_name``, a legacy
     ``c10d`` op's ``ProcessGroup``), summarised under the reference's keys
-    (``collective_summary``);
+    (``collective_summary``); an all-to-all with split sizes priced by what
+    this rank sends to the others, read from them;
   * a fingerprint: the first 16 hex digits of the sha256 of the op sequence
     with each op's tensor shapes, as the reference hashes its program text;
   * the type the products compute in (the most common type of the first
@@ -108,6 +109,20 @@ class CollectiveOp:
         return float(self.bytes_result) * self.multiplier
 
 
+@dataclasses.dataclass
+class AllToAllOp(CollectiveOp):
+    """An all-to-all with split sizes (``CollectiveOp`` is the reference's,
+    which prices one at R·(n-1)/n over its whole group): on the wire, the
+    bytes this rank sends to the other ranks of its group, read from its
+    splits (``_sent_bytes``). An even one sends R·(n-1)/n."""
+
+    sent_bytes: int = 0
+
+    @property
+    def wire_bytes(self) -> float:
+        return float(self.sent_bytes) if self.group_size > 1 else 0.0
+
+
 #: the hand-written kernels' entries (``record_kernel``), by the name each
 #: wrapper reports: K1, K2, K3, K4 and K5
 KERNEL_OPS = frozenset(
@@ -155,26 +170,53 @@ def _collective_kind(name: str) -> Optional[str]:
     return None
 
 
-def _group_size(args) -> int:
-    """The size of the process group a c10d op runs over: its
-    ``ProcessGroup`` argument (legacy ops) or the group its ``group_name``
-    names (functional ops)."""
+def _group(args):
+    """The process group a c10d op runs over: its ``ProcessGroup`` argument
+    (legacy ops) or the group its ``group_name`` names (functional ops);
+    None where it names none (the default group)."""
     import torch.distributed as tdist
     from torch.distributed.distributed_c10d import _resolve_process_group
 
     flat = tree_flatten(args)[0]
     for a in flat:
         if isinstance(a, tdist.ProcessGroup):
-            return a.size()
+            return a
         if isinstance(a, torch.ScriptObject) and "ProcessGroup" in str(a._type()):
-            return tdist.ProcessGroup.unbox(a).size()
+            return tdist.ProcessGroup.unbox(a)
     for a in reversed(flat):
         if isinstance(a, str):
             try:
-                return _resolve_process_group(a).size()
+                return _resolve_process_group(a)
             except (RuntimeError, ValueError, KeyError):
                 continue
+    return None
+
+
+def _group_size(args) -> int:
+    """The size of the process group a c10d op runs over (``_group``)."""
+    import torch.distributed as tdist
+
+    group = _group(args)
+    if group is not None:
+        return group.size()
     return tdist.get_world_size() if tdist.is_initialized() else 1
+
+
+def _sent_bytes(func, args, kwargs) -> Optional[int]:
+    """The bytes an all-to-all sends to the other ranks of its group: its
+    input's rows (dim 0) of ``input_split_sizes`` but this rank's own, in
+    the group's rank order. None where the op gives no split sizes (even)."""
+    import torch.distributed as tdist
+
+    named = {a.name: v for a, v in zip(func._schema.arguments, args)}
+    named.update(kwargs)
+    splits, x = named.get("input_split_sizes"), named.get("input")
+    if not splits or not isinstance(x, torch.Tensor) or x.dim() == 0:
+        return None
+    group = _group((args, kwargs))
+    rank = group.rank() if group is not None else tdist.get_rank()
+    row = x.numel() // x.shape[0] * x.element_size() if x.shape[0] else 0
+    return int((sum(splits) - splits[rank]) * row)
 
 
 class OpLog(TorchDispatchMode):
@@ -276,11 +318,13 @@ class OpLog(TorchDispatchMode):
         kind = _collective_kind(func.__name__) if func.namespace in _COLLECTIVE_NAMESPACES else None
         if kind is not None:
             group = _group_size((args, kwargs))
-            result = out_bytes or in_bytes
+            result, sent = out_bytes or in_bytes, None
             if self.alltoall_depth and kind == "all-gather":
                 kind, result = "all-to-all", result // max(group, 1)  # the chunk DTensor keeps
-            self.collectives.append(CollectiveOp(kind=kind, bytes_result=result, group_size=group,
-                                                 multiplier=1, op_name=str(func)))
+            elif kind == "all-to-all":
+                sent = _sent_bytes(func, args, kwargs)
+            op = dict(kind=kind, bytes_result=result, group_size=group, multiplier=1, op_name=str(func))
+            self.collectives.append(CollectiveOp(**op) if sent is None else AllToAllOp(**op, sent_bytes=sent))
         return out
 
     def fingerprint(self) -> str:

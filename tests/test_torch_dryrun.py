@@ -263,8 +263,10 @@ def test_lowered_fingerprint_is_the_real_steps(tmp_path, monkeypatch):
 
 
 def _collectives_rank(rank: int, tmp: str) -> None:
-    """All-reduces over each axis of a 2 x 4 mesh, under the counters."""
+    """All-reduces over each axis of a 2 x 4 mesh, and an even and an
+    uneven all-to-all over ``model``, under the counters."""
     import torch.distributed as tdist
+    from torch.distributed._functional_collectives import all_to_all_single
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     torch.set_num_threads(1)
@@ -279,24 +281,51 @@ def _collectives_rank(rank: int, tmp: str) -> None:
             found[axis] = c.collectives["top_ops"]
         _, c = count_step(lambda: tdist.all_reduce(x.clone(), group=mesh.get_group("model")), x)
         found["legacy"] = c.collectives["top_ops"]
+        group = mesh.get_group("model")
+        _, c = count_step(lambda: all_to_all_single(x, None, None, group).wait(), x)
+        found["even"] = c.collectives["top_ops"]
+        # rank t of model keeps 48 of its 64 rows and sends 16 to rank t ^ 1, none to the others
+        t = mesh.get_local_rank("model")
+        splits = [48 if j == t else 16 if j == t ^ 1 else 0 for j in range(4)]
+        _, c = count_step(lambda: all_to_all_single(x, splits, splits, group).wait(), x)
+        found["pair"] = c.collectives["top_ops"]
         if rank == 0:
             Path(tmp, "result.json").write_text(json.dumps(found))
     finally:
         tdist.destroy_process_group()
 
 
-def test_a_collective_records_the_size_of_its_own_group(tmp_path):
+@pytest.fixture(scope="module")
+def collectives(tmp_path_factory):
+    """Rank 0's ``top_ops`` of the collectives that ``_collectives_rank``
+    runs on a 2 x 4 gloo mesh, this file run as a script."""
+    tmp = tmp_path_factory.mktemp("collectives")
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
-    out = subprocess.run([sys.executable, __file__, str(tmp_path)], capture_output=True, text=True, timeout=300,
-                         env=env)
+    out = subprocess.run([sys.executable, __file__, str(tmp)], capture_output=True, text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr[-4000:]
-    found = json.loads((tmp_path / "result.json").read_text())
+    return json.loads((tmp / "result.json").read_text())
+
+
+def test_a_collective_records_the_size_of_its_own_group(collectives):
+    found = collectives
     R = 64 * 32 * 4
     for axis, group in (("model", 4), ("data", 2), ("legacy", 4)):
         (op,) = found[axis]
         assert (op["kind"], op["bytes"], op["group"]) == ("all-reduce", R, group), (axis, op)
         assert op["wire"] == 2 * R * (group - 1) / group, (axis, op)  # 2R·3/4 over model, 2R·1/2 over data
+
+
+def test_an_all_to_all_is_priced_by_its_splits(collectives):
+    """An all-to-all's wire bytes are what the rank sends to the others: an
+    even one R·(n-1)/n, the reference's; one whose splits are zero outside
+    a pair of ranks the rows it sends its partner (16 of its 64), where
+    the even price would say 3/4 of them."""
+    R = 64 * 32 * 4
+    (even,) = collectives["even"]
+    assert (even["kind"], even["bytes"], even["group"], even["wire"]) == ("all-to-all", R, 4, R * 3 / 4), even
+    (pair,) = collectives["pair"]
+    assert (pair["kind"], pair["bytes"], pair["group"], pair["wire"]) == ("all-to-all", R, 4, 16 * 32 * 4), pair
 
 
 if __name__ == "__main__":

@@ -3,19 +3,21 @@ under DTensors) on a 2 x 4 (data, model) gloo mesh, eight processes, against
 the port's single-device path (``torch_mesh_family.py`` runs them); and
 with 14 query heads over 2 KV heads (G 7), which ``model`` does not divide,
 each rank's ``row_split`` share: 7 heads and their KV head on a zig-zag
-of half the causal query rows, the outputs brought to ``wo``'s row layout by
-an all-to-all over ``model``."""
+of half the causal query rows, q, k and v brought from the projections'
+column blocks and the outputs to ``wo``'s row layout by all-to-alls over
+``model``; and that boundary alone against the whole tensors, at a sequence
+that ``model`` divides (the prefill cache's exchange to its rows)."""
 import pytest
 
-from torch_mesh_family import (ONE_HEAD, SEQ_SHARD_DECODE, VOCAB_SHARD, check_decode, check_local_shapes,
-                               check_prefill, check_train, run_family)
+from torch_mesh_family import (BOUNDARY_HEADS, ONE_HEAD, SEQ_SHARD_DECODE, TOL_BOUNDARY_GRAD, VOCAB_SHARD,
+                               check_decode, check_local_shapes, check_prefill, check_train, run_family)
 
 ARCH = "llava-next-34b"
 
 
 @pytest.fixture(scope="module")
 def found(tmp_path_factory):
-    return run_family(ARCH, ARCH, tmp_path_factory.mktemp("vlm"), extra=("row_split",))
+    return run_family(ARCH, ARCH, tmp_path_factory.mktemp("vlm"), extra=("row_split", "row_share_boundary"))
 
 
 @pytest.mark.parametrize("variant", ["baseline", "sp"])
@@ -57,3 +59,19 @@ def test_row_split_steps_match_single_device(found):
     check_local_shapes(r["serve"]["prefill_baseline"], flash=[[1, 7]], rows=[[7, 0], [8, 23]])
     # decode: the rank's 8 of 32 rows of the sequence-sharded cache, all heads
     check_local_shapes(r["serve"]["decode_baseline"], decode=[[14, 2, 8, True]])
+
+
+@pytest.mark.parametrize("heads", [f"{h}/{kv}" for h, kv in BOUNDARY_HEADS])
+def test_row_share_boundary_matches_the_whole_tensors(found, heads):
+    """q, k, v from their column blocks to each rank's row share and back
+    (``attention.heads``, ``attend``), RoPE on the shares, at 32 rows:
+    the output and dq the whole call's bits, dk and dv within
+    ``TOL_BOUNDARY_GRAD``; ``write_cache``'s rows the whole RoPE'd K's and
+    V's bits, by the exchange to cache rows over ``model`` (an all-to-all
+    and no other collective) and by the gather into caches whole there."""
+    r = found["row_share_boundary"][heads]
+    assert r["share"] == "RowShareInputs", r
+    assert r["out"] == 0.0 and r["grads"][0] == 0.0, r
+    assert max(r["grads"]) < TOL_BOUNDARY_GRAD, r
+    assert r["rows"] == [True, True] and r["whole"] == [True, True], r
+    assert r["rows_route"] == ["all-to-all"] and r["whole_route"] == ["all-gather"], r

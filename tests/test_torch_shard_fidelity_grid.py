@@ -12,16 +12,21 @@ time-mix projections and, at batch 1, its channel mix's receptance product.
     step (the same step lowered on a 1 x 1 mesh) within ``TOL_FULL``: the
     reference's program computes each head's score products on both ranks
     of the head's group and the port does not (PERF.md), so the port reads
-    below it there;
+    below it there; and there no all-gather of a layer's whole q, k or v;
   * ``dist.row_split`` on emulated ranks in one process: the shares cover
     every (query head, row) pair once, a causal attention's zig-zag shares
     carry equal live pairs, and the flash kernel's plain version on each
     rank's share (its heads on its slices of the rows, ``q_offset`` moved
     with each) equals the whole call, outputs and summed gradients, causal
     and not; the exchange that takes the shares' output to ``wo``'s row
-    layout (``ops.RowsToWo``) lands each rank's block of the whole output,
-    and its inverse each share of the gradient; the decode on each rank's
-    heads and cache rows, merged, equals the whole decode.
+    layout (``ops.RowShareExchange.to_cols``) lands each rank's block of the
+    whole output, and its inverse each share of the gradient; the decode on
+    each rank's heads and cache rows, merged, equals the whole decode;
+  * the shares' inputs from the projections' column blocks, bit for bit:
+    q's share by ``to_rows`` (and back by ``to_cols``), the KV heads it
+    reads by ``ops.KvToShare`` (its backward summing each reader's gradient
+    into the owner's block), RoPE on a share against RoPE on the whole
+    tensor sliced, and prefill's cache rows from each rank's own block.
 """
 import json
 import os
@@ -117,6 +122,28 @@ def test_each_device_does_its_share_of_the_whole_step(counts):
     assert abs(got / counts["whole"] - 1) <= TOL_FULL, (got, counts["whole"])
 
 
+def test_no_row_share_input_is_gathered_whole(counts):
+    """whisper-base train_4k, whose 8 heads ``model`` (16) does not divide:
+    the row shares take q, k and v from the projections' column blocks, so
+    no all-gather of a layer's whole q, k or v is left, forward or backward
+    (the decoder's self and cross q, k, v and the encoder's, each a layer,
+    4.70 GB of the 11.69 GB of raw all-gathers before; read 6.99). A
+    device's shapes: batch 16, 4096 rows, H·D = d_model = 512, the vocab
+    padded to 51,872, 87,729,152 parameters. The one all-gather in
+    ``top_ops`` as large as a layer's q is the loss's logits over the vocab,
+    which ``model`` does not divide either; and the raw all-gathers sit
+    under the logits', the decoder embedding's output (B, S, d) and its
+    gradient brought whole on d by the plan's ``hidden`` spec, and every
+    parameter once in bf16: 7.11 GB."""
+    B, S, d, vocab, params = 16, 4096, 512, 51_872, 87_729_152
+    q_whole, logits = B * S * d * 2, B * S * vocab * 2  # 67,108,864 and 6,798,966,784 bytes
+    record = counts["port"]["/".join(BELOW)]["collective_detail"]
+    large = [op["bytes"] for op in record["top_ops"] if op["kind"] == "all-gather" and op["bytes"] >= q_whole]
+    assert large == [logits], record["top_ops"]
+    raw = record["by_kind"]["all-gather"]["raw_bytes"]
+    assert raw < logits + 2 * q_whole + 2 * params, raw
+
+
 # ---------------------------------------------------------------------------
 # the row split, on emulated ranks
 # ---------------------------------------------------------------------------
@@ -197,17 +224,18 @@ def _rand(gen, *shape):
     return torch.from_numpy(gen.standard_normal(shape).astype(np.float32))
 
 
-@pytest.mark.parametrize("heads,kv_heads,tp", [(8, 8, 16), (14, 2, 4)])
+@pytest.mark.parametrize("heads,kv_heads,tp", [(8, 8, 16), (14, 2, 4), (20, 5, 8)])
 @pytest.mark.parametrize("causal,sq,skv", [(True, 32, 32), (True, 23, 23), (False, 32, 32), (False, 23, 23),
                                            (False, 16, 12)])
 def test_flash_on_each_ranks_share_equals_the_whole_call(heads, kv_heads, tp, causal, sq, skv):
-    """The flash kernel's plain version on each rank's share, one call a
-    slice of its rows (the zig-zag's two under a causal mask, each from its
-    first row), outputs placed where the slice lies, dq likewise and dk, dv
-    summed over the calls and over the ranks that read each KV head, against
-    the whole call: self attention, causal and not, with rows that the parts
-    divide and rows they do not, and a cross attention of 16 query rows over
-    12 keys."""
+    """The flash kernel's plain version on each rank's share
+    (``ops.flash_on_share``, as the sharded steps call it), one call a slice
+    of its rows (the zig-zag's two under a causal mask, each from its first
+    row), outputs placed where the slices lie, dq likewise and dk, dv summed
+    over the ranks that read each KV head, against the whole call: self
+    attention, causal and not, with rows that the parts divide and rows they
+    do not, and a cross attention of 16 query rows over 12 keys. (20, 5, 8):
+    a group whose query heads read KV heads unevenly (a list ``share.kv``)."""
     gen = np.random.default_rng(sq + heads)
     B, D = 2, 16
     q, do = _rand(gen, B, sq, heads, D), _rand(gen, B, sq, heads, D)
@@ -218,15 +246,19 @@ def test_flash_on_each_ranks_share_equals_the_whole_call(heads, kv_heads, tp, ca
     got = [torch.zeros_like(q), torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)]
     for rank in range(tp):
         share = dist.row_split(_Mesh(tp, rank), heads, kv_heads)
-        for rows in share.rows(sq, causal=causal):
-            ql, kl, vl = (x.clone().requires_grad_() for x in (q[:, rows, share.heads], k[:, :, share.kv],
-                                                                v[:, :, share.kv]))
-            ol = ops.flash_attention(ql, kl, vl, causal=causal, q_offset=rows.start)
-            dql, dkl, dvl = torch.autograd.grad(ol, (ql, kl, vl), do[:, rows, share.heads])
-            got[0][:, rows, share.heads] = ol.detach()
-            got[1][:, rows, share.heads] = dql
-            got[2][:, :, share.kv] += dkl
-            got[3][:, :, share.kv] += dvl
+        picked, (lo, hi) = share.rows(sq, causal=causal), share.kv_span()
+        ql, dol = (torch.cat([x[:, r, share.heads] for r in picked], dim=1) for x in (q, do))
+        ql, kl, vl = (x.clone().requires_grad_() for x in (ql, k[:, :, lo:hi], v[:, :, lo:hi]))
+        ol, _ = ops.flash_on_share(ql, kl, vl, share, picked, causal)
+        dql, dkl, dvl = torch.autograd.grad(ol, (ql, kl, vl), dol)
+        row = 0
+        for r in picked:
+            n = r.stop - r.start
+            got[0][:, r, share.heads] = ol.detach()[:, row:row + n]
+            got[1][:, r, share.heads] = dql[:, row:row + n]
+            row += n
+        got[2][:, :, lo:hi] += dkl
+        got[3][:, :, lo:hi] += dvl
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
 
@@ -247,34 +279,35 @@ def _all_to_all(sent):
 @pytest.mark.parametrize("heads,kv_heads,tp", SPLITS)
 @pytest.mark.parametrize("causal,rows", [(True, 32), (True, 23), (False, 23), (True, 5)])
 def test_row_shares_reach_wos_rows_by_one_exchange(heads, kv_heads, tp, causal, rows):
-    """``ops.RowsToWo`` on emulated ranks: each rank packs its share of the
-    whole output (its heads on its slices of the rows), the all-to-all runs
-    over the ranks, and each rank's unpacked block is the whole output's
-    ``wo`` block t, (B, S, H·D)[..., t·C:(t+1)·C]: 1/tp of the output, where
-    the gather it replaces gave each rank all of it. The backward's exchange,
-    from each rank's block of a gradient, gives back each share of it.
+    """``ops.RowShareExchange.to_cols`` on emulated ranks: each rank packs
+    its share of the whole output (its heads on its slices of the rows), the
+    all-to-all runs over the ranks, and each rank's unpacked block is the
+    whole output's ``wo`` block t, (B, S, H·D)[..., t·C:(t+1)·C]: 1/tp of the
+    output, where the gather it replaces gave each rank all of it. The
+    backward's exchange (``to_rows``), from each rank's block of a gradient,
+    gives back each share of it.
     Rows 5 are fewer than 2·parts where parts is 4: the contiguous parts."""
     gen = np.random.default_rng(rows + heads)
     B, D = 2, 16
     whole, grad = _rand(gen, B, rows, heads, D), _rand(gen, B, rows, heads * D)
     shares = [dist.row_split(_Mesh(tp, rank), heads, kv_heads) for rank in range(tp)]
-    exchanges = [ops.RowsToWo(share, rows, heads, D, tp, causal) for share in shares]
+    exchanges = [ops.RowShareExchange(share, rows, heads, D, tp, causal) for share in shares]
     C = heads * D // tp
 
     def own(share):
         return torch.cat([whole[:, r, share.heads] for r in share.rows(rows, causal=causal)], dim=1)
 
-    sent = [(ex.pack(own(sh)), *ex.splits(B)) for ex, sh in zip(exchanges, shares)]
-    blocks = [ex.unpack(buf) for ex, buf in zip(exchanges, _all_to_all(sent))]
+    sent = [(ex.pack_rows(own(sh)), *ex.splits(B)) for ex, sh in zip(exchanges, shares)]
+    blocks = [ex.unpack_cols(buf) for ex, buf in zip(exchanges, _all_to_all(sent))]
     for t, block in enumerate(blocks):
         assert block.shape == (B, rows, C)
         torch.testing.assert_close(block, whole.reshape(B, rows, -1)[..., t * C:(t + 1) * C], rtol=0, atol=0)
-    back = _all_to_all([(ex.pack_grad(grad[..., t * C:(t + 1) * C]), *reversed(ex.splits(B)))
+    back = _all_to_all([(ex.pack_cols(grad[..., t * C:(t + 1) * C]), *ex.splits(B, to_rows=True))
                         for t, ex in enumerate(exchanges)])
     for share, ex, buf in zip(shares, exchanges, back):
         want = torch.cat([grad.reshape(B, rows, heads, D)[:, r, share.heads] for r in share.rows(rows, causal=causal)],
                          dim=1)
-        torch.testing.assert_close(ex.unpack_grad(buf), want, rtol=0, atol=0)
+        torch.testing.assert_close(ex.unpack_rows(buf), want, rtol=0, atol=0)
 
 
 def _stacked(t, op):
@@ -311,3 +344,126 @@ def test_decode_on_each_ranks_share_merged_equals_the_whole_decode(heads, kv_hea
     assert merged.dtype == q.dtype and not merged.isnan().any()
     whole = da.decode_attention(q, kc, vc, n)
     torch.testing.assert_close(merged.float(), whole.float(), rtol=TOL_BF16, atol=TOL_BF16)
+
+
+# ---------------------------------------------------------------------------
+# the row shares' inputs from the projections' column blocks, on emulated ranks
+# ---------------------------------------------------------------------------
+
+
+def _blocks(x, tp):
+    """``x`` (B, S, n) as the ``tp`` column blocks a column-parallel product leaves on ``model``'s ranks."""
+    return list(x.chunk(tp, dim=-1))
+
+
+def _rope_tables(rows, D):
+    from repro_torch.models import module as nn
+
+    return nn.rope_tables(torch.arange(rows), D, 10_000.0)
+
+
+@pytest.mark.parametrize("heads,kv_heads,tp", SPLITS)
+@pytest.mark.parametrize("causal,rows", [(True, 32), (True, 23), (False, 23)])
+def test_q_reaches_each_share_from_the_column_blocks(heads, kv_heads, tp, causal, rows):
+    """``RowShareExchange.to_rows`` on emulated ranks: from each rank's
+    column block of the whole q (B, S, H·D), each rank's share is the whole
+    q's slice, its heads on its rows in ``rows`` order, bit for bit; the
+    exchange back (``to_cols``, the way the share's output goes to ``wo``)
+    gives each rank its block again; and RoPE on the share
+    (``attention.rope_on_share``), at its rows' positions from the whole
+    sequence's tables, is RoPE on the whole q, sliced, bit for bit (and on
+    every row of a K, the whole q here, RoPE whole)."""
+    from repro_torch.models import attention
+    from repro_torch.models import module as nn
+
+    gen = np.random.default_rng(rows + heads)
+    B, D = 2, 16
+    whole = _rand(gen, B, rows, heads, D).to(torch.bfloat16)
+    blocks = _blocks(whole.flatten(2), tp)
+    shares = [dist.row_split(_Mesh(tp, rank), heads, kv_heads) for rank in range(tp)]
+    exchanges = [ops.RowShareExchange(share, rows, heads, D, tp, causal) for share in shares]
+    got = [ex.unpack_rows(buf) for ex, buf in
+           zip(exchanges, _all_to_all([(ex.pack_cols(b), *ex.splits(B, to_rows=True)) for ex, b in zip(exchanges, blocks)]))]
+    cos, sin = _rope_tables(rows, D)
+    rotated = nn.apply_rope(whole, None, tables=(cos, sin))
+    for share, q in zip(shares, got):
+        picked = share.rows(rows, causal=causal)
+        assert torch.equal(q, torch.cat([whole[:, r, share.heads] for r in picked], dim=1))
+        q_rot, k_rot = attention.rope_on_share(q, whole, picked, (cos, sin))
+        assert torch.equal(q_rot, torch.cat([rotated[:, r, share.heads] for r in picked], dim=1))
+        assert torch.equal(k_rot, rotated)
+    back = [ex.unpack_cols(buf) for ex, buf in
+            zip(exchanges, _all_to_all([(ex.pack_rows(q), *ex.splits(B)) for ex, q in zip(exchanges, got)]))]
+    for b, want in zip(back, blocks):
+        assert torch.equal(b, want)
+
+
+@pytest.mark.parametrize("heads,kv_heads,tp", SPLITS + [(12, 2, 8), (20, 5, 8)])
+@pytest.mark.parametrize("rows", [32, 23])
+def test_kv_heads_reach_each_share_from_their_owners(heads, kv_heads, tp, rows):
+    """``KvToShare`` on emulated ranks: from the column blocks of the whole
+    K and V stacked (2B, S, KVH·D), each rank receives exactly the columns
+    of the KV heads its share reads (``RowShare.kv_span``), every row, and
+    RoPE on them is RoPE on the whole K, sliced, bit for bit; the backward
+    sums each reader's gradient of those columns into their owner's block:
+    the gradient of the gather, each owner's block of the readers' sum. (12,
+    2, 8): groups inside one KV group, which read from ranks of the other
+    group; (20, 5, 8): groups that span KV groups unevenly (a KV head a
+    query head), whose KV columns lie on ranks outside the group too."""
+    from repro_torch.models import module as nn
+
+    gen = np.random.default_rng(rows * heads)
+    B, D = 2, 16
+    kv = _rand(gen, 2 * B, rows, kv_heads * D).to(torch.bfloat16)
+    exchanges = [ops.KvToShare(heads, kv_heads, D, tp, rank) for rank in range(tp)]
+    n = 2 * B * rows
+    got = [ex.unpack(buf, 2 * B, rows) for ex, buf in
+           zip(exchanges, _all_to_all([(ex.pack(b), *ex.splits(n)) for ex, b in zip(exchanges, _blocks(kv, tp))]))]
+    tables = _rope_tables(rows, D)
+    rotated = nn.apply_rope(kv.unflatten(-1, (kv_heads, D)), None, tables=tables)
+    for rank, g in enumerate(got):
+        lo, hi = dist.share_of(rank, heads, kv_heads, tp).kv_span()
+        assert torch.equal(g, kv[..., lo * D:hi * D])
+        assert torch.equal(nn.apply_rope(g.unflatten(-1, (hi - lo, D)), None, tables=tables), rotated[:, :, lo:hi])
+    grads = [_rand(gen, *g.shape) for g in got]
+    want = torch.zeros(2 * B, rows, kv_heads * D)
+    for rank, g in enumerate(grads):
+        lo, hi = dist.share_of(rank, heads, kv_heads, tp).kv_span()
+        want[..., lo * D:hi * D] += g
+    back = [ex.unpack_grad(buf, 2 * B, rows) for ex, buf in
+            zip(exchanges, _all_to_all([(ex.pack_grad(g), *reversed(ex.splits(n))) for ex, g in zip(exchanges, grads)]))]
+    torch.testing.assert_close(torch.cat(back, dim=-1), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("heads,kv_heads,tp", SPLITS)
+def test_prefill_cache_rows_from_the_shares(heads, kv_heads, tp):
+    """Prefill's cache rows from the row shares, as
+    ``ops.write_row_share_cache`` makes them where the cache lies in its
+    rows over ``model``: each rank cuts its own column block out of the
+    RoPE'd K/V columns it received (``ops.cache_exchange``), and one
+    exchange (``to_rows`` of a share
+    of every KV head over all tp ranks) gives rank t rows [t·S/tp,
+    (t+1)·S/tp) of every KV head: the whole RoPE'd K's and V's rows, bit for
+    bit."""
+    from repro_torch.models import module as nn
+
+    gen = np.random.default_rng(heads + tp)
+    B, D, S = 2, 16, 32
+    k, v = (_rand(gen, B, S, kv_heads * D).to(torch.bfloat16) for _ in range(2))
+    tables = _rope_tables(S, D)
+    kr = nn.apply_rope(k.unflatten(-1, (kv_heads, D)), None, tables=tables)
+    sent = []
+    for t in range(tp):
+        share = dist.share_of(t, heads, kv_heads, tp)
+        lo, hi = share.kv_span()
+        received = [nn.apply_rope(k[..., lo * D:hi * D].unflatten(-1, (hi - lo, D)), None, tables=tables),
+                    v[..., lo * D:hi * D].unflatten(-1, (hi - lo, D))]  # K/V as the share holds them
+        own, ex = ops.cache_exchange(*received, share, kv_heads, tp, t)
+        sent.append((ex, own))
+    rows = [ex.unpack_rows(buf) for (ex, _), buf in
+            zip(sent, _all_to_all([(ex.pack_cols(own), *ex.splits(2 * B, to_rows=True)) for ex, own in sent]))]
+    n = S // tp
+    for t, r in enumerate(rows):
+        assert r.shape == (2 * B, n, kv_heads, D)
+        assert torch.equal(r[:B], kr[:, t * n:(t + 1) * n])
+        assert torch.equal(r[B:], v.unflatten(-1, (kv_heads, D))[:, t * n:(t + 1) * n])

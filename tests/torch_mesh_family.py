@@ -360,6 +360,75 @@ def case_decode_idle(mesh, _arch=None) -> dict:
     return {"errs": errs, "local_shapes": _sorted_shapes(shapes)}
 
 
+#: the largest error of ``case_row_share_boundary``'s gradients relative to
+#: their largest element: two bf16 roundings where the whole call has one.
+#: Read: dq 0.0; dk, dv at most 6.0e-3 (llava's grouping)
+TOL_BOUNDARY_GRAD = 1e-2
+#: (query heads, KV heads) of ``case_row_share_boundary``: llava-next-34b's
+#: grouping (G 7, a KV head's columns over the two ranks of a group) and
+#: whisper-base's (G 1, three heads a group)
+BOUNDARY_HEADS = ((14, 2), (6, 6))
+
+
+def case_row_share_boundary(mesh, _arch=None) -> dict:
+    """The row shares' boundary on DTensors against the whole tensors, at a
+    sequence of 32 rows, which ``model`` (4) divides: q, k and v as the
+    column-parallel products leave them ((B, S, heads·D), the batch over
+    ``data``, the columns over ``model``) through ``attention.heads`` (RoPE
+    on the shares) and ``attention.attend``, against RoPE and the flash
+    kernel's plain version on the whole tensors: the output (B, S, H·D), the
+    gradients of q, k and v under a weighted sum, and ``write_cache`` into
+    caches whose rows lie over ``model`` (the all-to-all of each rank's
+    column block to the cache rows) and caches that hold them whole there
+    (the column blocks gathered), bit for bit against the whole RoPE'd K and
+    V, with the collectives each write ran (``counts.OpLog``'s kinds).
+    Gradients relative to their largest element (``TOL_BOUNDARY_GRAD``)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor, zeros
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    from repro_torch.models import module as nn
+    from repro_torch.sharding import dist
+    from repro_torch.sharding.plan import make_plan
+    from repro_torch.telemetry import counts
+
+    gen = torch.Generator().manual_seed(0)
+    Bb, S, D, theta = 2, 32, 16, 10_000.0
+    cols, plan = [Shard(0), Shard(2)], make_plan(None, None)
+    found = {}
+    for H, KVH in BOUNDARY_HEADS:
+        q, w = (torch.randn(Bb, S, H * D, generator=gen).to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(Bb, S, KVH * D, generator=gen).to(torch.bfloat16) for _ in range(2))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        positions = torch.arange(S)
+        qh, kh = (nn.apply_rope(x.unflatten(-1, (n, D)), positions, theta) for x, n in zip(leaves[:2], (H, KVH)))
+        want = ops.flash_attention(qh, kh, leaves[2].unflatten(-1, (KVH, D)), causal=True).flatten(2)
+        want_grads = torch.autograd.grad((want.float() * w.float()).sum(), leaves)
+        placed = [distribute_tensor(x, mesh, cols).requires_grad_() for x in (q, k, v)]
+        h = attention.heads(plan, *placed, H, KVH, D, causal=True, theta=theta)
+        got = attention.attend(h)
+        with dist.implicit_replication():
+            grads = torch.autograd.grad(dist.full((got.float() * w.float()).sum()), placed)
+        # the gradients' largest error relative to their largest element: dk and dv are sums of
+        # bf16 partials (the zig-zag's calls, the ranks of a KV head), the whole call's one rounding
+        errs = {"out": float((got.full_tensor() - want).detach().float().abs().max()),
+                "grads": [float((g.full_tensor().float() - x.float()).abs().max() / x.float().abs().max())
+                          for g, x in zip(grads, want_grads)]}
+        with torch.no_grad():
+            h = attention.heads(plan, *placed, H, KVH, D, causal=True, theta=theta)
+            for name, pl in (("rows", [Shard(1), Shard(2)]), ("whole", [Shard(1), Replicate()])):
+                kc, vc = (zeros(1, Bb, S, KVH, D, dtype=torch.bfloat16, device_mesh=mesh, placements=pl)
+                          for _ in range(2))
+                with counts.OpLog() as log:
+                    attention.write_cache(h, kc, vc, 0)
+                errs[name] = [bool(torch.equal(kc.full_tensor()[0], kh.detach())),
+                              bool(torch.equal(vc.full_tensor()[0], v.unflatten(-1, (KVH, D))))]
+                errs[f"{name}_route"] = sorted({c.kind for c in log.collectives})
+        errs["share"] = type(h).__name__
+        found[f"{H}/{KVH}"] = errs
+    return found
+
+
 def case_wkv6(mesh, _arch=None) -> dict:
     """``ops.wkv6`` on DTensors against the whole call, on the CPU (K5's
     plain version on each rank's local shards): the inputs in the sp layout
